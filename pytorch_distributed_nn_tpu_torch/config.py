@@ -1,10 +1,11 @@
-"""Config / flag system: the model part of the JAX package's
-``config.py``.
+"""Config / flag system: the JAX package's ``config.py``, with the fields
+the ported slices read.
 
-Typed dataclasses with dotted CLI overrides (``--model.extra
-'{"quantized": true}'``) and the named presets this slice serves. The
-training sections of a preset (optimizer, data, mesh, parallelism) are
-not ported yet; a dotted override naming them fails as an unknown field.
+Typed dataclasses with dotted CLI overrides (``--optim.lr=0.1``,
+``--model.extra '{"quantized": true}'``) and the named presets the port
+runs. A field the port does not read yet is not declared, so an override
+naming it (``--checkpoint_dir``, ``--multistep_k``, ``--optim.momentum``)
+fails as an unknown field instead of being ignored.
 """
 
 from __future__ import annotations
@@ -14,24 +15,65 @@ import json
 from dataclasses import dataclass, field
 from typing import Any
 
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import MeshSpec
+
+
+@dataclass
+class OptimConfig:
+    name: str = "sgd"  # only adamw is ported
+    lr: float = 0.01
+    weight_decay: float = 0.0
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    grad_clip_norm: float = 0.0  # 0 = off
+    warmup_steps: int = 0
+    schedule: str = "constant"  # constant | cosine | linear
+
+
+@dataclass
+class DataConfig:
+    dataset: str = "mnist"  # only lm_synthetic is ported
+    batch_size: int = 128  # global batch size
+    seq_len: int = 512
+    vocab_size: int = 32000
+    prefetch: int = 2  # background batches kept ready (0 = sync)
+
 
 @dataclass
 class ModelConfig:
     name: str = "mlp"  # only llama3_8b is ported
     dtype: str = "float32"  # param dtype
     compute_dtype: str = "bfloat16"
-    remat: bool = False  # a training feature; a forward ignores it
-    remat_offload: bool = False
+    remat: bool = False  # torch.utils.checkpoint on every block
+    remat_offload: bool = False  # not ported: raises when set
     extra: dict[str, Any] = field(default_factory=dict)
 
 
 @dataclass
-class Config:
+class ParallelConfig:
+    strategy: str = "dp"  # single | dp at world size 1 are ported
+    grad_accum: int = 1  # > 1 is not ported: raises
+
+
+@dataclass
+class TrainConfig:
     preset: str = ""
     seed: int = 0
+    steps: int = 100
+    log_every: int = 10
+    eval_every: int = 0  # 0 = no eval; else eval every N steps
+    eval_batches: int = 8  # batches per eval pass (held-out stream)
+    # chunk the LM softmax-xent over T (tokens per chunk; 0 = dense
+    # logits): one (B, chunk, V) logits block is live instead of (B, T, V)
+    xent_chunk: int = 0
+    mesh: MeshSpec = field(default_factory=MeshSpec)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
-    def override(self, **dotted: Any) -> "Config":
+    def override(self, **dotted: Any) -> "TrainConfig":
         cfg = copy.deepcopy(self)  # nested sub-configs must not alias self's
         for key, value in dotted.items():
             _set_dotted(cfg, key.replace("-", "_"), value)
@@ -81,20 +123,43 @@ def parse_overrides(argv: list[str]) -> dict[str, str]:
     return out
 
 
-def _llama3_8b_zero() -> Config:
-    # Config 5's model: the true Llama-3-8B dims (the builder's defaults)
-    return Config(preset="llama3_8b_zero",
-                  model=ModelConfig(name="llama3_8b", remat=True))
+def _llama3_8b_zero() -> TrainConfig:
+    # Config 5: Llama-3-8B sharded data-parallel. Its ZeRO training is
+    # multi-card work (ROADMAP slice 4); the serve entry uses its model.
+    return TrainConfig(
+        preset="llama3_8b_zero",
+        steps=20,
+        mesh=MeshSpec(fsdp=-1, data=1),
+        optim=OptimConfig(name="adamw", lr=3e-4, weight_decay=0.1,
+                          grad_clip_norm=1.0, warmup_steps=10,
+                          schedule="cosine"),
+        data=DataConfig(dataset="lm_synthetic", batch_size=16, seq_len=4096,
+                        vocab_size=128256),
+        model=ModelConfig(name="llama3_8b", remat=True),
+        parallel=ParallelConfig(strategy="zero"),
+        xent_chunk=2048,
+    )
 
 
-def _llama3_longcontext() -> Config:
-    # the scaled long-context stand-in with Llama-3's head_dim 128
-    return Config(
+def _llama3_longcontext() -> TrainConfig:
+    # 32k-token causal-LM training on one card: flash attention in both
+    # directions, remat on every block, chunked cross-entropy. head_dim 128
+    # is the real Llama-3 per-head geometry (4096 / 32).
+    return TrainConfig(
         preset="llama3_longcontext",
+        steps=10,
+        mesh=MeshSpec(seq=1, data=-1),
+        optim=OptimConfig(name="adamw", lr=1e-4, weight_decay=0.1,
+                          grad_clip_norm=1.0, warmup_steps=2,
+                          schedule="cosine"),
+        data=DataConfig(dataset="lm_synthetic", batch_size=1,
+                        seq_len=32768, vocab_size=32000),
         model=ModelConfig(name="llama3_8b", remat=True,
                           extra=dict(num_layers=8, d_model=1024,
                                      num_heads=8, num_kv_heads=4,
                                      mlp_dim=3584, vocab_size=32000)),
+        parallel=ParallelConfig(strategy="dp"),
+        xent_chunk=2048,
     )
 
 
@@ -104,7 +169,7 @@ PRESETS = {
 }
 
 
-def get_config(preset: str, **overrides: Any) -> Config:
+def get_config(preset: str, **overrides: Any) -> TrainConfig:
     if preset not in PRESETS:
         raise KeyError(f"unknown preset {preset!r}; have {sorted(PRESETS)}")
     cfg = PRESETS[preset]()

@@ -1,0 +1,97 @@
+"""Host-to-device loader for one device, with background prefetch: the
+JAX package's ``data/loader.py`` without the multi-process sharding.
+
+A producer thread generates the seed-deterministic batches and copies them
+to the device through pinned host memory (``non_blocking``), keeping
+``prefetch`` batches ready, so host generation overlaps device compute.
+On the CPU the arrays are wrapped as they are.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from pytorch_distributed_nn_tpu_torch.data.datasets import SyntheticDataset
+
+
+class DataLoader:
+    def __init__(self, dataset: SyntheticDataset, device: torch.device, *,
+                 start_step: int = 0, prefetch: int = 2) -> None:
+        self.dataset = dataset
+        self.device = torch.device(device)
+        self.start_step = start_step
+        self.prefetch = prefetch
+        self._thread: threading.Thread | None = None
+        self._stop = threading.Event()
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def batch_at(self, step: int) -> tuple[torch.Tensor, ...]:
+        """The batch of one step on the device (no prefetch)."""
+        return tuple(self._to_device(a) for a in self.dataset.batch(step))
+
+    def __iter__(self) -> Iterator[tuple[torch.Tensor, ...]]:
+        """Batches from ``start_step`` on. With ``prefetch > 0`` a producer
+        thread runs ahead; :meth:`close` (or closing the iterator) stops
+        and joins it."""
+        if self.prefetch <= 0:
+            step = self.start_step
+            while True:
+                yield self.batch_at(step)
+                step += 1
+        self.close()  # one producer at a time
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = self._stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer() -> None:
+            step = self.start_step
+            try:
+                while put(self.batch_at(step)):
+                    step += 1
+            except Exception as e:  # surface the error to the consumer
+                put(e)
+
+        thread = self._thread = threading.Thread(
+            target=producer, daemon=True, name="data-prefetch")
+        thread.start()
+        try:
+            while True:
+                try:
+                    item = q.get(timeout=1.0)
+                except queue.Empty:
+                    if not thread.is_alive():
+                        raise RuntimeError(
+                            "data prefetch thread died") from None
+                    continue
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        """Stop the producer thread and join it."""
+        self._stop.set()
+        thread, self._thread = self._thread, None
+        if thread is not None:
+            thread.join(timeout=30.0)
+            if thread.is_alive():
+                raise RuntimeError("data prefetch thread did not stop")

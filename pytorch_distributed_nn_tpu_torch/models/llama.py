@@ -3,6 +3,12 @@ biases, untied LM head. Counterpart of the JAX package's
 ``models/llama.py``; the ``llama3_8b`` builder defaults to the real 8B
 dims. Submodules and parameters keep the flax names and layout, so a
 ``state_dict`` key is the flattened flax path (``layer0.attn.qkv.kernel_q``).
+
+Float parameters are trainable (f32 by default; every dense layer casts
+input and kernel to the compute dtype, so gradients flow back through the
+cast). ``remat`` reruns each block's forward in the backward
+(``torch.utils.checkpoint``, the counterpart of ``nn.remat``); serving
+runs under ``torch.inference_mode()``, where none of this applies.
 """
 
 from __future__ import annotations
@@ -12,6 +18,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pytorch_distributed_nn_tpu_torch.config import ModelConfig
 from pytorch_distributed_nn_tpu_torch.models import register
@@ -30,8 +37,7 @@ class RMSNorm(nn.Module):
         self.eps = eps
         self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(dim, dtype=param_dtype,
-                                             device=device),
-                                  requires_grad=False)
+                                             device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.to(torch.float32)
@@ -48,8 +54,7 @@ class _Dense(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.zeros(
-            (in_features, features), dtype=param_dtype, device=device),
-            requires_grad=False)
+            (in_features, features), dtype=param_dtype, device=device))
 
     def forward(self, x):
         return x.to(self.dtype) @ self.kernel.to(self.dtype)
@@ -104,11 +109,13 @@ class LlamaBlock(nn.Module):
 
 
 class Llama(nn.Module):
-    """``forward(tokens, cache=None, cache_positions=None, last_only=False)``
-    returns f32 logits (B, T, V), or (B, 1, V) with ``last_only``. With
-    ``cache`` (from ``inference.generate.init_cache``) it decodes against
-    the KV cache and writes the fed tokens' K/V into it in place;
-    ``cache_positions`` (B,) int gives each row its own cache depth.
+    """``forward(tokens, cache=None, cache_positions=None, last_only=False,
+    return_hidden=False)`` returns f32 logits (B, T, V), or (B, 1, V) with
+    ``last_only``; ``return_hidden`` skips the LM head and returns the
+    final-norm'd (B, T, D) trunk output (the chunked loss applies the head
+    blockwise). With ``cache`` (from ``inference.generate.init_cache``) it
+    decodes against the KV cache and writes the fed tokens' K/V into it in
+    place; ``cache_positions`` (B,) int gives each row its own cache depth.
     Built on ``device`` (default ``cuda``, which raises without CUDA)."""
 
     def __init__(self, *, vocab_size: int = 128256, num_layers: int = 32,
@@ -118,9 +125,16 @@ class Llama(nn.Module):
                  attn_impl: str = "auto", dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32,
                  quantized: bool = False, cache_dtype: str = "compute",
-                 fused_proj: bool = False, device="cuda") -> None:
+                 fused_proj: bool = False, remat: bool = False,
+                 remat_offload: bool = False, device="cuda") -> None:
         super().__init__()
+        if remat_offload:
+            raise NotImplementedError(
+                "remat_offload (XLA host offload of the remat boundaries) is "
+                "not ported yet (ROADMAP.md, trainer features still to port: "
+                "remat offload)")
         device = resolve_device(device)
+        self.remat = remat
         self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.d_model = d_model
@@ -134,8 +148,7 @@ class Llama(nn.Module):
         else:
             self.tok_embed = nn.Module()
             self.tok_embed.embedding = nn.Parameter(torch.zeros(
-                (vocab_size, d_model), dtype=param_dtype, device=device),
-                requires_grad=False)
+                (vocab_size, d_model), dtype=param_dtype, device=device))
         for i in range(num_layers):
             self.add_module(f"layer{i}", LlamaBlock(
                 d_model, num_heads, num_kv_heads, mlp_dim,
@@ -162,18 +175,27 @@ class Llama(nn.Module):
 
     def forward(self, tokens: torch.Tensor, cache: Optional[dict] = None,
                 cache_positions: Optional[torch.Tensor] = None,
-                last_only: bool = False) -> torch.Tensor:
+                last_only: bool = False,
+                return_hidden: bool = False) -> torch.Tensor:
         if self.quantized:
             x = self.tok_embed(tokens)
         else:
-            x = self.tok_embed.embedding[tokens].to(self.dtype)
+            # int32 tokens index as they are (values unchanged)
+            x = F.embedding(tokens, self.tok_embed.embedding).to(self.dtype)
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for i in range(self.num_layers):
-            x = getattr(self, f"layer{i}")(
-                x, cache=None if cache is None else cache[f"layer{i}"],
-                cache_positions=cache_positions)
+            block = getattr(self, f"layer{i}")
+            layer_cache = None if cache is None else cache[f"layer{i}"]
+            if remat:
+                x = checkpoint(block, x, layer_cache, cache_positions,
+                               use_reentrant=False)
+            else:
+                x = block(x, cache=layer_cache,
+                          cache_positions=cache_positions)
         if last_only:
             x = x[:, -1:]
-        return self.lm_head(self.final_norm(x))
+        x = self.final_norm(x)
+        return x if return_hidden else self.lm_head(x)
 
 
 @register("llama3_8b")
@@ -193,6 +215,8 @@ def build_llama3_8b(cfg: ModelConfig, device="cuda") -> Llama:
         quantized=e.get("quantized", False),
         cache_dtype=e.get("cache_dtype", "compute"),
         fused_proj=e.get("fused_proj", False),
+        remat=cfg.remat,
+        remat_offload=cfg.remat_offload,
         dtype=policy.compute_dtype,
         param_dtype=policy.param_dtype,
         device=device,

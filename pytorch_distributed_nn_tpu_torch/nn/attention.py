@@ -7,11 +7,13 @@ plain dict of tensors per attention layer (``cached_key`` and
 PLACE, where the JAX code threads a donated flax "cache" collection
 through ``apply``.
 
-Ported: ``impl="xla"`` (plain PyTorch; ``"auto"`` resolves to it), the
-decode cache with a shared ``cache_index`` or per-row ``cache_positions``,
+Ported: ``impl="xla"`` (plain PyTorch), ``impl="flash"`` (the hand-written
+CUDA kernels of ``ops/flash_attention.py`` in both directions, their plain
+versions on the CPU), ``impl="auto"`` (:func:`_auto_impl`), the decode
+cache with a shared ``cache_index`` or per-row ``cache_positions``,
 grouped-query attention that never repeats the cached K/V. Not yet:
-``impl="flash"``, ``"ring"`` and ``"ulysses"``, ``cache_dtype="int8"`` and
-LoRA deltas (ROADMAP.md, TPU kernels still to port and serving features).
+``"ring"`` and ``"ulysses"``, ``cache_dtype="int8"`` and LoRA deltas
+(ROADMAP.md, TPU kernels still to port and serving features).
 """
 
 from __future__ import annotations
@@ -23,6 +25,10 @@ import torch
 from torch import nn
 
 from pytorch_distributed_nn_tpu_torch.nn.quantized import Int8DenseGeneral
+from pytorch_distributed_nn_tpu_torch.ops.flash_attention import (
+    KERNEL_HEAD_DIMS,
+    flash_attention,
+)
 
 _NEG = -1e30  # the JAX package's mask value, in f32
 
@@ -53,17 +59,54 @@ def rotary_embedding(q: torch.Tensor, k: torch.Tensor, *,
     return rotate(q), rotate(k)
 
 
-def dot_product_attention(q, k, v, *, causal: bool, impl: str = "xla"):
-    """q: (B, T, H, D); k/v: (B, S, Hkv, D). Softmax in f32; the products
-    are f32 products of the upcast operands (``preferred_element_type``)."""
-    if impl in ("flash", "ring", "ulysses"):
+# 'auto' takes the flash kernels on CUDA from this sequence length up. One
+# layer's attention forward + backward at the long-context shapes (B 1,
+# 8/4 heads, D 128, bf16), flash against the plain path, measured on an
+# H100: flash is faster at every T swept, 128 to 4096 (PERF.md, "auto
+# threshold"; chip_smoke.py phase "auto" prints the sweep). Below 128 is
+# not measured.
+FLASH_MIN_T = 128
+
+
+def _auto_impl(q_shape, k_shape, *, has_mask: bool, device: torch.device,
+               dtype: torch.dtype) -> str:
+    """The 'auto' flash-vs-xla decision: flash on CUDA for bf16
+    self-attention with no mask, a head_dim the kernels take, and
+    T >= :data:`FLASH_MIN_T`; the plain path elsewhere, the CPU included
+    (as the JAX package stays on xla off the TPU)."""
+    T = q_shape[1]
+    return ("flash" if device.type == "cuda" and not has_mask
+            and dtype == torch.bfloat16 and q_shape[3] in KERNEL_HEAD_DIMS
+            and k_shape[1] == T and T >= FLASH_MIN_T else "xla")
+
+
+def dot_product_attention(q, k, v, *, causal: bool, impl: str = "xla",
+                          mask: Optional[torch.Tensor] = None):
+    """q: (B, T, H, D); k/v: (B, S, Hkv, D) with H % Hkv == 0. Returns
+    (B, T, H, D) in q's dtype.
+
+    ``impl``: ``'xla'`` (plain PyTorch: softmax in f32, the products f32
+    products of the upcast operands, as ``preferred_element_type`` gives;
+    the only one that takes a ``mask``, (B, S) padding or (B|1, T, S)
+    position, and cross-length K/V), ``'flash'`` (``ops.flash_attention``:
+    the CUDA kernels in both directions, K/V kept grouped) or ``'auto'``
+    (:func:`_auto_impl`)."""
+    if impl == "auto":
+        impl = _auto_impl(q.shape, k.shape, has_mask=mask is not None,
+                          device=q.device, dtype=q.dtype)
+    if impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention impl {impl!r} is not ported yet (ROADMAP.md, TPU "
-            "kernels still to port: flash_attention / ring_attention)")
-    if impl not in ("xla", "auto"):
+            "kernels still to port: ring_attention, slice 4)")
+    if impl not in ("xla", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
     B, T, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
+    if impl == "flash":
+        if mask is not None:
+            raise ValueError(
+                "flash impl does not take a padding mask; use impl='xla'")
+        return flash_attention(q, k, v, causal=causal)
     dtype = q.dtype
     if H != Hkv:
         k = k.repeat_interleave(H // Hkv, dim=2)
@@ -73,6 +116,9 @@ def dot_product_attention(q, k, v, *, causal: bool, impl: str = "xla"):
         causal_mask = torch.ones((T, S), dtype=torch.bool,
                                  device=q.device).tril()
         logits = logits.masked_fill(~causal_mask[None, None], _NEG)
+    if mask is not None:
+        keep = mask[:, None, None, :] if mask.dim() == 2 else mask[:, None]
+        logits = logits.masked_fill(~keep, _NEG)
     probs = torch.softmax(logits, dim=-1).to(dtype)
     return torch.einsum("bhts,bshd->bthd", probs.float(),
                         v.float()).to(dtype)
@@ -123,7 +169,7 @@ class _DenseGeneral(nn.Module):
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.zeros(
             self.in_shape + self.features, dtype=param_dtype,
-            device=device), requires_grad=False)
+            device=device))
 
     def forward(self, x):
         nin = len(self.in_shape)

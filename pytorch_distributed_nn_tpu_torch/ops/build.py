@@ -4,7 +4,8 @@
 ``<package>/_build/`` (listed in ``.gitignore``), named by a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one
 loads what is there. The library is bound with ``ctypes``. Nothing here
-runs at import time.
+runs at import time. Each source has its own lock, so different sources
+build in parallel (:func:`load_libraries`).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -25,7 +27,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 # source name -> (seconds spent building, 0.0 when already built; the
 # compiler's report of registers, shared memory and spills)
@@ -55,6 +58,8 @@ def library_path(source: str) -> Path:
 def load_library(source: str) -> ctypes.CDLL:
     """The ctypes handle for ``csrc/<source>``, built on first use."""
     with _lock:
+        lock = _locks.setdefault(source, threading.Lock())
+    with lock:
         lib = _loaded.get(source)
         if lib is not None:
             return lib
@@ -86,3 +91,11 @@ def load_library(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _loaded[source] = lib
         return lib
+
+
+def load_libraries(*sources: str) -> list[ctypes.CDLL]:
+    """:func:`load_library` for every source, one ``nvcc`` each, all
+    started together."""
+    with ThreadPoolExecutor(max_workers=max(len(sources), 1)) as pool:
+        futures = [pool.submit(load_library, s) for s in sources]
+        return [f.result() for f in futures]

@@ -1,10 +1,12 @@
 """Weights across the two packages.
 
 :func:`llama_params_from_jax` turns the JAX package's Llama param tree
-(nested dicts with numpy leaves, e.g. ``jax.device_get(params)``) into this
-package's ``state_dict``. Both packages use the flax names and layouts, so
-the conversion flattens the path with dots and converts each leaf; it
-serves the float and the int8 layouts alike. Nothing here imports JAX.
+(nested dicts with numpy leaves, e.g. ``jax.device_get(params)``, the
+``Trainer``'s initial float params included) into this package's
+``state_dict``; :func:`llama_params_to_jax` goes the other way. Both
+packages use the flax names and layouts, so the conversion flattens (or
+nests) the path at the dots and converts each leaf; it serves the float
+and the int8 layouts alike. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -37,4 +39,22 @@ def llama_params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                 out[key] = _leaf(value)
 
     walk(tree, "")
+    return out
+
+
+def llama_params_to_jax(state_dict: Mapping[str, torch.Tensor]
+                        ) -> dict[str, Any]:
+    """``{"layer0.attn.query.kernel": tensor}`` ->
+    ``{"layer0": {"attn": {"query": {"kernel": array}}}}``, numpy leaves
+    (bf16 leaves come out as f32, which numpy can hold)."""
+    out: dict[str, Any] = {}
+    for key, value in state_dict.items():
+        node = out
+        *path, leaf = key.split(".")
+        for name in path:
+            node = node.setdefault(name, {})
+        t = value.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        node[leaf] = t.numpy()
     return out

@@ -1,12 +1,13 @@
-"""The port's CUDA kernel on the card: builds with nvcc, launches, and
-agrees with its plain PyTorch version. Marked ``cuda``; each test skips
+"""The port's CUDA kernels on the card: they build with nvcc, launch, and
+agree with their plain PyTorch versions. Marked ``cuda``; each test skips
 where no CUDA device is present (decided inside the fixture).
 
 On a GPU machine: ``python -m pytest --noconftest tests/test_torch_cuda.py``
 (``tests/conftest.py`` imports JAX, which the port does not need).
-Tolerance: the kernel and the plain version sum the same f32 products in
-another order (K split across blocks), so f32 outputs agree to ~1e-6 of
-the largest output and bf16 outputs to one bf16 rounding step (2^-8).
+Tolerance of the W8A16 kernel: it and the plain version sum the same f32
+products in another order (K split across blocks), so f32 outputs agree to
+~1e-6 of the largest output and bf16 outputs to one bf16 rounding step
+(2^-8). The flash kernels' tolerances are stated beside their tests.
 """
 
 import numpy as np
@@ -21,7 +22,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: the W8A16 kernel runs only on the card")
+        pytest.skip("no CUDA device: the CUDA kernels run only on the card")
     return torch.device("cuda")
 
 
@@ -90,3 +91,148 @@ def test_engine_on_cuda_matches_generate(cuda):
         assert r.ok
         ref = generate(model, p[None], 4).cpu().numpy()
         np.testing.assert_array_equal(r.tokens, ref[0, len(p):])
+
+
+# --------------------------------------------------------------------------
+# flash attention: forward, dq pass and dk/dv pass against the plain versions
+# --------------------------------------------------------------------------
+# The kernels round p (and ds in the backward) to bf16 for the tensor-core
+# products and write bf16 outputs; the plain versions keep everything in
+# f32. So O, dq, dk and dv agree to a few bf16 steps of the largest output
+# (FLASH_TOL of max|ref|); lse is f32 statistics of the same bf16 inputs
+# and agrees to f32 rounding (LSE_TOL, absolute). A gradient that is zero
+# in exact arithmetic (dq at T = 1: one key, so ds = dp - delta = 0) is
+# rounding noise on both sides: the error is then taken against FLOOR.
+FLASH_TOL = 2e-2
+LSE_TOL = 1e-4
+FLOOR = 1e-3
+
+
+def _flash_inputs(cuda, B, T, H, Hkv, D, seed):
+    g = torch.Generator(cuda).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+
+    return r(B, T, H, D), r(B, T, Hkv, D), r(B, T, Hkv, D), r(B, T, H, D)
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp(min=FLOOR)).item()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T,D", [(1, 128), (50, 128), (257, 128),
+                                 (257, 64)])
+def test_flash_kernels_match_plain_versions(cuda, T, D, causal):
+    from pytorch_distributed_nn_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(cuda, 2, T, 8, 4, D, seed=T)
+    n = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+         fa.flash_bwd_dkv.launches)
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, causal)
+    delta = fa.flash_delta(o, do)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(c + 1 for c in n)
+    assert _rel(o, o_ref) <= FLASH_TOL
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+    dq_ref = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                causal)
+    assert _rel(dq, dq_ref) <= FLASH_TOL
+    assert _rel(dk, dk_ref) <= FLASH_TOL
+    assert _rel(dv, dv_ref) <= FLASH_TOL
+    dk32, dv32 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                  out_dtype=torch.float32)
+    assert dk32.dtype == torch.float32
+    assert _rel(dk32, dk_ref) <= FLASH_TOL and _rel(dv32, dv_ref) <= FLASH_TOL
+
+
+def test_flash_gradients_are_deterministic(cuda):
+    from pytorch_distributed_nn_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+
+    q, k, v, do = _flash_inputs(cuda, 1, 777, 8, 4, 128, seed=5)
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        flash_attention(*leaves, causal=True).backward(do)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_flash_kernels_raise_on_bad_input(cuda):
+    from pytorch_distributed_nn_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _flash_inputs(cuda, 1, 16, 4, 2, 128, seed=0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_fwd(q.float(), k.float(), v.float(), True)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(q[..., :32], k[..., :32], v[..., :32], True)
+    with pytest.raises(ValueError, match="self-attention"):
+        fa.flash_fwd(q, k[:, :8], v[:, :8], True)
+
+
+# --------------------------------------------------------------------------
+# one tiny training step on the card: flash kernels against plain attention
+# --------------------------------------------------------------------------
+# Same weights and batch; the two attentions differ in where they round to
+# bf16 (p and ds for the tensor cores against the plain path's bf16
+# probabilities), so the loss agrees to 1e-3 relative and each gradient to
+# TRAIN_GRAD_TOL of its largest element.
+TRAIN_GRAD_TOL = 5e-2
+
+
+def _tiny_trainer(cuda, impl):
+    import json
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    extra = dict(num_layers=2, d_model=256, num_heads=2, num_kv_heads=1,
+                 mlp_dim=512, vocab_size=512, attn_impl=impl)
+    cfg = get_config("llama3_longcontext", **{
+        "model.extra": json.dumps(extra), "data.vocab_size": "512",
+        "data.seq_len": "200", "xent_chunk": "40", "log_every": "1"})
+    return Trainer(cfg, device=cuda)
+
+
+def _loss_and_grads(trainer):
+    from pytorch_distributed_nn_tpu_torch.parallel import dp
+    from pytorch_distributed_nn_tpu_torch.parallel.api import (
+        make_chunked_loss,
+    )
+
+    x, y = trainer.loader.batch_at(0)
+    loss = dp._loss_and_grads(trainer.state, x, y, make_chunked_loss(40))
+    grads = {n: p.grad.clone() for n, p in trainer.model.named_parameters()}
+    trainer.state.optimizer.zero_grad()
+    return loss.item(), grads
+
+
+def test_tiny_training_step_matches_plain_attention(cuda):
+    from pytorch_distributed_nn_tpu_torch.ops import flash_attention as fa
+
+    flash = _tiny_trainer(cuda, "flash")
+    plain = _tiny_trainer(cuda, "xla")  # the same seeded init
+    loss_f, grads_f = _loss_and_grads(flash)
+    loss_x, grads_x = _loss_and_grads(plain)
+    assert abs(loss_f - loss_x) <= 1e-3 * abs(loss_x)
+    for name, gx in grads_x.items():
+        err = (grads_f[name] - gx).abs().max() / gx.abs().max()
+        assert err.item() <= TRAIN_GRAD_TOL, name
+    # two full steps: 2 layers x 2 forwards (remat), 2 dq, 2 dk/dv each
+    n = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+         fa.flash_bwd_dkv.launches)
+    flash.train(steps=2)
+    got = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+           fa.flash_bwd_dkv.launches)
+    assert tuple(a - b for a, b in zip(got, n)) == (8, 4, 4)
+    assert all(np.isfinite(flash.losses()))

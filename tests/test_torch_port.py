@@ -22,7 +22,8 @@ def _port_modules():
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     mods = _port_modules()
-    assert "pytorch_distributed_nn_tpu_torch.serve.engine" in mods
+    for m in ("serve.engine", "train.trainer", "ops.flash_attention"):
+        assert f"pytorch_distributed_nn_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -69,4 +70,10 @@ def test_cuda_without_cuda_raises(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         get_model(get_config("llama3_8b_zero").model)
+    from pytorch_distributed_nn_tpu_torch.train.__main__ import (
+        main as train_main,
+    )
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["--preset", "llama3_longcontext"])
     assert resolve_device("cpu") == torch.device("cpu")
