@@ -45,6 +45,30 @@ Phases (any failure exits non-zero and prints no result line):
               read just after; three requests' tokens must equal a solo
               sequential generate() of their prompts.
 
+The data-parallel slice (run after phase 3, and after phase 5):
+
+8. bn_stats -- the BatchNorm-statistics kernel at ResNet-50's largest and
+              smallest BatchNorm at batch 256 and one ragged M, bf16 and
+              f32, kernel and plain version against an f64 sum (1e-5 of
+              sum|term| per channel), bitwise repeatable; one training
+              step's 53 + 53 calls timed for the kernel, the plain version
+              and torch.batch_norm_stats / batch_norm_backward_reduce.
+9. quantize -- the stochastic int8 kernel on a 25 MB bucket and on the
+              whole ResNet-50 gradient: bit for bit its plain version,
+              |q scale - x| < scale, mean error within 4 sigma, saturation;
+              one step's buckets timed for the kernel and the plain version.
+10. dp_check -- one full-width ResNet-50 step at batch 256, bn_stats kernel
+              against the torch reductions: loss and every gradient.
+11. dp_train -- the main path: resnet50_dp with parallel.strategy
+              dp_explicit, the int8 wire and bn_impl pallas, batch 256 on
+              one card (NCCL, world 1): 2 warm-up and 4 timed steps with the
+              counts reset just before and read just after (53 + 53
+              bn_stats and one quantize a bucket a step), images/s, MFU,
+              peak memory, loader wait, bytes a step on each wire; one step
+              under torch.profiler.
+12. dp_preset -- resnet50_dp as it is (dp, flax BatchNorm, exact reduce) at
+              batch 256, and mlp_mnist as it is for 20 steps.
+
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit from nvidia-smi, and the result JSON line.
 """
@@ -610,6 +634,601 @@ def phase_train():
     return result, launches
 
 
+# ---------------------------------------------------------------------------
+# slice 3: the data-parallel path (ResNet-50), its bn_stats and quantize
+# ---------------------------------------------------------------------------
+BN_SOURCE = "pytorch_distributed_nn_tpu_torch/csrc/bn_stats.cu"
+BN_TPU = "pytorch_distributed_nn_tpu/ops/pallas/bn_stats.py:64"
+QUANT_SOURCE = "pytorch_distributed_nn_tpu_torch/csrc/quantize.cu"
+QUANT_TPU = "pytorch_distributed_nn_tpu/ops/pallas/quantize.py:33"
+F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+# per-channel sums, kernel or plain version, against an f64 sum: f32
+# summation error for these lengths stays well inside 1e-5 of sum|term|
+BN_TOL = 1e-5
+# one full-width ResNet-50 step, bn_stats kernel vs the torch reductions
+# (bn_impl pallas vs flax) from the same weights and batch: the sums round
+# in another order, and a bf16 activation may round to its neighbour, which
+# 53 BatchNorms carry into every gradient. The backward's raw moments
+# (sum dy*x - mean * sum dy, the JAX formula) cancel where a channel's mean
+# is large against its spread, so even in f32 a last-bit difference in the
+# sums grows to percents in a few gradient elements
+DP_LOSS_TOL = 1e-3  # relative
+DP_GRAD_TOL = 5e-2  # max|err| / max|ref|, per parameter
+DP_BATCH = 256  # one card's share of the preset's 1024 on a four-card mesh
+RESNET_BN_PER_STEP = 53
+DP_OVERRIDES = {"parallel.strategy": "dp_explicit",
+                "parallel.quantized_allreduce": "int8",
+                "model.extra": json.dumps({"bn_impl": "pallas"}),
+                "data.batch_size": str(DP_BATCH), "log_every": "1"}
+
+
+def resnet50_bn_shapes(batch, image=224):
+    """(M, C) of the 53 BatchNorms of ResNet-50 at ``batch``, in forward
+    order: the stem's, then each bottleneck's bn1, bn2, bn3 (and bn_proj)."""
+    h = image // 2
+    shapes = [(batch * h * h, 64)]
+    h //= 2
+    ch = 64
+    for stage, n in enumerate((3, 4, 6, 3)):
+        f = 64 * 2 ** stage
+        for block in range(n):
+            stride = 2 if stage > 0 and block == 0 else 1
+            ho = (h - 1) // stride + 1
+            shapes += [(batch * h * h, f), (batch * ho * ho, f),
+                       (batch * ho * ho, 4 * f)]
+            if ch != 4 * f or stride != 1:
+                shapes.append((batch * ho * ho, 4 * f))
+            h, ch = ho, 4 * f
+    return shapes
+
+
+def bn_counts():
+    from pytorch_distributed_nn_tpu_torch.ops import bn_stats
+
+    return {"sum_and_sumsq": bn_stats.sum_and_sumsq.launches,
+            "sum_and_dot": bn_stats.sum_and_dot.launches}
+
+
+def quantize_count():
+    from pytorch_distributed_nn_tpu_torch.ops import quantize as tq
+
+    return tq.quantize_int8.launches
+
+
+def reset_dp_counts():
+    from pytorch_distributed_nn_tpu_torch.ops import bn_stats
+    from pytorch_distributed_nn_tpu_torch.ops import quantize as tq
+
+    bn_stats.sum_and_sumsq.launches = 0
+    bn_stats.sum_and_dot.launches = 0
+    bn_stats.copies = 0
+    tq.quantize_int8.launches = 0
+
+
+def bound(nbytes, ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bn_check(name, got, ref64, mag):
+    err = (got.double() - ref64).abs()
+    worst = float((err / mag.clamp(min=1e-300)).max())
+    if not bool((err <= BN_TOL * mag).all()):
+        raise AssertionError(f"{name}: per-channel |err| / sum|term| "
+                             f"{worst:.3e} > {BN_TOL}")
+    return float(err.max()), worst
+
+
+def phase_bn_stats():
+    """bn_stats at ResNet-50's largest and smallest BatchNorm at batch 256
+    and one ragged M, bf16 and f32: kernel and plain version against an
+    f64 sum; then the 53 forward and 53 backward calls of one training
+    step at their shapes, timed for the kernel, the plain version and the
+    library (torch.batch_norm_stats / batch_norm_backward_reduce)."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.ops import bn_stats
+
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(3)
+    rows, max_err, worst_rel = [], 0.0, 0.0
+    for m, c in ((DP_BATCH * 112 * 112, 64), (DP_BATCH * 7 * 7, 2048),
+                 (200_003, 96)):
+        for dtype in (torch.bfloat16, torch.float32):
+            a = (torch.randn((m, c), generator=g, device=dev) + 0.5).to(dtype)
+            b = torch.randn((m, c), generator=g, device=dev).to(dtype)
+            a64, b64 = a.double(), b.double()
+            want = {"s1": a64.sum(0), "sq": (a64 * a64).sum(0),
+                    "dot": (a64 * b64).sum(0)}
+            mag = {"s1": a64.abs().sum(0), "sq": want["sq"],
+                   "dot": (a64 * b64).abs().sum(0)}
+            del a64, b64
+            outs = {"kernel": (bn_stats.sum_and_sumsq(a),
+                               bn_stats.sum_and_dot(a, b)),
+                    "plain": (bn_stats.sum_and_sumsq_reference(a),
+                              bn_stats.sum_and_dot_reference(a, b))}
+            torch.cuda.synchronize()
+            for who, ((s1, s2), (d1, d2)) in outs.items():
+                for key, got in (("s1", s1), ("sq", s2), ("s1", d1),
+                                 ("dot", d2)):
+                    err, rel = bn_check(f"bn_stats {who} {key} ({m}, {c}) "
+                                        f"{dtype}", got, want[key], mag[key])
+                    if who == "kernel":
+                        max_err, worst_rel = max(max_err, err), max(worst_rel,
+                                                                     rel)
+            again = bn_stats.sum_and_dot(a, b)
+            if not (torch.equal(again[0], outs["kernel"][1][0])
+                    and torch.equal(again[1], outs["kernel"][1][1])):
+                raise AssertionError("bn_stats is not bitwise repeatable")
+            nbytes = m * c * a.element_size()
+            row = dict(m=m, c=c, dtype=str(dtype).split(".")[-1],
+                       fwd_ms=time_ms(lambda: bn_stats.sum_and_sumsq(a), 10),
+                       bwd_ms=time_ms(lambda: bn_stats.sum_and_dot(a, b), 10),
+                       fwd_bound_ms=bound(nbytes, 3 * m * c)[0],
+                       bwd_bound_ms=bound(2 * nbytes, 3 * m * c)[0])
+            rows.append(row)
+            log(f"[bn_stats] {json.dumps(row)}")
+            del a, b, outs, again, want, mag
+            torch.cuda.empty_cache()
+
+    # one training step's 106 calls at ResNet-50's shapes, bf16
+    shapes = resnet50_bn_shapes(DP_BATCH)
+    if len(shapes) != RESNET_BN_PER_STEP:
+        raise AssertionError(f"{len(shapes)} BatchNorm shapes")
+    big = max(m * c for m, c in shapes)
+    a = torch.randn((big,), generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn((big,), generator=g, device=dev).to(torch.bfloat16)
+
+    def views(t):
+        return [t[:m * c].view(m, c) for m, c in shapes]
+
+    def nchw(t, m, c):  # the (M, C) matrix as channels_last (N, C, H, W)
+        hw = m // DP_BATCH
+        side = int(round(hw ** 0.5))
+        return t[:m * c].view(DP_BATCH, side, side, c).permute(0, 3, 1, 2)
+
+    av, bv = views(a), views(b)
+    a4 = [nchw(a, m, c) for m, c in shapes]
+    b4 = [nchw(b, m, c) for m, c in shapes]
+
+    def loop(fn, xs, ys=None):
+        def run():
+            for i, x in enumerate(xs):
+                fn(x) if ys is None else fn(x, ys[i])
+        return run
+
+    t = {"kernel_fwd": time_ms(loop(bn_stats.sum_and_sumsq, av), 10),
+         "kernel_bwd": time_ms(loop(bn_stats.sum_and_dot, av, bv), 10),
+         "plain_fwd": time_ms(loop(bn_stats.sum_and_sumsq_reference, av), 3),
+         "plain_bwd": time_ms(loop(bn_stats.sum_and_dot_reference, av, bv),
+                              3)}
+    try:
+        stats = [torch.batch_norm_stats(x, 1e-5) for x in a4]
+        t["library_fwd"] = time_ms(
+            loop(lambda x: torch.batch_norm_stats(x, 1e-5), a4), 10)
+        t["library_bwd"] = time_ms(lambda: [
+            torch.batch_norm_backward_reduce(dy, x, mu, inv, None, True,
+                                             False, False)
+            for dy, x, (mu, inv) in zip(b4, a4, stats)], 10)
+    except RuntimeError as e:  # a yardstick only: report it as missing
+        log(f"[bn_stats] library call failed: {e}")
+        t["library_fwd"] = t["library_bwd"] = None
+    el = sum(m * c for m, c in shapes)
+    b_fwd = bound(2 * el + 8 * sum(c for _, c in shapes), 3 * el)
+    b_bwd = bound(4 * el + 8 * sum(c for _, c in shapes), 3 * el)
+    step = dict(calls=2 * len(shapes), elements=el,
+                ms=t["kernel_fwd"] + t["kernel_bwd"],
+                plain_ms=t["plain_fwd"] + t["plain_bwd"],
+                library_ms=(None if t["library_fwd"] is None
+                            else t["library_fwd"] + t["library_bwd"]),
+                bound_ms=b_fwd[0] + b_bwd[0], bound_by=b_fwd[1],
+                fwd_bound_ms=b_fwd[0], bwd_bound_ms=b_bwd[0], **t)
+    log(f"[bn_stats] one step's 53 + 53 calls at batch {DP_BATCH}, bf16: "
+        f"{json.dumps(step)}")
+    del a, b, av, bv, a4, b4
+    torch.cuda.empty_cache()
+    return dict(shapes=rows, step=step, max_abs_err=max_err,
+                worst_rel_err=worst_rel)
+
+
+def bucket_sizes(model=None):
+    """Element counts of the f32 buckets of ``model``'s gradient (ResNet-50
+    by default) at the preset's bucket_mb = 25, in reduction order
+    (ops/buckets.py's plan)."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.models import get_model
+    from pytorch_distributed_nn_tpu_torch.ops.buckets import bucket_plan
+
+    cfg = get_config("resnet50_dp")
+    if model is None:
+        model = get_model(cfg.model, device="meta")
+    shapes = {n: (p.shape, p.dtype) for n, p in model.named_parameters()}
+    plan = bucket_plan(shapes, int(cfg.parallel.bucket_mb * 1024 * 1024))
+    return [sum(shapes[n][0].numel() for n in names)
+            for dtype, names in plan if dtype == torch.float32]
+
+
+def phase_quantize():
+    """The stochastic int8 kernel on a 25 MB bucket and on the whole
+    ResNet-50 gradient: bit for bit its plain version, within one code
+    step of x, unbiased to 4 sigma, saturating past 127 scale; the
+    kernel and the plain version timed over one step's buckets."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.ops import quantize as tq
+
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(4)
+    sizes = bucket_sizes()
+    total = sum(sizes)
+    checks = {}
+    for label, n in (("bucket_25MB", 25 * 2 ** 20 // 4),
+                     ("resnet50_gradient", total)):
+        x = torch.randn((n,), generator=g, device=dev) * 1e-3
+        scale = (x.abs().max() / 127.0).clamp(min=1e-12)
+        q = tq.quantize_int8(x, scale, seed=n)
+        ref = tq.quantize_int8_reference(x, scale, seed=n)
+        torch.cuda.synchronize()
+        if not torch.equal(q, ref):
+            diff = int((q != ref).sum())
+            raise AssertionError(f"quantize {label}: {diff} codes differ "
+                                 "from the plain version")
+        err = q.float() * scale - x
+        worst = float(err.abs().max() / scale)
+        if not worst < 1.0:
+            raise AssertionError(f"quantize {label}: |q scale - x| / scale "
+                                 f"{worst} >= 1")
+        mean = float(err.double().mean() / scale)
+        limit = 4 * 0.5 / n ** 0.5  # 4 sigma, sigma <= scale / 2 each
+        if not abs(mean) <= limit:
+            raise AssertionError(f"quantize {label}: mean error {mean} "
+                                 f"scale, limit {limit}")
+        small = scale / 4  # values past 127 * small saturate
+        qs = tq.quantize_int8(x, small, seed=1)
+        over = x >= 127 * small
+        under = x <= -127 * small
+        if not (bool((qs[over] == 127).all())
+                and bool((qs[under] == -127).all())
+                and int(over.sum()) > 0):
+            raise AssertionError(f"quantize {label}: no saturation")
+        checks[label] = dict(n=n, worst_err_over_scale=worst,
+                             mean_err_over_scale=mean, mean_limit=limit,
+                             saturated=int(over.sum() + under.sum()))
+        log(f"[quantize] {label}: bitwise equal to the plain version; "
+            f"{json.dumps(checks[label])}")
+        del x, q, ref, err, qs
+    torch.cuda.empty_cache()
+    # one step: one call a bucket, on the bucket's slice of the gradient
+    grad = torch.randn((total,), generator=g, device=dev) * 1e-3
+    scale = (grad.abs().max() / 127.0).reshape(())
+    parts = list(torch.split(grad, sizes))
+
+    def step(fn):
+        def run():
+            for i, part in enumerate(parts):
+                fn(part, scale, seed=i)
+        return run
+
+    ms = time_ms(step(tq.quantize_int8), 20)
+    plain_ms = time_ms(step(tq.quantize_int8_reference), 3)
+    b = bound(5 * total, 4 * total)
+    row = dict(buckets=len(sizes), elements=total, ms=ms, plain_ms=plain_ms,
+               bound_ms=b[0], bound_by=b[1], checks=checks)
+    log(f"[quantize] one step's {len(sizes)} buckets: {json.dumps(row)}")
+    del grad, parts
+    torch.cuda.empty_cache()
+    return row
+
+
+def resnet_trainer(**overrides):
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    cfg = get_config("resnet50_dp", **overrides)
+    return Trainer(cfg, device="cuda")  # seeded init (cfg.seed)
+
+
+def grad_rel_err(got, ref):
+    """max|err| / max|ref| of one gradient; a gradient that is zero in the
+    reference (the residual branches behind a zero-initialised bn3 scale)
+    must be zero in the other run too."""
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    if scale == 0.0:
+        return 0.0 if err == 0.0 else math.inf
+    return err / scale
+
+
+def phase_dp_check():
+    """One full-width ResNet-50 step (batch 256) with the bn_stats kernel
+    and with the torch reductions, from the same weights and batch: the
+    loss and every gradient before the reduce, in the main path's bf16
+    compute and in f32 (where no bf16 rounding of the activations can
+    flip between the two runs, and the kernel's sums are all that
+    differs)."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.parallel import dp
+
+    from pytorch_distributed_nn_tpu_torch.ops import bn_stats
+
+    plain = (bn_stats.sum_and_sumsq_reference, bn_stats.sum_and_dot_reference)
+
+    def f64_sums():  # the sums taken in f64, rounded once to f32
+        def sumsq(x, dim=-1):
+            x64 = x.double()
+            dims = bn_stats._reduce_dims(x, dim)
+            return x64.sum(dims).float(), (x64 * x64).sum(dims).float()
+
+        def dot(a, b, dim=-1):
+            a64 = a.double()
+            dims = bn_stats._reduce_dims(a, dim)
+            return (a64.sum(dims).float(),
+                    (a64 * b.double()).sum(dims).float())
+        return sumsq, dot
+
+    result = {}
+    for dtype in ("bfloat16", "float32"):
+        trainer = resnet_trainer(**DP_OVERRIDES,
+                                 **{"model.compute_dtype": dtype})
+        x, y = trainer.loader.batch_at(0)
+        out = {}
+        for impl in ("pallas", "flax", "f64"):
+            trainer.model.set_bn_impl("flax" if impl == "f64" else impl)
+            if impl == "f64":  # the check only: restored just below
+                (bn_stats.sum_and_sumsq_reference,
+                 bn_stats.sum_and_dot_reference) = f64_sums()
+            reset_dp_counts()
+            try:
+                loss = dp._loss_and_grads(trainer.state, x, y,
+                                          trainer.loss_fn).item()
+            finally:
+                (bn_stats.sum_and_sumsq_reference,
+                 bn_stats.sum_and_dot_reference) = plain
+            counts = bn_counts()
+            grads = {n: p.grad.clone()
+                     for n, p in trainer.model.named_parameters()}
+            trainer.state.optimizer.zero_grad()
+            out[impl] = (loss, grads, counts)
+        per = RESNET_BN_PER_STEP
+        if out["pallas"][2] != {"sum_and_sumsq": per, "sum_and_dot": per}:
+            raise AssertionError(f"bn_stats launches in one step: "
+                                 f"{out['pallas'][2]}")
+        if any(out["flax"][2].values()):
+            raise AssertionError("the flax BatchNorm launched bn_stats")
+        loss_k, grads_k, _ = out["pallas"]
+        loss_p, grads_p, _ = out["flax"]
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        grad_err = {n: grad_rel_err(grads_k[n], gp)
+                    for n, gp in grads_p.items()}
+        worst = max(grad_err, key=grad_err.get)
+        # the same worst tensor by norms, for scale: max|err| is set by a
+        # few elements where a ReLU mask flipped
+        norm_err = ((grads_k[worst] - grads_p[worst]).float().norm()
+                    / grads_p[worst].float().norm()).item()
+        zero = sum(1 for g in grads_p.values() if not bool(g.any()))
+        log(f"[dp_check] ResNet-50 batch {DP_BATCH}, {dtype}, bn_stats "
+            f"kernel vs torch reductions: loss {loss_k:.6f} vs {loss_p:.6f} "
+            f"(rel {loss_err:.3e}); worst gradient {worst} max|err|/max|ref| "
+            f"{grad_err[worst]:.3e} (limit {DP_GRAD_TOL}), |err|/|ref| "
+            f"{norm_err:.3e}; {zero} of {len(grads_p)} gradients are zero "
+            "in both")
+        result[dtype] = dict(loss_rel_err=loss_err, worst_grad=worst,
+                             worst_grad_rel_err=grad_err[worst],
+                             worst_grad_norm_rel_err=norm_err,
+                             zero_grads=zero)
+        # how far each run is from the same step with f64 sums: which of
+        # the two is nearer the exact sums
+        g64 = out["f64"][1]
+        vs = {who: max(grad_rel_err(g[n], g64[n]) for n in g64)
+              for who, g in (("kernel", grads_k), ("torch", grads_p))}
+        result[dtype]["worst_vs_f64_sums"] = vs
+        log(f"[dp_check] {dtype}, worst gradient max|err|/max|ref| against "
+            f"the step with f64 sums: kernel {vs['kernel']:.3e}, torch "
+            f"reductions {vs['torch']:.3e}")
+        if not (math.isfinite(loss_k) and loss_err <= DP_LOSS_TOL
+                and grad_err[worst] <= DP_GRAD_TOL):
+            raise AssertionError("the bn_stats step disagrees with the "
+                                 f"torch reductions ({dtype}; limits "
+                                 f"{DP_LOSS_TOL}, {DP_GRAD_TOL})")
+        del trainer, out, grads_k, grads_p, x, y
+        torch.cuda.empty_cache()
+    return result
+
+
+def _top_level(events, key):
+    """Events whose name contains ``key`` and no ancestor's does."""
+    out = []
+    for e in events:
+        if key not in e.name:
+            continue
+        p = e.cpu_parent
+        while p is not None and key not in p.name:
+            p = p.cpu_parent
+        if p is None:
+            out.append(e)
+    return out
+
+
+def profile_dp_step(trainer):
+    """Device time of one dp_explicit step by torch.profiler, split into
+    convolutions, BatchNorm elementwise passes, bn_stats, quantize, NCCL,
+    the optimizer and the rest; None where the profiler records no device
+    activity. Measurement only."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   acc_events=True)
+    try:
+        prof.start()
+    except RuntimeError as e:
+        log(f"[dp_train] profiler did not start: {e}")
+        return None
+    try:
+        trainer.train(steps=1)
+        torch.cuda.synchronize()
+    finally:
+        stopped = _profiler_stop(prof)
+    if not stopped:
+        return None
+    events = prof.events()
+    kern = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        return None
+    fams, names = {}, {}
+    for e in kern:
+        low = e.name.lower()
+        fam = ("bn_stats" if "bn_partial" in low or "bn_finish" in low
+               else "quantize" if "quantize_kernel" in low
+               else "nccl" if "nccl" in low
+               else "optimizer" if "multi_tensor" in low or "foreach" in low
+               else "conv" if any(k in low for k in (
+                   "conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad",
+                   "fprop", "gemm", "nvjet", "cutlass", "nhwc", "nchw"))
+               else "other")
+        ms = e.time_range.elapsed_us() / 1e3
+        fams[fam] = fams.get(fam, 0.0) + ms
+        n, t = names.get(e.name[:96], (0, 0.0))
+        names[e.name[:96]] = (n + 1, t + ms)
+    # the BatchNorm autograd Function's forward and backward: their device
+    # time, less the bn_stats kernels, is the elementwise passes
+    bn_fn = _top_level(events, "_BatchNormTrain")
+    bn_ms = sum(e.device_time_total for e in bn_fn) / 1e3
+    elementwise = bn_ms - fams.get("bn_stats", 0.0) if bn_fn else None
+    if elementwise is not None:
+        fams["other"] -= elementwise
+        fams["bn_elementwise"] = elementwise
+    top = sorted(names.items(), key=lambda kv: -kv[1][1])[:12]
+    return dict(kernels=len(kern), device_ms=sum(fams.values()),
+                by_family_ms=fams, batchnorm_function_events=len(bn_fn),
+                top_kernels=[dict(name=k, calls=n, ms=t)
+                             for k, (n, t) in top])
+
+
+def step_stats(trainer, steps):
+    secs = sorted(r.seconds for r in trainer.history[-steps:])
+    med = (secs[(steps - 1) // 2] + secs[steps // 2]) / 2
+    wait = sum(r.data_wait for r in trainer.history[-steps:]) / steps
+    return med, wait
+
+
+def phase_dp_train():
+    """The main path: resnet50_dp at full width, dp_explicit with the int8
+    wire and bn_impl=pallas, batch 256 on one card (NCCL, world 1): 2
+    warm-up steps, 4 timed steps with the launch counts reset just before
+    and read just after, one profiled step, one step on the exact wire
+    for its bytes."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.ops import bn_stats
+    from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+    from pytorch_distributed_nn_tpu_torch.parallel.api import make_train_step
+    from pytorch_distributed_nn_tpu_torch.utils.flops import (
+        resnet_train_flops_per_example,
+    )
+
+    trainer = resnet_trainer(**DP_OVERRIDES)
+    if (trainer.process.backend, trainer.process.world_size) != ("nccl", 1):
+        raise AssertionError(f"process group {trainer.process}")
+    buckets = len(bucket_sizes(trainer.model))
+    trainer.train(steps=2)  # warm-up: cuDNN picks its algorithms
+    steps = 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_dp_counts()  # the main path's count starts here
+    with cc.recording() as recs:
+        trainer.train(steps=steps)
+    counts = bn_counts()
+    q_launches = quantize_count()
+    copies = bn_stats.copies
+    peak = torch.cuda.max_memory_allocated()
+    want = {"sum_and_sumsq": RESNET_BN_PER_STEP * steps,
+            "sum_and_dot": RESNET_BN_PER_STEP * steps}
+    if counts != want or q_launches != buckets * steps:
+        raise AssertionError(f"launches {counts}, quantize {q_launches} in "
+                             f"{steps} steps; expected {want} and "
+                             f"{buckets * steps}")
+    losses = trainer.losses()[-steps:]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses {losses}")
+    step_s, wait_s = step_stats(trainer, steps)
+    flops = DP_BATCH * resnet_train_flops_per_example()
+    payload_int8 = cc.payload_bytes(recs) / steps
+    prof = profile_dp_step(trainer)
+    if prof is not None:
+        prof["idle_share_vs_unprofiled_step"] = (
+            1 - prof["device_ms"] / (step_s * 1e3))
+    # one step on the exact wire, for its bytes (the same weights go on)
+    exact = trainer.cfg.override(**{"parallel.quantized_allreduce": ""})
+    trainer.step_fn, _ = make_train_step(exact, trainer.loss_fn)
+    with cc.recording() as recs_exact:
+        trainer.train(steps=1)
+    payload_exact = cc.payload_bytes(recs_exact)
+    result = dict(
+        batch=DP_BATCH, steps=steps, losses=losses, median_step_s=step_s,
+        step_s=[r.seconds for r in trainer.history[-steps - 2:-2]],
+        images_per_s=DP_BATCH / step_s, model_tflop_per_step=flops / 1e12,
+        mfu=flops / step_s / BF16_OPS_PER_S, peak_mem_gb=peak / 1e9,
+        loader_wait_s_per_step=wait_s, launches=counts,
+        quantize_launches=q_launches, f32_buckets=buckets,
+        bn_input_copies=copies,
+        payload_bytes_per_step={"int8": payload_int8,
+                                "exact": payload_exact},
+        ring_wire_bytes_per_rank_at_4={
+            "int8": cc.ring_wire_bytes("all_reduce", payload_int8, 4),
+            "exact": cc.ring_wire_bytes("all_reduce", payload_exact, 4)},
+        wire_bytes_per_step_at_1=cc.wire_bytes(recs) / steps,
+        profile=prof)
+    log(f"[dp_train] {json.dumps(result)}")
+    del trainer
+    torch.cuda.empty_cache()
+    return result, counts, q_launches
+
+
+def phase_dp_preset():
+    """The preset as it is (dp, flax BatchNorm, exact reduce) at batch 256:
+    one warm-up step and 4 timed; then mlp_mnist as it is, 20 steps."""
+    import torch
+
+    trainer = resnet_trainer(**{"data.batch_size": str(DP_BATCH),
+                                "log_every": "1"})
+    reset_dp_counts()
+    trainer.train(steps=5)
+    if any(bn_counts().values()) or quantize_count():
+        raise AssertionError("the preset as it is launched a dp kernel")
+    losses = trainer.losses()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses {losses}")
+    step_s, wait_s = step_stats(trainer, 4)
+    preset = dict(losses=losses, median_step_s=step_s,
+                  images_per_s=DP_BATCH / step_s,
+                  loader_wait_s_per_step=wait_s)
+    log(f"[dp_preset] resnet50_dp as it is, batch {DP_BATCH}: "
+        f"{json.dumps(preset)}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    mlp = Trainer(get_config("mlp_mnist", log_every="1"), device="cuda")
+    mlp.train(steps=20)
+    ml = mlp.losses()
+    if not (len(ml) == 20 and all(math.isfinite(v) for v in ml)
+            and ml[-1] < ml[0]):
+        raise AssertionError(f"mlp_mnist losses {ml}")
+    step_s, _ = step_stats(mlp, 19)
+    mlp_row = dict(first_loss=ml[0], last_loss=ml[-1], median_step_s=step_s)
+    log(f"[dp_preset] mlp_mnist 20 steps: {json.dumps(mlp_row)}")
+    return dict(resnet50_dp=preset, mlp_mnist=mlp_row)
+
+
 def build_model(seed=0):
     import torch
 
@@ -911,7 +1530,8 @@ def main() -> int:
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.monotonic()
-    sources = ("int8_matmul.cu", "flash_attention.cu")
+    sources = ("int8_matmul.cu", "flash_attention.cu", "bn_stats.cu",
+               "quantize.cu")
     build.load_libraries(*sources)  # one nvcc each, all started together
     log(f"[build] {' + '.join(sources)}: {time.monotonic() - t0:.2f} s")
     for src in sources:
@@ -926,9 +1546,14 @@ def main() -> int:
     flash_rows, lse_err = phase_flash(flush)
     del flush
     torch.cuda.empty_cache()
+    bn = phase_bn_stats()
+    quant = phase_quantize()
     auto = phase_auto()
     train_check = phase_train_check()
     train, flash_launches = phase_train()
+    dp_check = phase_dp_check()
+    dp_train, bn_launches, q_launches = phase_dp_train()
+    dp_preset = phase_dp_preset()
 
     model = build_model(seed=0)
     forward = phase_forward(model)
@@ -957,9 +1582,35 @@ def main() -> int:
                     "enable_gqa=True)" + (" backward (dq, dk and dv)"
                                           if name != "flash_fwd" else ""),
             per="one call at B 1, T 32768, H 8, Hkv 4, D 128, causal"))
+    bn_step = bn["step"]
+    kernels.append(dict(
+        name="bn_stats", route="cuda", source=BN_SOURCE, replaces=BN_TPU,
+        launches=sum(bn_launches.values()), launches_by_mode=bn_launches,
+        max_abs_err=bn["max_abs_err"], ms=bn_step["ms"],
+        plain_ms=bn_step["plain_ms"], bound_ms=bn_step["bound_ms"],
+        bound_by=bn_step["bound_by"], library_ms=bn_step["library_ms"],
+        library="torch.batch_norm_stats + torch.batch_norm_backward_reduce",
+        per=f"one ResNet-50 training step at batch {DP_BATCH}: 53 "
+            "sum_and_sumsq + 53 sum_and_dot calls, bf16",
+        shapes=bn["shapes"]))
+    kernels.append(dict(
+        name="quantize", route="cuda", source=QUANT_SOURCE,
+        replaces=QUANT_TPU, launches=q_launches, max_abs_err=0.0,
+        ms=quant["ms"], plain_ms=quant["plain_ms"],
+        bound_ms=quant["bound_ms"], bound_by=quant["bound_by"],
+        library_ms=None, library="none (no single PyTorch call rounds "
+        "stochastically to int8)",
+        per=f"one ResNet-50 step's {quant['buckets']} f32 buckets "
+            f"({quant['elements']} elements); max_abs_err against the "
+            "plain version, which it equals bit for bit"))
     log(json.dumps(dict(forward=forward, serve=serve, auto=auto,
                         train_check=train_check, train=train,
-                        flash_lse_err=lse_err)))
+                        flash_lse_err=lse_err, bn_stats=bn,
+                        quantize=quant, dp_check=dp_check,
+                        dp_train=dp_train, dp_preset=dp_preset)))
+    from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
+
+    bootstrap.shutdown()  # the NCCL group of the data-parallel phases
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

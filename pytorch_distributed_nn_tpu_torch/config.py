@@ -4,7 +4,7 @@ the ported slices read.
 Typed dataclasses with dotted CLI overrides (``--optim.lr=0.1``,
 ``--model.extra '{"quantized": true}'``) and the named presets the port
 runs. A field the port does not read yet is not declared, so an override
-naming it (``--checkpoint_dir``, ``--multistep_k``, ``--optim.momentum``)
+naming it (``--checkpoint_dir``, ``--multistep_k``, ``--parallel.overlap``)
 fails as an unknown field instead of being ignored.
 """
 
@@ -20,20 +20,26 @@ from pytorch_distributed_nn_tpu_torch.runtime.mesh import MeshSpec
 
 @dataclass
 class OptimConfig:
-    name: str = "sgd"  # only adamw is ported
+    name: str = "sgd"  # sgd | momentum | adamw
     lr: float = 0.01
+    momentum: float = 0.9
     weight_decay: float = 0.0
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
     grad_clip_norm: float = 0.0  # 0 = off
     warmup_steps: int = 0
-    schedule: str = "constant"  # constant | cosine | linear
+    schedule: str = "constant"  # constant | cosine | linear | step
+    # schedule="step" (torch StepLR): decay by step_gamma at these
+    # fractions of the post-warmup run
+    step_milestones: tuple[float, ...] = (0.5, 0.75)
+    step_gamma: float = 0.1
 
 
 @dataclass
 class DataConfig:
-    dataset: str = "mnist"  # only lm_synthetic is ported
+    # mnist | cifar10 | imagenet_synthetic | lm_synthetic
+    dataset: str = "mnist"
     batch_size: int = 128  # global batch size
     seq_len: int = 512
     vocab_size: int = 32000
@@ -42,7 +48,7 @@ class DataConfig:
 
 @dataclass
 class ModelConfig:
-    name: str = "mlp"  # only llama3_8b is ported
+    name: str = "mlp"  # mlp | lenet | resnet50 | llama3_8b
     dtype: str = "float32"  # param dtype
     compute_dtype: str = "bfloat16"
     remat: bool = False  # torch.utils.checkpoint on every block
@@ -52,7 +58,12 @@ class ModelConfig:
 
 @dataclass
 class ParallelConfig:
-    strategy: str = "dp"  # single | dp at world size 1 are ported
+    strategy: str = "dp"  # single | dp | dp_explicit
+    # dp_explicit's DDP-style bucket controller (ops/buckets.py): bucket
+    # size in MB (<= 0: no buckets, one all-reduce a tensor, unless a
+    # quantized wire asks for one large bucket)
+    bucket_mb: float = 25.0
+    quantized_allreduce: str = ""  # "" | "bf16" | "int8" (dp_explicit)
     grad_accum: int = 1  # > 1 is not ported: raises
 
 
@@ -163,7 +174,49 @@ def _llama3_longcontext() -> TrainConfig:
     )
 
 
+def _mlp_mnist() -> TrainConfig:
+    # Config 1: "2-layer MLP on MNIST, single process (gloo backend, CPU)".
+    return TrainConfig(
+        preset="mlp_mnist",
+        steps=200,
+        optim=OptimConfig(name="momentum", lr=0.01),
+        data=DataConfig(dataset="mnist", batch_size=128),
+        model=ModelConfig(name="mlp", compute_dtype="float32"),
+        parallel=ParallelConfig(strategy="dp"),
+    )
+
+
+def _lenet_cifar10() -> TrainConfig:
+    # The reference's classic small-net config (LeNet-ish CNN on CIFAR-10).
+    return TrainConfig(
+        preset="lenet_cifar10",
+        steps=200,
+        optim=OptimConfig(name="momentum", lr=0.05),
+        data=DataConfig(dataset="cifar10", batch_size=128),
+        model=ModelConfig(name="lenet", compute_dtype="float32"),
+        parallel=ParallelConfig(strategy="dp"),
+    )
+
+
+def _resnet50_dp() -> TrainConfig:
+    # Config 2: "ResNet-50 / ImageNet, pure data-parallel DDP allreduce".
+    # The JAX preset also sets overlap=True; the port reduces after the
+    # backward (overlap is a later speed item, ROADMAP.md).
+    return TrainConfig(
+        preset="resnet50_dp",
+        steps=100,
+        optim=OptimConfig(name="momentum", lr=0.1, weight_decay=1e-4,
+                          warmup_steps=5, schedule="cosine"),
+        data=DataConfig(dataset="imagenet_synthetic", batch_size=1024),
+        model=ModelConfig(name="resnet50"),
+        parallel=ParallelConfig(strategy="dp", bucket_mb=25.0),
+    )
+
+
 PRESETS = {
+    "mlp_mnist": _mlp_mnist,
+    "lenet_cifar10": _lenet_cifar10,
+    "resnet50_dp": _resnet50_dp,
     "llama3_8b_zero": _llama3_8b_zero,
     "llama3_longcontext": _llama3_longcontext,
 }

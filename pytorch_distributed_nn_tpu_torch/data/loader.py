@@ -1,10 +1,13 @@
-"""Host-to-device loader for one device, with background prefetch: the
-JAX package's ``data/loader.py`` without the multi-process sharding.
+"""Host-to-device loader with per-rank sharding and background prefetch
+(the JAX package's ``data/loader.py``).
 
-A producer thread generates the seed-deterministic batches and copies them
-to the device through pinned host memory (``non_blocking``), keeping
-``prefetch`` batches ready, so host generation overlaps device compute.
-On the CPU the arrays are wrapped as they are.
+Every rank generates the same seed-deterministic GLOBAL batch and keeps its
+rows ``[rank * B / n, (rank + 1) * B / n)`` (``runtime.mesh.batch_slice``,
+the split the JAX loader's ``batch_pspec`` makes). A producer thread
+generates the batches and copies them to the device through pinned host
+memory (``non_blocking``), keeping ``prefetch`` batches ready, so host
+generation overlaps device compute. On the CPU the arrays are wrapped as
+they are.
 """
 
 from __future__ import annotations
@@ -17,13 +20,16 @@ import numpy as np
 import torch
 
 from pytorch_distributed_nn_tpu_torch.data.datasets import SyntheticDataset
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import batch_slice
 
 
 class DataLoader:
     def __init__(self, dataset: SyntheticDataset, device: torch.device, *,
-                 start_step: int = 0, prefetch: int = 2) -> None:
+                 rank: int = 0, world_size: int = 1, start_step: int = 0,
+                 prefetch: int = 2) -> None:
         self.dataset = dataset
         self.device = torch.device(device)
+        self.rows = batch_slice(dataset.batch_size, rank, world_size)
         self.start_step = start_step
         self.prefetch = prefetch
         self._thread: threading.Thread | None = None
@@ -36,8 +42,10 @@ class DataLoader:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def batch_at(self, step: int) -> tuple[torch.Tensor, ...]:
-        """The batch of one step on the device (no prefetch)."""
-        return tuple(self._to_device(a) for a in self.dataset.batch(step))
+        """This rank's rows of one step's batch on the device (no
+        prefetch)."""
+        return tuple(self._to_device(a[self.rows])
+                     for a in self.dataset.batch(step))
 
     def __iter__(self) -> Iterator[tuple[torch.Tensor, ...]]:
         """Batches from ``start_step`` on. With ``prefetch > 0`` a producer

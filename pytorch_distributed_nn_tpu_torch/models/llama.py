@@ -197,9 +197,14 @@ class Llama(nn.Module):
         x = self.final_norm(x)
         return x if return_hidden else self.lm_head(x)
 
+    def init_params(self, seed: int = 0) -> "Llama":
+        return init_float_params(self, seed=seed)
+
 
 @register("llama3_8b")
-def build_llama3_8b(cfg: ModelConfig, device="cuda") -> Llama:
+def build_llama3_8b(cfg: ModelConfig, device="cuda",
+                    input_shape=None) -> Llama:
+    """``input_shape`` (a (T,) token row) does not size the model."""
     policy = get_policy(cfg.dtype, cfg.compute_dtype)
     e = cfg.extra
     return Llama(

@@ -3,19 +3,21 @@
 
     step(state, x, y) -> (state, metrics)
 
-Ported: ``single`` and ``dp`` at world size 1. The others raise, naming
-the ROADMAP slice that ports them.
+Ported: ``single``, ``dp`` and ``dp_explicit`` over a process group. The
+sharded strategies raise, naming the ROADMAP slice that ports them.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Callable
 
 from pytorch_distributed_nn_tpu_torch.config import TrainConfig
 from pytorch_distributed_nn_tpu_torch.train.state import TrainState
 
-_LATER = {"dp_explicit": "slice 3", "zero": "slice 4",
-          "pipeline": "slice 4", "ps": "slice 4"}
+log = logging.getLogger(__name__)
+
+_LATER = {"zero": "slice 4", "pipeline": "slice 4", "ps": "slice 4"}
 
 
 def make_chunked_loss(chunk: int) -> Callable:
@@ -36,16 +38,17 @@ def make_chunked_loss(chunk: int) -> Callable:
 
 def make_train_step(cfg: TrainConfig, loss_fn: Callable
                     ) -> tuple[Callable, Callable[[TrainState], TrainState]]:
-    """``(step_fn, place_state_fn)``. On one device the state is built
-    where it runs, so placing it changes nothing."""
-    from pytorch_distributed_nn_tpu_torch.parallel import zero
+    """``(step_fn, place_state_fn)`` over the ranks of the default process
+    group: the step, and the function that lays the freshly built state
+    out across them (rank 0's broadcast)."""
+    from pytorch_distributed_nn_tpu_torch.parallel import dp
 
     strategy = cfg.parallel.strategy
     if strategy in _LATER:
         raise NotImplementedError(
             f"strategy {strategy!r} is not ported yet (ROADMAP.md, "
-            f"{_LATER[strategy]}); have 'single' and 'dp' at world size 1")
-    if strategy not in ("single", "dp"):
+            f"{_LATER[strategy]}); have 'single', 'dp' and 'dp_explicit'")
+    if strategy not in ("single", "dp", "dp_explicit"):
         raise ValueError(f"unknown strategy {strategy!r}")
     if cfg.xent_chunk:
         if cfg.data.dataset != "lm_synthetic":
@@ -61,6 +64,31 @@ def make_train_step(cfg: TrainConfig, loss_fn: Callable
             loss_fn = make_chunked_loss(cfg.xent_chunk)
         # else: the whole sequence fits in one chunk, and the dense loss
         # is already within the chunked memory bound
-    step = zero.make_zero_train_step(loss_fn, stage=0,
-                                     accum=cfg.parallel.grad_accum)
-    return step, lambda state: state
+    accum = cfg.parallel.grad_accum
+    if strategy in ("single", "dp"):
+        if cfg.parallel.quantized_allreduce:
+            log.warning("quantized_allreduce requires strategy='dp_explicit' "
+                        "(the 'dp' step reduces exactly) -- ignoring")
+        return dp.make_dp_train_step(loss_fn, accum=accum)
+    if accum != 1:
+        raise ValueError(f"grad_accum needs the 'dp' step, got strategy "
+                         f"{strategy!r}")
+    quant = cfg.parallel.quantized_allreduce
+    if quant.lower() in ("true", "1", "yes", "on"):  # legacy boolean flag
+        quant = "bf16"
+    bucket_mb = cfg.parallel.bucket_mb
+    if bucket_mb <= 0 and quant:
+        # the quantized wire rides the bucket path: one large bucket keeps
+        # it on when bucketing is off
+        bucket_mb = 1e9
+    bucket_reduce = None
+    if bucket_mb > 0:
+        from pytorch_distributed_nn_tpu_torch.ops.buckets import (
+            make_bucket_reduce,
+        )
+
+        bucket_reduce = make_bucket_reduce(bucket_mb=bucket_mb,
+                                           quantized=quant or False)
+    step = dp.make_dp_train_step_explicit(loss_fn,
+                                          bucket_reduce=bucket_reduce)
+    return step, dp.replicate_state

@@ -1,11 +1,10 @@
 """Logical parallelism degrees: ``MeshSpec`` of the JAX package's
-``runtime/mesh.py``.
+``runtime/mesh.py``, resolved against the process group's world size.
 
-The port runs on one device so far. ``MeshSpec.resolve`` keeps the JAX
-semantics (``-1`` absorbs the remaining devices); :func:`single_device`
-is what the trainer calls, and raises for a spec that wants more than one
-device: data parallelism is ROADMAP slice 3, sequence and sharded
-strategies slice 4.
+The port runs data parallelism: one process a device, the global batch
+split over the ``data`` and ``fsdp`` axes (:func:`data_parallel`,
+:func:`batch_slice`). The axes that shard the model or the sequence
+(``pipe``, ``expert``, ``seq``, ``tensor``) are ROADMAP slice 4 and raise.
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ import dataclasses
 import math
 
 AXES: tuple[str, ...] = ("pipe", "data", "fsdp", "expert", "seq", "tensor")
+_MODEL_AXES = ("pipe", "expert", "seq", "tensor")
 
 
 @dataclasses.dataclass
@@ -60,14 +60,31 @@ class MeshSpec:
             raise ValueError("unresolved MeshSpec; call .resolve(n_devices)")
         return math.prod(self.shape)
 
+    def data_degree(self) -> int:
+        """How many ways the global batch is split (data x fsdp)."""
+        return self.data * self.fsdp
 
-def single_device(spec: MeshSpec) -> MeshSpec:
-    """``spec`` resolved on one device; raises ``NotImplementedError`` for
-    a spec that needs more than one."""
-    fixed = {name: s for name, s in spec.sizes().items() if s > 1}
-    if fixed:
+
+def data_parallel(spec: MeshSpec, world_size: int) -> MeshSpec:
+    """``spec`` resolved on ``world_size`` processes, one device each;
+    raises ``NotImplementedError`` where an axis that shards the model or
+    the sequence exceeds 1."""
+    model_axes = {name: getattr(spec, name) for name in _MODEL_AXES
+                  if getattr(spec, name) > 1}
+    if model_axes:
         raise NotImplementedError(
-            f"mesh {fixed} needs more than one device; the port runs on one "
-            "so far (ROADMAP.md: data parallelism is slice 3, sequence and "
-            "sharded strategies slice 4)")
-    return spec.resolve(1)
+            f"mesh axes {model_axes} shard the model or the sequence: not "
+            "ported yet (ROADMAP.md, slice 4); the port runs data and fsdp "
+            "(data-parallel) degrees")
+    return spec.resolve(world_size)
+
+
+def batch_slice(global_batch: int, rank: int, n: int) -> slice:
+    """The rows of the global batch rank ``rank`` of ``n`` owns:
+    ``[rank * B / n, (rank + 1) * B / n)``, as the JAX loader's
+    ``batch_pspec`` shards them over data x fsdp."""
+    if global_batch % n:
+        raise ValueError(
+            f"global batch {global_batch} not divisible by data degree {n}")
+    per = global_batch // n
+    return slice(rank * per, (rank + 1) * per)

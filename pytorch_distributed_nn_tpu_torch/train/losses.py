@@ -1,6 +1,6 @@
-"""Causal-LM losses: the JAX package's ``train/losses.py`` for
-``lm_synthetic``. Mean over the global batch; the chunked forms never
-build the (B, T, V) logits.
+"""Losses: the JAX package's ``train/losses.py`` for classification (the
+vision datasets) and the causal LM (``lm_synthetic``). f32 logits, mean
+over the batch; the chunked LM forms never build the (B, T, V) logits.
 """
 
 from __future__ import annotations
@@ -12,6 +12,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 log = logging.getLogger(__name__)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Classification: logits (B, C), labels (B,) int; f32 mean."""
+    return F.cross_entropy(logits.float(), labels.long())
 
 
 def lm_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -86,9 +91,15 @@ def chunked_lm_eval(hidden: torch.Tensor, kernel: torch.Tensor,
     return loss / (B * T), hits.float() / (B * T)
 
 
+_CLASSIFICATION = ("mnist", "cifar10", "imagenet_synthetic")
+
+
 def get_loss_fn(dataset_name: str):
-    if dataset_name in ("lm_synthetic",):
+    if dataset_name == "lm_synthetic":
         return lm_xent
+    if dataset_name in _CLASSIFICATION:
+        return softmax_xent
     raise NotImplementedError(
         f"loss for dataset {dataset_name!r} is not ported yet (ROADMAP.md: "
-        "the classification and masked-LM losses come with slice 3)")
+        "the masked-LM loss comes with BERT, label smoothing with the "
+        "trainer features)")

@@ -1,8 +1,10 @@
 """Optimizer and learning-rate schedule with optax's semantics: the JAX
-package's ``train/optim.py`` for ``adamw`` with global-norm clipping.
+package's ``train/optim.py`` for ``sgd``, ``momentum`` and ``adamw``, with
+global-norm clipping, and the ``constant``, ``cosine``, ``linear`` and
+``step`` schedules.
 
-Three places where a plain torch setup differs from optax, each written
-out here:
+Places where a plain torch setup differs from optax, each written out
+here:
 
 - the schedule is evaluated at the update count BEFORE the increment
   (update 0 uses ``schedule(0)``), and a warmup joins its decay schedule
@@ -10,12 +12,17 @@ out here:
 - ``clip_by_global_norm`` scales by ``max_norm / norm`` only when
   ``norm >= max_norm`` (torch's ``clip_grad_norm_`` divides by
   ``norm + 1e-6`` always);
-- decoupled weight decay applies to every parameter, norm scales included
-  (``decay_mask_norms`` is not ported, and its default is off).
+- weight decay applies to every parameter, norm scales included
+  (``decay_mask_norms`` is not ported, and its default is off);
+- ``sgd`` and ``momentum`` take weight decay as optax's
+  ``add_decayed_weights`` before the update: L2 added into the gradient
+  (the order of torch ``SGD``'s ``weight_decay``); ``momentum`` is optax's
+  ``trace`` (no Nesterov), ``t = g + momentum * t``, update ``-lr * t``.
+  Both are written out with ``torch._foreach`` ops in that order.
 
-``torch.optim.AdamW`` then computes optax's ``adamw`` update: bias
-corrections with count + 1, eps outside the square root, the decay scaled
-by the scheduled lr and taken on the parameters before the update.
+``torch.optim.AdamW`` computes optax's ``adamw`` update: bias corrections
+with count + 1, eps outside the square root, the decay scaled by the
+scheduled lr and taken on the parameters before the update.
 """
 
 from __future__ import annotations
@@ -48,6 +55,25 @@ def _cosine(init: float, decay_steps: int) -> Schedule:
     return fn
 
 
+def _step(init: float, span: int, milestones, gamma: float) -> Schedule:
+    # torch StepLR as the JAX package builds it: optax's
+    # piecewise_constant_schedule with a gamma at each milestone fraction
+    # of the post-warmup span (milestones at one step compound)
+    scales: dict[int, float] = {}
+    for frac in milestones:
+        b = max(int(span * frac), 1)
+        scales[b] = scales.get(b, 1.0) * gamma
+
+    def fn(count: int) -> float:
+        v = init
+        for boundary, scale in sorted(scales.items()):
+            if count >= boundary:
+                v *= scale
+        return v
+
+    return fn
+
+
 def make_schedule(cfg: OptimConfig, total_steps: int) -> Schedule:
     """lr as a function of the update count (0 for the first update)."""
     span = max(total_steps - cfg.warmup_steps, 1)
@@ -58,6 +84,8 @@ def make_schedule(cfg: OptimConfig, total_steps: int) -> Schedule:
         base = _cosine(cfg.lr, span)
     elif cfg.schedule == "linear":
         base = _linear(cfg.lr, 0.0, span)
+    elif cfg.schedule == "step":
+        base = _step(cfg.lr, span, cfg.step_milestones, cfg.step_gamma)
     else:
         raise ValueError(f"unknown schedule {cfg.schedule!r}")
     if cfg.warmup_steps <= 0:
@@ -87,24 +115,32 @@ def clip_by_global_norm_(grads: list[torch.Tensor],
     return norm
 
 
+_PORTED = ("sgd", "momentum", "adamw")
+
+
 class Optimizer:
-    """optax's ``chain(clip_by_global_norm, adamw(schedule))`` over
-    ``params``: :meth:`step` applies the ``.grad`` of each parameter with
-    the lr of update ``count``, then counts one update."""
+    """optax's ``chain(clip_by_global_norm?, add_decayed_weights?,
+    sgd | momentum | adamw (schedule))`` over ``params``: :meth:`step`
+    applies the ``.grad`` of each parameter with the lr of update
+    ``count``, then counts one update."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  cfg: OptimConfig, total_steps: int) -> None:
-        if cfg.name != "adamw":
+        if cfg.name not in _PORTED:
             raise NotImplementedError(
-                f"optimizer {cfg.name!r} is not ported yet (ROADMAP.md: "
-                "sgd/momentum/adam come with slice 3); have 'adamw'")
+                f"optimizer {cfg.name!r} is not ported yet (ROADMAP.md: adam, "
+                f"adafactor, lamb and lion); have {_PORTED}")
+        self.name = cfg.name
         self.params = [p for p in params if p.requires_grad]
         self.schedule = make_schedule(cfg, total_steps)
         self.grad_clip_norm = cfg.grad_clip_norm
+        self.weight_decay = cfg.weight_decay
+        self.momentum = cfg.momentum
+        self.trace: list[torch.Tensor] | None = None  # momentum's state
         self.count = 0
-        self.inner = torch.optim.AdamW(
+        self.inner = (torch.optim.AdamW(
             self.params, lr=0.0, betas=(cfg.b1, cfg.b2), eps=cfg.eps,
-            weight_decay=cfg.weight_decay)
+            weight_decay=cfg.weight_decay) if cfg.name == "adamw" else None)
 
     def step(self) -> None:
         grads = [p.grad for p in self.params]
@@ -113,13 +149,30 @@ class Optimizer:
         if self.grad_clip_norm > 0:
             clip_by_global_norm_(grads, self.grad_clip_norm)
         lr = self.schedule(self.count)
-        for group in self.inner.param_groups:
-            group["lr"] = lr
-        self.inner.step()
+        if self.inner is not None:
+            for group in self.inner.param_groups:
+                group["lr"] = lr
+            self.inner.step()
+        else:
+            self._sgd_step(grads, lr)
         self.count += 1
 
+    @torch.no_grad()
+    def _sgd_step(self, grads: list[torch.Tensor], lr: float) -> None:
+        if self.weight_decay > 0:  # add_decayed_weights: g + wd * p
+            grads = torch._foreach_add(
+                grads, torch._foreach_mul(self.params, self.weight_decay))
+        if self.name == "momentum":
+            if self.trace is None:
+                self.trace = [torch.zeros_like(p) for p in self.params]
+            torch._foreach_mul_(self.trace, self.momentum)
+            torch._foreach_add_(self.trace, grads)
+            grads = self.trace
+        torch._foreach_add_(self.params, torch._foreach_mul(grads, -lr))
+
     def zero_grad(self) -> None:
-        self.inner.zero_grad(set_to_none=True)
+        for p in self.params:
+            p.grad = None
 
 
 def make_optimizer(cfg: OptimConfig, params: Iterable[torch.nn.Parameter],

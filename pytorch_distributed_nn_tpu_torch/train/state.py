@@ -1,7 +1,9 @@
 """TrainState: what a step touches, in one object (the JAX package's
 ``train/state.py``). PyTorch updates in place, so where the JAX state is an
 immutable pytree replaced every step, this one is mutated by
-:meth:`TrainState.apply_gradients`.
+:meth:`TrainState.apply_gradients`. The model state (the BatchNorm running
+statistics, flax's ``batch_stats``) lives in the model's buffers, beside
+the parameters: :attr:`TrainState.model_state`.
 """
 
 from __future__ import annotations
@@ -21,6 +23,13 @@ class TrainState:
     # init's); the Llama path draws nothing from it yet
     generator: torch.Generator
     step: int = 0
+
+    @property
+    def model_state(self) -> dict[str, torch.Tensor]:
+        """The model's floating-point buffers by name (the BatchNorm
+        ``mean`` and ``var``; empty for a model without BatchNorm)."""
+        return {n: b for n, b in self.model.named_buffers()
+                if b.is_floating_point()}
 
     def apply_gradients(self) -> None:
         """One optimizer update from the parameters' ``.grad``, which it

@@ -236,3 +236,118 @@ def test_tiny_training_step_matches_plain_attention(cuda):
            fa.flash_bwd_dkv.launches)
     assert tuple(a - b for a, b in zip(got, n)) == (8, 4, 4)
     assert all(np.isfinite(flash.losses()))
+
+
+# --------------------------------------------------------------------------
+# bn_stats: per-channel (sum, sum of squares) and (sum, dot) on the card
+# --------------------------------------------------------------------------
+# The kernel and the plain version sum the same f32 terms in another order;
+# both are held against an f64 sum, per channel, to 1e-5 of sum|term| (a
+# bound on f32 summation error for these lengths).
+BN_TOL = 1e-5
+
+
+def _bn_check(got, ref64, mag):
+    err = (got.double() - ref64).abs()
+    assert bool((err <= BN_TOL * mag + 1e-30).all()), (
+        err.max().item(), mag.max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,c", [(1000, 64), (333, 96), (4097, 2048),
+                                 (7, 64), (12544, 3)])
+def test_bn_stats_kernel_matches_f64_sums(cuda, m, c, dtype):
+    from pytorch_distributed_nn_tpu_torch.ops import bn_stats
+
+    g = torch.Generator(cuda).manual_seed(m + c)
+    a = (torch.randn((m, c), generator=g, device=cuda) + 0.5).to(dtype)
+    b = torch.randn((m, c), generator=g, device=cuda).to(dtype)
+    n = (bn_stats.sum_and_sumsq.launches, bn_stats.sum_and_dot.launches)
+    s1, s2 = bn_stats.sum_and_sumsq(a)
+    d1, d2 = bn_stats.sum_and_dot(a, b)
+    torch.cuda.synchronize()
+    assert (bn_stats.sum_and_sumsq.launches,
+            bn_stats.sum_and_dot.launches) == (n[0] + 1, n[1] + 1)
+    a64, b64 = a.double(), b.double()
+    _bn_check(s1, a64.sum(0), a64.abs().sum(0))
+    _bn_check(s2, (a64 * a64).sum(0), (a64 * a64).sum(0))
+    _bn_check(d1, a64.sum(0), a64.abs().sum(0))
+    _bn_check(d2, (a64 * b64).sum(0), (a64 * b64).abs().sum(0))
+    r1, r2 = bn_stats.sum_and_sumsq_reference(a)
+    _bn_check(r1, a64.sum(0), a64.abs().sum(0))
+    # bitwise the same from run to run: no atomics
+    again = bn_stats.sum_and_dot(a, b)
+    assert torch.equal(again[0], d1) and torch.equal(again[1], d2)
+
+
+def test_bn_stats_views_channels_last_without_a_copy(cuda):
+    from pytorch_distributed_nn_tpu_torch.ops import bn_stats
+
+    x = torch.randn((4, 64, 9, 7), device=cuda).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    copies = bn_stats.copies
+    s1, s2 = bn_stats.sum_and_sumsq(x, dim=1)
+    assert bn_stats.copies == copies
+    r1, r2 = bn_stats.sum_and_sumsq_reference(x, dim=1)
+    torch.testing.assert_close(s1, r1, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(s2, r2, rtol=1e-5, atol=1e-3)
+    bn_stats.sum_and_sumsq(x.contiguous(), dim=1)  # NCHW: copied
+    assert bn_stats.copies == copies + 1
+    with pytest.raises(ValueError, match="shape mismatch"):
+        bn_stats.sum_and_dot(x, x[:2], dim=1)
+
+
+# --------------------------------------------------------------------------
+# quantize: the stochastic int8 kernel equals its plain version bit for bit
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("n", [1, 7, 4099, 1 << 20])
+def test_quantize_kernel_equals_plain_version(cuda, n):
+    from pytorch_distributed_nn_tpu_torch.ops import quantize as tq
+
+    g = torch.Generator(cuda).manual_seed(n)
+    x = torch.randn((n,), generator=g, device=cuda) * 3.0
+    scale = (x.abs().max() / 100.0).reshape(())
+    x[: max(n // 10, 1)] *= 2.0  # up to 200 * scale: these saturate
+    before = tq.quantize_int8.launches
+    q = tq.quantize_int8(x, scale, seed=12345 + n)
+    torch.cuda.synchronize()
+    assert tq.quantize_int8.launches == before + 1
+    ref = tq.quantize_int8_reference(x, scale, seed=12345 + n)
+    assert q.dtype == torch.int8 and torch.equal(q, ref)
+    deq = q.float() * scale
+    inside = x.abs() < 127 * scale
+    assert bool(((deq - x).abs()[inside] < scale).all())
+    assert bool((q[x >= 127 * scale] == 127).all())
+    assert bool((q[x <= -127 * scale] == -127).all())
+    # an unaligned view takes the copy path and still agrees
+    if n > 4:
+        q1 = tq.quantize_int8(x[1:], scale, seed=3)
+        assert torch.equal(q1, tq.quantize_int8_reference(x[1:], scale,
+                                                          seed=3))
+
+
+def test_dp_explicit_int8_step_on_nccl_world_one(cuda):
+    import json
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.ops import bn_stats
+    from pytorch_distributed_nn_tpu_torch.ops import quantize as tq
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    extra = dict(stage_sizes=[1, 1, 1, 1], width=8, num_classes=10,
+                 bn_impl="pallas")
+    cfg = get_config("resnet50_dp", **{
+        "model.extra": json.dumps(extra), "data.dataset": "cifar10",
+        "data.batch_size": "16", "parallel.strategy": "dp_explicit",
+        "parallel.quantized_allreduce": "int8", "log_every": "1"})
+    t = Trainer(cfg, device=cuda)
+    assert t.process.backend == "nccl" and t.process.world_size == 1
+    n = (bn_stats.sum_and_sumsq.launches, bn_stats.sum_and_dot.launches,
+         tq.quantize_int8.launches)
+    t.train(steps=2)
+    got = (bn_stats.sum_and_sumsq.launches - n[0],
+           bn_stats.sum_and_dot.launches - n[1],
+           tq.quantize_int8.launches - n[2])
+    n_bn = len(t.model.batch_norms())
+    assert got == (2 * n_bn, 2 * n_bn, 2)  # one f32 bucket a step
+    assert all(np.isfinite(t.losses()))

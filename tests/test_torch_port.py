@@ -22,7 +22,11 @@ def _port_modules():
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     mods = _port_modules()
-    for m in ("serve.engine", "train.trainer", "ops.flash_attention"):
+    for m in ("serve.engine", "train.trainer", "ops.flash_attention",
+              "ops.bn_stats", "ops.quantize", "ops.buckets",
+              "ops.collectives", "nn.batchnorm", "models.resnet",
+              "models.lenet", "models.mlp", "runtime.bootstrap",
+              "parallel.dp"):
         assert f"pytorch_distributed_nn_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -76,4 +80,6 @@ def test_cuda_without_cuda_raises(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_main(["--preset", "llama3_longcontext"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["--preset", "resnet50_dp"])
     assert resolve_device("cpu") == torch.device("cpu")

@@ -30,7 +30,8 @@ from pytorch_distributed_nn_tpu_torch.data.loader import DataLoader
 from pytorch_distributed_nn_tpu_torch.parallel.api import make_train_step
 from pytorch_distributed_nn_tpu_torch.runtime.mesh import (
     MeshSpec,
-    single_device,
+    batch_slice,
+    data_parallel,
 )
 from pytorch_distributed_nn_tpu_torch.train import losses as tlosses
 from pytorch_distributed_nn_tpu_torch.train import optim as toptim
@@ -50,8 +51,8 @@ def test_synthetic_lm_batches_are_byte_equal():
         for a, b in zip(t.batch(step), j.batch(step)):
             assert a.dtype == b.dtype == np.int32
             assert a.tobytes() == b.tobytes()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tdata.get_dataset("mnist", seed=0, batch_size=1)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tdata.get_dataset("mlm_synthetic", seed=0, batch_size=1)
 
 
 def test_loader_prefetches_the_batches_of_batch_at():
@@ -117,8 +118,8 @@ def test_clipped_adamw_matches_optax(grad_scale):
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]),
                                        rtol=1e-6, atol=1e-6)
     assert opt.count == 3
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        toptim.make_optimizer(tconfig.OptimConfig(name="sgd"), tp.values())
+    with pytest.raises(NotImplementedError, match="not ported"):
+        toptim.make_optimizer(tconfig.OptimConfig(name="lion"), tp.values())
 
 
 def _xent_inputs(T=64):
@@ -161,8 +162,9 @@ def test_chunked_eval_matches_jax(T, chunk):
     np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-5)
     assert acc.item() == pytest.approx(float(acc_j), abs=1e-7)
     assert tlosses.get_loss_fn("lm_synthetic") is tlosses.lm_xent
+    assert tlosses.get_loss_fn("mnist") is tlosses.softmax_xent
     with pytest.raises(NotImplementedError):
-        tlosses.get_loss_fn("mnist")
+        tlosses.get_loss_fn("mlm_synthetic")
 
 
 def test_longcontext_preset_matches_jax():
@@ -181,7 +183,7 @@ def test_longcontext_preset_matches_jax():
 
 
 @pytest.mark.parametrize("field", ["checkpoint_dir", "metrics_path",
-                                   "multistep_k", "optim.momentum",
+                                   "multistep_k", "parallel.overlap",
                                    "data.path", "parallel.zero_stage"])
 def test_unported_fields_fail_as_unknown(field):
     with pytest.raises(AttributeError, match="unknown config field"):
@@ -194,14 +196,22 @@ def test_mesh_resolves_as_jax_and_refuses_more_than_one_device():
         assert (MeshSpec(**kw).resolve(n).sizes()
                 == dict(zip(("pipe", "data", "fsdp", "expert", "seq",
                              "tensor"), JMeshSpec(**kw).resolve(n).shape)))
-    assert single_device(MeshSpec(seq=1, data=-1)).world_size() == 1
+    # the port resolves the data-parallel degrees against the process
+    # group's world size; the axes that shard the model raise
+    assert data_parallel(MeshSpec(seq=1, data=-1), 1).world_size() == 1
+    four = data_parallel(MeshSpec(data=2, fsdp=-1), 4)
+    assert four.data_degree() == 4 and four.sizes()["fsdp"] == 2
     with pytest.raises(NotImplementedError, match="slice 4"):
-        single_device(MeshSpec(seq=2, data=-1))
+        data_parallel(MeshSpec(seq=2, data=-1), 4)
+    assert [batch_slice(12, r, 3) for r in range(3)] == [
+        slice(0, 4), slice(4, 8), slice(8, 12)]
+    with pytest.raises(ValueError, match="divisible"):
+        batch_slice(10, 0, 3)
 
 
 @pytest.mark.parametrize("override,err,match", [
     ({"parallel.strategy": "zero"}, NotImplementedError, "slice 4"),
-    ({"parallel.strategy": "dp_explicit"}, NotImplementedError, "slice 3"),
+    ({"parallel.strategy": "pipeline"}, NotImplementedError, "slice 4"),
     ({"parallel.strategy": "bogus"}, ValueError, "unknown strategy"),
     ({"parallel.grad_accum": "2"}, NotImplementedError, "accumulation"),
     ({"parallel.grad_accum": "0"}, ValueError, "accum"),
