@@ -7,9 +7,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build   -- nvcc builds csrc/int8_matmul.cu and csrc/flash_attention.cu
-              for sm_90a, one nvcc each, started together; prints seconds
-              and the compiler's register/spill report.
+1. build   -- nvcc builds the five csrc/*.cu (int8_matmul, flash_attention,
+              bn_stats, quantize, ring_attention) for sm_90a, one nvcc each,
+              started together; prints seconds and the compiler's
+              register/spill report.
 2. kernel  -- int8_matmul (the W8A16 CUDA kernel) against its plain PyTorch
               version at every (K, N) of the Llama-3-8B path, M in
               {1, 8, 128}; times the kernel, the plain version and one
@@ -68,6 +69,43 @@ The data-parallel slice (run after phase 3, and after phase 5):
               under torch.profiler.
 12. dp_preset -- resnet50_dp as it is (dp, flax BatchNorm, exact reduce) at
               batch 256, and mlp_mnist as it is for 20 steps.
+
+The sequence-parallel slice (ring attention; phase 13 runs after phase 3,
+phase 14 after phase 5's check step, phases 15 and 16 after phase 5):
+
+13. ring      -- the ring block kernel at the long-context shapes (B 1, H 8,
+              Hkv 4, D 128, bf16): (a) against its plain version at Tl = 8192
+              on a diagonal, a past and a future pair with random incoming
+              carries (the future pair's carries bit for bit untouched);
+              (b) the 16 (query shard, visiting shard) pairs of a seq = 4
+              ring at T = 32768 replayed in ring order through the ring's
+              own per-pair steps (parallel/sequence.py: ring_order,
+              ring_forward_pair, ring_finish), the assembled output and lse
+              against flash_fwd at T = 32768; (c) the same 16 pairs through
+              its ring_backward_pair (flash dq and dk/dv with f32 outputs;
+              diagonal causal, past dense, future skipped), the summed dq,
+              dk, dv against the full-T flash backward; (d) the main path's
+              pairs at world 1 against the plain versions: the kernel with
+              fresh and with random carries at Tl = 32768 (every row) and
+              98304 (the first and last 512 rows), and the pair's f32 dq and
+              dk/dv on 512-row slices; (e) times of the kernel at Tl = 32768
+              (the world-1 main path's one pair) and at Tl = 8192 (diagonal,
+              past), its plain version, its bound and the nearest library
+              call (F.scaled_dot_product_attention on the same pair).
+14. ring_check -- one full-width llama3_longcontext step at T = 4096 from
+              the same weights and batch: attn_impl ring and ulysses against
+              flash, loss and every gradient.
+15. ring_train -- the main path: llama3_longcontext as it is (T = 32768)
+              with model.extra.attn_impl = ring through Trainer on NCCL at
+              world 1, 4 steps, the launch counts reset just before and read
+              just after (16 ring_block_update, 8 flash_bwd_dq, 8
+              flash_bwd_dkv and no flash_fwd a step), one more step under
+              torch.profiler; then 2 steps of llama3_longcontext_96k
+              (T = 98304) on the same path.
+16. ring4     -- only on a machine with 4 or more cards: the train entry
+              point under torchrun on 4 ranks with mesh.seq = 4, 2 steps with
+              ring and 2 with Ulysses attention, the losses against the
+              world-1 run's.
 
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit from nvidia-smi, and the result JSON line.
@@ -557,7 +595,8 @@ def profile_train_step(trainer):
     fams, names = {}, {}
     for e in kern:
         name = e.name
-        fam = ("flash_fwd" if "flash_fwd" in name
+        fam = ("ring_block_update" if "ring_block" in name
+               else "flash_fwd" if "flash_fwd" in name
                else "flash_bwd_dq" if "flash_bwd_dq" in name
                else "flash_bwd_dkv" if "flash_bwd_dkv" in name
                else "gemm" if any(s in name.lower() for s in
@@ -632,6 +671,465 @@ def phase_train():
     del trainer, model
     torch.cuda.empty_cache()
     return result, launches
+
+
+# ---------------------------------------------------------------------------
+# slice 4: sequence parallelism, the ring block kernel
+# ---------------------------------------------------------------------------
+RING_SOURCE = "pytorch_distributed_nn_tpu_torch/csrc/ring_attention.cu"
+RING_TPU = "pytorch_distributed_nn_tpu/ops/pallas/ring_attention.py:57"
+RING_SEQ = 4  # the ring replayed in one process at T = 32768
+RING_LIBRARY = ("F.scaled_dot_product_attention(enable_gqa=True) forward on "
+                "the same pair (nearest: no PyTorch call updates a carry)")
+
+
+def reset_ring_counts():
+    from pytorch_distributed_nn_tpu_torch.ops import ring_attention as ra
+
+    reset_flash_counts()
+    ra.ring_block_update.launches = 0
+
+
+def ring_counts():
+    from pytorch_distributed_nn_tpu_torch.ops import ring_attention as ra
+
+    return {"ring_block_update": ra.ring_block_update.launches,
+            **flash_counts()}
+
+
+def ring_carries(T, seed):
+    """Random non-trivial incoming carries (m, l, acc) for Tl = T."""
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    m = torch.randn((FLASH_B * FLASH_H, T), generator=g, device="cuda")
+    l = torch.rand((FLASH_B * FLASH_H, T), generator=g, device="cuda") * 4 \
+        + 0.5
+    acc = torch.randn((FLASH_B, T, FLASH_H, FLASH_D), generator=g,
+                      device="cuda")
+    return m, l, acc
+
+
+def ring_plain(q, k, v, m, l, acc, q_off, k_off, causal, step=2048):
+    """The plain version, 2048 query rows at a time (it is row by row the
+    same function; a whole Tl = 32768 pair's f32 scores would not fit)."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.ops import ring_attention as ra
+
+    parts = [ra.ring_block_reference(
+        q[:, r0:r0 + step], k, v, m[:, r0:r0 + step], l[:, r0:r0 + step],
+        acc[:, r0:r0 + step], q_off + r0, k_off, causal=causal)
+        for r0 in range(0, q.shape[1], step)]
+    return tuple(torch.cat(p, dim=1) for p in zip(*parts))
+
+
+def ring_check(label, got, want):
+    """Kernel carries ``got`` = (m, l, acc) against the plain version's
+    ``want``, and the (O, lse) that parallel/sequence.py's ring_finish makes
+    of each: m and lse within LSE_TOL, l, acc and O within FLASH_TOL of
+    their largest elements, or raise. Returns the errors."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.parallel import sequence as sp
+
+    m, l, acc = got
+    o, lse = sp.ring_finish(got, torch.float32)
+    o_ref, lse_ref = sp.ring_finish(want, torch.float32)
+    e = dict(m=(m - want[0]).abs().max().item(),
+             lse=(lse - lse_ref).abs().max().item(),
+             l_rel=rel_err(l, want[1]), o_rel=rel_err(o, o_ref),
+             acc_rel=rel_err(acc, want[2]),
+             max_abs_err=(acc - want[2]).abs().max().item())
+    if not (e["m"] <= LSE_TOL and e["lse"] <= LSE_TOL
+            and max(e["l_rel"], e["o_rel"], e["acc_rel"]) <= FLASH_TOL):
+        raise AssertionError(f"ring block, {label}: {e} (limits lse "
+                             f"{LSE_TOL}, {FLASH_TOL})")
+    log(f"[ring] {label} vs plain: {json.dumps(e)}")
+    return e
+
+
+def ring_bound_ms(Tq, Tk, causal_diagonal):
+    """Operations 4 BH Tq Tk D (half on a causal diagonal) over the bf16
+    peak, against bytes (q, k, v read once; m, l, acc read and written)
+    over the HBM rate: the larger."""
+    bh = FLASH_B * FLASH_H
+    ops = 4 * bh * Tq * Tk * FLASH_D / (2 if causal_diagonal else 1)
+    nbytes = (bh * Tq * FLASH_D * 2 + 2 * FLASH_B * FLASH_HKV * Tk
+              * FLASH_D * 2 + 2 * (2 * bh * Tq * 4 + bh * Tq * FLASH_D * 4))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def ring_main_pair_check(T, seed, q_rows, edge=512):
+    """The main path's one pair at world 1 (Tl = T, the diagonal, offsets
+    0 and 0) through parallel/sequence.py's per-pair steps: the block
+    update with fresh and with random carries against the plain version on
+    the query rows ``q_rows``; then the pair's backward (ring_backward_pair:
+    flash dq and dk/dv with f32 outputs, from the fresh run's lse) against
+    their plain versions, dq on the last ``edge`` query rows (they see
+    every key), dk and dv on the first and last ``edge`` key rows."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_nn_tpu_torch.parallel import sequence as sp
+
+    f32 = torch.float32
+    q, k, v, do = flash_inputs(T, seed=seed)
+    errs = {}
+    for label in ("fresh", "random"):
+        carries = (sp.ring_carries(q) if label == "fresh"
+                   else ring_carries(T, seed))
+        m, l, acc = carries
+        want = [ring_plain(q[:, r], k, v, m[:, r], l[:, r], acc[:, r],
+                           r.start, 0, True) for r in q_rows]
+        sp.ring_forward_pair(q, k, v, carries, 0, 0, True)
+        torch.cuda.synchronize()
+        for r, w in zip(q_rows, want):
+            errs[f"{label} rows {r.start}:{r.stop}"] = ring_check(
+                f"Tl={T} main-path pair, {label} carries, rows "
+                f"{r.start}:{r.stop}", (m[:, r], l[:, r], acc[:, r]), w)
+        if label == "fresh":
+            out, lse = sp.ring_finish(carries, q.dtype)
+        del want, carries, m, l, acc
+    delta = fa.flash_delta(out, do)
+    args = (q, k, v, do, lse, delta, True)
+    dq, dk, dv = sp.ring_backward_pair(q, k, v, do, lse, delta, 0, 0, True)
+    torch.cuda.synchronize()
+    last = slice(T - edge, T)
+    bwd = {"dq": flash_check(f"ring pair dq (f32), T={T}", dq[:, last],
+                             fa.flash_bwd_dq_reference(*args, q_rows=last,
+                                                       out_dtype=f32))}
+    for r in (slice(0, edge), last):
+        dk_ref, dv_ref = fa.flash_bwd_dkv_reference(*args, k_rows=r,
+                                                    out_dtype=f32)
+        bwd[f"dk rows {r.start}:{r.stop}"] = flash_check(
+            f"ring pair dk (f32), T={T}", dk[:, r], dk_ref)
+        bwd[f"dv rows {r.start}:{r.stop}"] = flash_check(
+            f"ring pair dv (f32), T={T}", dv[:, r], dv_ref)
+        del dk_ref, dv_ref
+    log(f"[ring] T={T} main-path pair backward (f32 out) vs plain, "
+        f"max|err|: {json.dumps(bwd)}")
+    del q, k, v, do, out, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    return dict(forward=errs, backward_max_abs_err=bwd)
+
+
+def phase_ring(flush):
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_nn_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_nn_tpu_torch.ops import ring_attention as ra
+    from pytorch_distributed_nn_tpu_torch.parallel import sequence as sp
+
+    f32 = torch.float32
+    # (a) Tl = 8192 against the plain version, carries random
+    Tl = 8192
+    q, k, v, _ = flash_inputs(Tl, seed=20)
+    pairs = {"diagonal": (Tl, Tl), "past": (2 * Tl, 0), "future": (0, Tl)}
+    errs = {}
+    for name, (q_off, k_off) in pairs.items():
+        m, l, acc = ring_carries(Tl, seed=len(name))
+        want = ring_plain(q, k, v, m, l, acc, q_off, k_off, True)
+        before = (m.clone(), l.clone(), acc.clone())
+        ra.ring_block_update(q, k, v, m, l, acc, q_off, k_off, causal=True)
+        torch.cuda.synchronize()
+        if name == "future" and not all(
+                torch.equal(a, b) for a, b in zip((m, l, acc), before)):
+            raise AssertionError("ring block: the future pair changed its "
+                                 "carries")
+        errs[name] = ring_check(f"Tl={Tl} {name} pair", (m, l, acc), want)
+        del want, before, m, l, acc
+    torch.cuda.empty_cache()
+
+    # (b) the 16 pairs of a seq = 4 ring at T = 32768, in ring order, through
+    # the ring's own per-pair steps (parallel/sequence.py)
+    T = 32768
+    Tl = T // RING_SEQ
+    q, k, v, do = flash_inputs(T, seed=21)
+    o_full, lse_full = fa.flash_fwd(q, k, v, True)
+    shard = [slice(r * Tl, (r + 1) * Tl) for r in range(RING_SEQ)]
+    n0 = ra.ring_block_update.launches
+    outs, lses = [], []
+    for r in range(RING_SEQ):
+        qr = q[:, shard[r]]
+        carries = sp.ring_carries(qr)
+        for src in sp.ring_order(r, RING_SEQ):
+            sp.ring_forward_pair(qr, k[:, shard[src]], v[:, shard[src]],
+                                 carries, r, src, True)
+        o, lse = sp.ring_finish(carries, q.dtype)
+        outs.append(o)
+        lses.append(lse)
+        del carries
+    torch.cuda.synchronize()
+    pairs_run = ra.ring_block_update.launches - n0
+    o_ring = torch.cat(outs, dim=1)
+    lse_ring = torch.cat(lses, dim=1)
+    fwd = dict(pairs=pairs_run, o_rel=rel_err(o_ring, o_full),
+               lse=(lse_ring - lse_full).abs().max().item())
+    log(f"[ring] seq=4 ring at T={T}, 16 pairs vs flash_fwd: "
+        f"{json.dumps(fwd)}")
+    if not (pairs_run == RING_SEQ ** 2 and fwd["o_rel"] <= FLASH_TOL
+            and fwd["lse"] <= LSE_TOL):
+        raise AssertionError(f"seq=4 ring forward disagrees with flash_fwd "
+                             f"(limits {FLASH_TOL}, lse {LSE_TOL})")
+
+    # (c) the same pairs through the ring backward's pair step
+    delta_full = fa.flash_delta(o_full, do)
+    dq_full = fa.flash_bwd_dq(q, k, v, do, lse_full, delta_full, True)
+    dk_full, dv_full = fa.flash_bwd_dkv(q, k, v, do, lse_full, delta_full,
+                                        True)
+    dq = torch.zeros(q.shape, dtype=f32, device="cuda")
+    dk = torch.zeros(k.shape, dtype=f32, device="cuda")
+    dv = torch.zeros(k.shape, dtype=f32, device="cuda")
+    n_dq, n_dkv = fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches
+    for r in range(RING_SEQ):
+        qr, dor = q[:, shard[r]], do[:, shard[r]]
+        delta_r = fa.flash_delta(outs[r], dor)
+        for src in sp.ring_order(r, RING_SEQ):
+            part = sp.ring_backward_pair(qr, k[:, shard[src]],
+                                         v[:, shard[src]], dor, lses[r],
+                                         delta_r, r, src, True)
+            if part is None:  # the future: no gradient
+                continue
+            dq[:, shard[r]] += part[0]
+            dk[:, shard[src]] += part[1]
+            dv[:, shard[src]] += part[2]
+    torch.cuda.synchronize()
+    bwd = dict(dq_pairs=fa.flash_bwd_dq.launches - n_dq,
+               dkv_pairs=fa.flash_bwd_dkv.launches - n_dkv,
+               dq_rel=rel_err(dq, dq_full), dk_rel=rel_err(dk, dk_full),
+               dv_rel=rel_err(dv, dv_full))
+    log(f"[ring] seq=4 ring backward at T={T}, pair schedule (f32 out) vs "
+        f"the full flash backward: {json.dumps(bwd)}")
+    live = RING_SEQ * (RING_SEQ + 1) // 2  # diagonal and past pairs
+    if not (bwd["dq_pairs"] == bwd["dkv_pairs"] == live
+            and max(bwd["dq_rel"], bwd["dk_rel"], bwd["dv_rel"])
+            <= FLASH_TOL):
+        raise AssertionError(f"seq=4 ring backward disagrees with the flash "
+                             f"backward (limit {FLASH_TOL})")
+    del o_full, lse_full, o_ring, lse_ring, outs, lses, delta_full, dq_full
+    del dk_full, dv_full, dq, dk, dv
+    torch.cuda.empty_cache()
+
+    # (d) the main path's pairs at world 1 against the plain versions: the
+    # whole Tl = 32768 diagonal; the first and last 512 rows of the
+    # Tl = 98304 one (llama3_longcontext_96k)
+    T96 = 3 * T
+    main = {T: ring_main_pair_check(T, 22, [slice(0, T)]),
+            T96: ring_main_pair_check(T96, 23, [slice(0, 512),
+                                                slice(T96 - 512, T96)])}
+
+    # (e) times: the world-1 main path's pair (Tl = 32768, diagonal), and
+    # the diagonal and a past pair of a seq = 4 ring (Tl = 8192)
+    rows = {}
+    for label, Tq, q_off, k_off in (("diagonal_32768", T, 0, 0),
+                                    ("diagonal_8192", Tl, Tl, Tl),
+                                    ("past_8192", Tl, 2 * Tl, 0)):
+        qq, kk, vv = q[:, :Tq], k[:, :Tq], v[:, :Tq]
+        causal_diag = q_off == k_off
+        m, l, acc = sp.ring_carries(qq)
+        ms = time_ms(lambda: ra.ring_block_update(
+            qq, kk, vv, m, l, acc, q_off, k_off, causal=True), 10, flush)
+        ring_plain(qq[:, :2048], kk, vv, m[:, :2048], l[:, :2048],
+                   acc[:, :2048], q_off, k_off, True)  # warm-up
+        plain_ms = time_once_ms(lambda: ring_plain(qq, kk, vv, m, l, acc,
+                                                   q_off, k_off, True))
+        torch.cuda.empty_cache()
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qq, kk, vv))
+        with torch.no_grad():
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal_diag, enable_gqa=True), 10,
+                flush)
+        bound, by = ring_bound_ms(Tq, Tq, causal_diag)
+        flops = 4 * FLASH_B * FLASH_H * Tq * Tq * FLASH_D / (
+            2 if causal_diag else 1)
+        rows[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound, bound_by=by,
+                           tflops=flops / ms / 1e9)
+        log(f"[ring] {label}: {json.dumps(rows[label])}")
+        del m, l, acc, qt, kt, vt
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    checks = [*errs.values()] + [e for c in main.values()
+                                 for e in c["forward"].values()]
+    return dict(check_8192=errs, ring_forward=fwd, ring_backward=bwd,
+                main_pairs=main, times=rows,
+                max_abs_err=max(e["max_abs_err"] for e in checks))
+
+
+def set_attn_impl(model, impl):
+    for i in range(model.num_layers):
+        getattr(model, f"layer{i}").attn.impl = impl
+
+
+def phase_ring_check():
+    """T = 4096, full width: one step's loss and gradients with ring and
+    with ulysses attention (world 1) against flash, from the same weights
+    and batch."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.parallel import dp
+    from pytorch_distributed_nn_tpu_torch.parallel.api import (
+        make_chunked_loss,
+    )
+
+    trainer = longcontext(**{"data.seq_len": "4096"})
+    x, y = trainer.loader.batch_at(0)
+    loss_fn = make_chunked_loss(trainer.cfg.xent_chunk)
+    L = trainer.model.num_layers
+    want = {"flash": {"ring_block_update": 0, "flash_fwd": 2 * L,
+                      "flash_bwd_dq": L, "flash_bwd_dkv": L},
+            "ring": {"ring_block_update": 2 * L, "flash_fwd": 0,
+                     "flash_bwd_dq": L, "flash_bwd_dkv": L},
+            "ulysses": {"ring_block_update": 0, "flash_fwd": 2 * L,
+                        "flash_bwd_dq": L, "flash_bwd_dkv": L}}
+    out = {}
+    for impl in want:
+        set_attn_impl(trainer.model, impl)
+        reset_ring_counts()
+        loss = dp._loss_and_grads(trainer.state, x, y, loss_fn).item()
+        if ring_counts() != want[impl]:
+            raise AssertionError(f"{impl}: launches in one step "
+                                 f"{ring_counts()}, expected {want[impl]}")
+        out[impl] = (loss, {n: p.grad.clone()
+                            for n, p in trainer.model.named_parameters()})
+        trainer.state.optimizer.zero_grad()
+    loss_f, grads_f = out["flash"]
+    result = {}
+    for impl in ("ring", "ulysses"):
+        loss, grads = out[impl]
+        loss_err = abs(loss - loss_f) / abs(loss_f)
+        grad_err = {n: rel_err(grads[n], g) for n, g in grads_f.items()}
+        worst = max(grad_err, key=grad_err.get)
+        log(f"[ring_check] T=4096 one step, {impl} vs flash: loss "
+            f"{loss:.6f} vs {loss_f:.6f} (rel {loss_err:.3e}); worst "
+            f"gradient {worst} max|err|/max|ref| {grad_err[worst]:.3e}")
+        if not (loss_err <= TRAIN_LOSS_TOL
+                and grad_err[worst] <= TRAIN_GRAD_TOL):
+            raise AssertionError(f"{impl} training step disagrees with "
+                                 f"flash (limits {TRAIN_LOSS_TOL}, "
+                                 f"{TRAIN_GRAD_TOL})")
+        result[impl] = dict(loss_rel_err=loss_err, worst_grad=worst,
+                            worst_grad_rel_err=grad_err[worst])
+    del trainer, out, grads_f
+    torch.cuda.empty_cache()
+    return result
+
+
+def ring_trainer(preset="llama3_longcontext", **overrides):
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    extra = dict(get_config(preset).model.extra, attn_impl="ring")
+    cfg = get_config(preset, log_every="1",
+                     **{"model.extra": json.dumps(extra)}, **overrides)
+    return Trainer(cfg, device="cuda")
+
+
+def phase_ring_train():
+    """The main path: llama3_longcontext as it is with attn_impl ring on
+    NCCL at world 1, 4 steps, counts reset just before and read just
+    after; then 2 steps of llama3_longcontext_96k on the same path."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.utils.flops import (
+        lm_tokens_per_card,
+        lm_train_flops_per_token,
+    )
+
+    result = {}
+    for preset, steps in (("llama3_longcontext", 4),
+                          ("llama3_longcontext_96k", 2)):
+        trainer = ring_trainer(preset)
+        if (trainer.process.backend, trainer.process.world_size) != (
+                "nccl", 1):
+            raise AssertionError(f"process group {trainer.process}")
+        cfg, model = trainer.cfg, trainer.model
+        T, L = cfg.data.seq_len, model.num_layers
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_ring_counts()  # the main path's count starts here
+        trainer.train(steps=steps)
+        launches = ring_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = {"ring_block_update": 2 * L * steps, "flash_fwd": 0,
+                "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps}
+        if launches != want:
+            raise AssertionError(f"{preset}: launches {launches} in {steps} "
+                                 f"steps, expected {want}")
+        losses = trainer.losses()
+        if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{preset}: losses {losses}")
+        step_s, _ = step_stats(trainer, steps)
+        tokens = lm_tokens_per_card(cfg.data.batch_size, T, 1, 1)
+        flops = tokens * lm_train_flops_per_token(
+            matmul_params(model), L, T, model.d_model, causal=True)
+        result[preset] = dict(
+            seq_len=T, steps=steps, losses=losses,
+            step_s=[r.seconds for r in trainer.history],
+            median_step_s=step_s, tokens_per_s=tokens / step_s,
+            mfu=flops / step_s / BF16_OPS_PER_S, peak_mem_gb=peak / 1e9,
+            launches=launches)
+        if preset == "llama3_longcontext":  # one more step, profiled
+            prof = profile_train_step(trainer)
+            if prof is not None:
+                prof["idle_share_vs_unprofiled_step"] = (
+                    1 - prof["device_ms"] / (step_s * 1e3))
+            result[preset]["profile"] = prof
+        log(f"[ring_train] {preset} attn_impl=ring: "
+            f"{json.dumps(result[preset])}")
+        del trainer, model
+        torch.cuda.empty_cache()
+    return result
+
+
+def phase_ring4(world1_losses):
+    """The train entry point on 4 cards under torchrun (NCCL, one card a
+    rank), mesh.seq = 4, 2 steps with ring attention and 2 with Ulysses:
+    the losses against the world-1 ring run's; rank 0's logged step
+    seconds. Needs 4 cards."""
+    import re
+
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        log(f"[ring4] not run: {n} card{'s' if n != 1 else ''}")
+        return None
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+
+    result = {}
+    for impl in ("ring", "ulysses"):
+        extra = dict(get_config("llama3_longcontext").model.extra,
+                     attn_impl=impl)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "4", "-m",
+               "pytorch_distributed_nn_tpu_torch.train", "--preset",
+               "llama3_longcontext", "--steps", "2", "--log_every", "1",
+               "--mesh.seq", "4", "--model.extra", json.dumps(extra)]
+        env = dict(os.environ, PYTHONPATH=HERE)
+        out = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                             text=True, timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"ring4 {impl} exit {out.returncode}: "
+                                 f"{out.stderr[-3000:]}")
+        line = [x for x in out.stdout.splitlines()
+                if x.startswith('{"losses"')]
+        losses = json.loads(line[0])["losses"]
+        step_s = [float(t) for t in re.findall(
+            r"step \d+ loss \S+ \(([\d.]+)s\)", out.stderr)]
+        err = max(abs(a - b) / abs(b) for a, b in zip(losses, world1_losses))
+        log(f"[ring4] 4 cards, seq=4, {impl}: losses {losses} vs world 1 "
+            f"{world1_losses[:2]} (rel {err:.3e}); step s {step_s}")
+        if not err <= TRAIN_LOSS_TOL:
+            raise AssertionError(f"ring4 {impl} losses differ from world 1 "
+                                 f"by {err}")
+        result[impl] = dict(losses=losses, rel_err=err, step_s=step_s)
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1531,7 +2029,7 @@ def main() -> int:
 
     t0 = time.monotonic()
     sources = ("int8_matmul.cu", "flash_attention.cu", "bn_stats.cu",
-               "quantize.cu")
+               "quantize.cu", "ring_attention.cu")
     build.load_libraries(*sources)  # one nvcc each, all started together
     log(f"[build] {' + '.join(sources)}: {time.monotonic() - t0:.2f} s")
     for src in sources:
@@ -1544,13 +2042,17 @@ def main() -> int:
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows, max_err, library_label = phase_kernel(flush)
     flash_rows, lse_err = phase_flash(flush)
+    ring = phase_ring(flush)
     del flush
     torch.cuda.empty_cache()
     bn = phase_bn_stats()
     quant = phase_quantize()
     auto = phase_auto()
     train_check = phase_train_check()
+    ring_check = phase_ring_check()
     train, flash_launches = phase_train()
+    ring_train = phase_ring_train()
+    ring4 = phase_ring4(ring_train["llama3_longcontext"]["losses"])
     dp_check = phase_dp_check()
     dp_train, bn_launches, q_launches = phase_dp_train()
     dp_preset = phase_dp_preset()
@@ -1603,8 +2105,25 @@ def main() -> int:
         per=f"one ResNet-50 step's {quant['buckets']} f32 buckets "
             f"({quant['elements']} elements); max_abs_err against the "
             "plain version, which it equals bit for bit"))
+    main_pair = ring["times"]["diagonal_32768"]
+    kernels.append(dict(
+        name="ring_block_update", route="cuda", source=RING_SOURCE,
+        replaces=RING_TPU,
+        launches=ring_train["llama3_longcontext"]["launches"][
+            "ring_block_update"],
+        max_abs_err=ring["max_abs_err"], ms=main_pair["ms"],
+        plain_ms=main_pair["plain_ms"], bound_ms=main_pair["bound_ms"],
+        bound_by=main_pair["bound_by"], library_ms=main_pair["library_ms"],
+        library=RING_LIBRARY,
+        per="one call at the world-1 main path's shape: the diagonal pair "
+            "at Tl = 32768 (B 1, H 8, Hkv 4, D 128, causal); max_abs_err "
+            "of acc against the plain version over every check (Tl 8192; "
+            "the main path's pairs at Tl 32768 and, on row slices, 98304)",
+        at_8192={k: v for k, v in ring["times"].items() if "8192" in k}))
     log(json.dumps(dict(forward=forward, serve=serve, auto=auto,
                         train_check=train_check, train=train,
+                        ring=ring, ring_check=ring_check,
+                        ring_train=ring_train, ring4=ring4,
                         flash_lse_err=lse_err, bn_stats=bn,
                         quantize=quant, dp_check=dp_check,
                         dp_train=dp_train, dp_preset=dp_preset)))

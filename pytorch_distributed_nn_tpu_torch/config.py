@@ -174,6 +174,16 @@ def _llama3_longcontext() -> TrainConfig:
     )
 
 
+def _llama3_longcontext_96k() -> TrainConfig:
+    # The same model at T = 98304 on one card: the JAX package's preset of
+    # the name, its longest single-chip length.
+    cfg = _llama3_longcontext()
+    cfg.preset = "llama3_longcontext_96k"
+    cfg.data.seq_len = 98304
+    cfg.steps = 5
+    return cfg
+
+
 def _mlp_mnist() -> TrainConfig:
     # Config 1: "2-layer MLP on MNIST, single process (gloo backend, CPU)".
     return TrainConfig(
@@ -219,6 +229,7 @@ PRESETS = {
     "resnet50_dp": _resnet50_dp,
     "llama3_8b_zero": _llama3_8b_zero,
     "llama3_longcontext": _llama3_longcontext,
+    "llama3_longcontext_96k": _llama3_longcontext_96k,
 }
 
 

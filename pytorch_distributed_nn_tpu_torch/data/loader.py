@@ -1,9 +1,12 @@
 """Host-to-device loader with per-rank sharding and background prefetch
 (the JAX package's ``data/loader.py``).
 
-Every rank generates the same seed-deterministic GLOBAL batch and keeps its
-rows ``[rank * B / n, (rank + 1) * B / n)`` (``runtime.mesh.batch_slice``,
-the split the JAX loader's ``batch_pspec`` makes). A producer thread
+Every rank generates the same seed-deterministic GLOBAL batch and keeps the
+rows of its data coordinate, ``[i * B / n, (i + 1) * B / n)`` for index i
+of n on the data x fsdp axis (``runtime.mesh.batch_slice``, the split the
+JAX loader's ``batch_pspec`` makes); under sequence parallelism a (B, T)
+token array also keeps only the columns of its seq coordinate
+(``runtime.mesh.seq_slice``, the JAX loader's ``array_pspec``). A producer thread
 generates the batches and copies them to the device through pinned host
 memory (``non_blocking``), keeping ``prefetch`` batches ready, so host
 generation overlaps device compute. On the CPU the arrays are wrapped as
@@ -20,16 +23,28 @@ import numpy as np
 import torch
 
 from pytorch_distributed_nn_tpu_torch.data.datasets import SyntheticDataset
-from pytorch_distributed_nn_tpu_torch.runtime.mesh import batch_slice
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import (
+    batch_slice,
+    seq_slice,
+)
 
 
 class DataLoader:
     def __init__(self, dataset: SyntheticDataset, device: torch.device, *,
-                 rank: int = 0, world_size: int = 1, start_step: int = 0,
-                 prefetch: int = 2) -> None:
+                 data_index: int = 0, data_degree: int = 1,
+                 seq_index: int = 0, seq_degree: int = 1,
+                 start_step: int = 0, prefetch: int = 2) -> None:
         self.dataset = dataset
         self.device = torch.device(device)
-        self.rows = batch_slice(dataset.batch_size, rank, world_size)
+        self.rows = batch_slice(dataset.batch_size, data_index, data_degree)
+        self.cols = None  # every token of a row
+        if seq_degree > 1:
+            seq_len = getattr(dataset, "seq_len", None)
+            if seq_len is None:
+                raise ValueError(
+                    "mesh.seq > 1 shards the sequence dim of (B, T) token "
+                    f"batches; {type(dataset).__name__} has none")
+            self.cols = seq_slice(seq_len, seq_index, seq_degree)
         self.start_step = start_step
         self.prefetch = prefetch
         self._thread: threading.Thread | None = None
@@ -42,9 +57,10 @@ class DataLoader:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def batch_at(self, step: int) -> tuple[torch.Tensor, ...]:
-        """This rank's rows of one step's batch on the device (no
-        prefetch)."""
-        return tuple(self._to_device(a[self.rows])
+        """This rank's rows (and, under sequence parallelism, tokens) of
+        one step's batch on the device (no prefetch)."""
+        index = self.rows if self.cols is None else (self.rows, self.cols)
+        return tuple(self._to_device(a[index])
                      for a in self.dataset.batch(step))
 
     def __iter__(self) -> Iterator[tuple[torch.Tensor, ...]]:

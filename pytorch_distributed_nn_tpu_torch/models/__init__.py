@@ -19,13 +19,14 @@ def register(name: str):
     return wrap
 
 
-def get_model(cfg: ModelConfig, device="cuda", input_shape=None):
+def get_model(cfg: ModelConfig, device="cuda", input_shape=None, seq=None):
     """Build the ``nn.Module`` for a ModelConfig on ``device`` (``cuda``
     unless the caller asks for another; raises without CUDA).
     ``input_shape`` is one example's shape, which sizes a vision model's
-    first layer (flax infers it from the first batch). Parameters start as
-    zeros; fill them by loading a ``state_dict`` or with the model's own
-    seeded ``init_params(seed)``."""
+    first layer (flax infers it from the first batch); ``seq`` is the
+    rank's sequence-parallel ring (``runtime.mesh.SeqGroup``), which only
+    the Llama model takes. Parameters start as zeros; fill them by loading
+    a ``state_dict`` or with the model's own seeded ``init_params(seed)``."""
     from pytorch_distributed_nn_tpu_torch.models import (  # noqa: F401
         lenet,
         llama,
@@ -37,4 +38,6 @@ def get_model(cfg: ModelConfig, device="cuda", input_shape=None):
         raise KeyError(
             f"unknown model {cfg.name!r}; have {sorted(_REGISTRY)}")
     kw = {} if input_shape is None else {"input_shape": tuple(input_shape)}
+    if seq is not None:
+        kw["seq"] = seq
     return _REGISTRY[cfg.name](cfg, device=device, **kw)

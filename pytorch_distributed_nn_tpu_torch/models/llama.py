@@ -9,6 +9,14 @@ input and kernel to the compute dtype, so gradients flow back through the
 cast). ``remat`` reruns each block's forward in the backward
 (``torch.utils.checkpoint``, the counterpart of ``nn.remat``); serving
 runs under ``torch.inference_mode()``, where none of this applies.
+
+Sequence parallelism (``attn_impl`` ``"ring"`` or ``"ulysses"``): the
+model is built with the rank's ``SeqGroup`` (``runtime/mesh.py``) and takes
+the rank's shard of each token row; only attention exchanges anything.
+Under remat the recompute reruns the ring forward, its P2P included,
+inside the backward, at the same point of the graph on every rank: the
+blocks are recomputed in the same reverse order everywhere, and each block
+recomputes in full, the ring before the MLP whose saved tensors end it.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from pytorch_distributed_nn_tpu_torch.models import register
 from pytorch_distributed_nn_tpu_torch.nn.attention import MultiHeadAttention
 from pytorch_distributed_nn_tpu_torch.nn.dtypes import get_policy
 from pytorch_distributed_nn_tpu_torch.nn.quantized import Int8Dense, Int8Embed
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import SeqGroup
 from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
 
 
@@ -67,7 +76,8 @@ class LlamaBlock(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32,
                  quantized: bool = False, cache_dtype: str = "compute",
-                 fused_proj: bool = False, device=None) -> None:
+                 fused_proj: bool = False, seq: Optional[SeqGroup] = None,
+                 device=None) -> None:
         super().__init__()
         self.mlp_dim = mlp_dim
         self.fused = quantized and fused_proj
@@ -79,7 +89,8 @@ class LlamaBlock(nn.Module):
             num_kv_heads=num_kv_heads, rope_theta=rope_theta,
             impl=attn_impl, dtype=dtype, param_dtype=param_dtype,
             quantized=quantized,
-            cache_dtype=cache_dtype, fused_qkv=self.fused, device=device)
+            cache_dtype=cache_dtype, fused_qkv=self.fused, seq=seq,
+            device=device)
         self.mlp_norm = RMSNorm(d_model, **norm)
         if quantized:
             def dense(i, o):
@@ -116,7 +127,8 @@ class Llama(nn.Module):
     blockwise). With ``cache`` (from ``inference.generate.init_cache``) it
     decodes against the KV cache and writes the fed tokens' K/V into it in
     place; ``cache_positions`` (B,) int gives each row its own cache depth.
-    Built on ``device`` (default ``cuda``, which raises without CUDA)."""
+    Built on ``device`` (default ``cuda``, which raises without CUDA);
+    ``seq`` is the sequence-parallel ring its attention layers use."""
 
     def __init__(self, *, vocab_size: int = 128256, num_layers: int = 32,
                  d_model: int = 4096, num_heads: int = 32,
@@ -126,7 +138,8 @@ class Llama(nn.Module):
                  param_dtype: torch.dtype = torch.float32,
                  quantized: bool = False, cache_dtype: str = "compute",
                  fused_proj: bool = False, remat: bool = False,
-                 remat_offload: bool = False, device="cuda") -> None:
+                 remat_offload: bool = False, seq: Optional[SeqGroup] = None,
+                 device="cuda") -> None:
         super().__init__()
         if remat_offload:
             raise NotImplementedError(
@@ -155,7 +168,7 @@ class Llama(nn.Module):
                 rope_theta=rope_theta, norm_eps=norm_eps,
                 attn_impl=attn_impl, dtype=dtype, param_dtype=param_dtype,
                 quantized=quantized, cache_dtype=cache_dtype,
-                fused_proj=fused_proj, device=device))
+                fused_proj=fused_proj, seq=seq, device=device))
         self.final_norm = RMSNorm(d_model, eps=norm_eps, dtype=dtype,
                                   param_dtype=param_dtype, device=device)
         if quantized:
@@ -202,9 +215,10 @@ class Llama(nn.Module):
 
 
 @register("llama3_8b")
-def build_llama3_8b(cfg: ModelConfig, device="cuda",
-                    input_shape=None) -> Llama:
-    """``input_shape`` (a (T,) token row) does not size the model."""
+def build_llama3_8b(cfg: ModelConfig, device="cuda", input_shape=None,
+                    seq: Optional[SeqGroup] = None) -> Llama:
+    """``input_shape`` (a (T,) token row) does not size the model; ``seq``
+    is the rank's sequence-parallel ring."""
     policy = get_policy(cfg.dtype, cfg.compute_dtype)
     e = cfg.extra
     return Llama(
@@ -222,6 +236,7 @@ def build_llama3_8b(cfg: ModelConfig, device="cuda",
         fused_proj=e.get("fused_proj", False),
         remat=cfg.remat,
         remat_offload=cfg.remat_offload,
+        seq=seq,
         dtype=policy.compute_dtype,
         param_dtype=policy.param_dtype,
         device=device,

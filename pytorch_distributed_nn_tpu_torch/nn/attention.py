@@ -11,9 +11,11 @@ Ported: ``impl="xla"`` (plain PyTorch), ``impl="flash"`` (the hand-written
 CUDA kernels of ``ops/flash_attention.py`` in both directions, their plain
 versions on the CPU), ``impl="auto"`` (:func:`_auto_impl`), the decode
 cache with a shared ``cache_index`` or per-row ``cache_positions``,
-grouped-query attention that never repeats the cached K/V. Not yet:
-``"ring"`` and ``"ulysses"``, ``cache_dtype="int8"`` and LoRA deltas
-(ROADMAP.md, TPU kernels still to port and serving features).
+grouped-query attention that never repeats the cached K/V, and
+:class:`MultiHeadAttention`'s sequence-parallel ``"ring"`` and
+``"ulysses"`` (``parallel/sequence.py``) over the ``SeqGroup`` its model
+hands it. Not yet: ``cache_dtype="int8"`` and LoRA deltas (ROADMAP.md,
+serving features).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from pytorch_distributed_nn_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIMS,
     flash_attention,
 )
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import SeqGroup
 
 _NEG = -1e30  # the JAX package's mask value, in f32
 
@@ -94,12 +97,12 @@ def dot_product_attention(q, k, v, *, causal: bool, impl: str = "xla",
     if impl == "auto":
         impl = _auto_impl(q.shape, k.shape, has_mask=mask is not None,
                           device=q.device, dtype=q.dtype)
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention impl {impl!r} is not ported yet (ROADMAP.md, TPU "
-            "kernels still to port: ring_attention, slice 4)")
     if impl not in ("xla", "flash"):
-        raise ValueError(f"unknown attention impl {impl!r}")
+        raise ValueError(
+            f"unknown attention impl {impl!r}" + (
+                "; ring and ulysses are MultiHeadAttention's "
+                "sequence-parallel impls (parallel/sequence.py)"
+                if impl in ("ring", "ulysses") else ""))
     B, T, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if impl == "flash":
@@ -186,7 +189,14 @@ class MultiHeadAttention(nn.Module):
     ``quantized`` selects int8 projections; with ``fused_qkv`` q, k and v
     come from one int8 matmul over (H + 2*Hkv, head_dim) features, split
     ``[:H]``, ``[H:H+Hkv]``, ``[H+Hkv:]``. Submodule names follow flax:
-    ``query``/``key``/``value`` or ``qkv``, and ``out``."""
+    ``query``/``key``/``value`` or ``qkv``, and ``out``.
+
+    ``impl`` ``"ring"`` or ``"ulysses"`` runs the layer sequence-parallel
+    over ``seq`` (the ring of the model's mesh; a one-rank ring when None):
+    x holds shard ``seq.index`` of the sequence, rotary positions are
+    global and applied before any exchange, so both schemes see the q/k a
+    whole-sequence layer would. Causal, no decode cache, as in the JAX
+    module."""
 
     def __init__(self, d_model: int, num_heads: int, head_dim: int, *,
                  num_kv_heads: Optional[int] = None,
@@ -194,7 +204,8 @@ class MultiHeadAttention(nn.Module):
                  impl: str = "xla", dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32,
                  quantized: bool = False, cache_dtype: str = "compute",
-                 fused_qkv: bool = False, device=None) -> None:
+                 fused_qkv: bool = False, seq: Optional[SeqGroup] = None,
+                 device=None) -> None:
         super().__init__()
         if cache_dtype == "int8":
             raise NotImplementedError(
@@ -207,6 +218,7 @@ class MultiHeadAttention(nn.Module):
         self.num_kv_heads = num_kv_heads or num_heads
         self.rope_theta = rope_theta
         self.impl = impl
+        self.seq = seq or SeqGroup()
         self.dtype = dtype
         self.fused = quantized and fused_qkv
         if quantized:
@@ -245,7 +257,12 @@ class MultiHeadAttention(nn.Module):
         if cache_positions is not None and cache is None:
             raise ValueError("cache_positions is a decode-cache feature "
                              "(per-row cache indices); it needs a cache")
-        if cache is not None:
+        if self.impl in ("ring", "ulysses"):
+            if cache is not None:
+                raise ValueError(f"{self.impl} attention has no decode "
+                                 "cache; generate with impl='auto'")
+            out = self._sequence_parallel(q, k, v)
+        elif cache is not None:
             B, T = x.shape[0], x.shape[1]
             ck, cv = cache["cached_key"], cache["cached_value"]
             S = ck.shape[1]
@@ -271,3 +288,18 @@ class MultiHeadAttention(nn.Module):
             q, k = q.to(self.dtype), k.to(self.dtype)
             out = dot_product_attention(q, k, v, causal=True, impl=self.impl)
         return self.out(out)
+
+    def _sequence_parallel(self, q, k, v):
+        from pytorch_distributed_nn_tpu_torch.parallel.sequence import (
+            ring_attention,
+            ulysses_attention,
+        )
+
+        Tl = q.shape[1]
+        positions = self.seq.index * Tl + torch.arange(Tl, device=q.device)
+        q, k = rotary_embedding(q, k, theta=self.rope_theta,
+                                positions=positions[None])
+        q, k = q.to(self.dtype), k.to(self.dtype)
+        attend = ulysses_attention if self.impl == "ulysses" else \
+            ring_attention
+        return attend(q, k, v, seq=self.seq, causal=True)

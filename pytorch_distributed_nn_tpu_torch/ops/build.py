@@ -2,8 +2,8 @@
 
 ``nvcc`` compiles one ``.cu`` with a plain C interface for ``sm_90a`` into
 ``<package>/_build/`` (listed in ``.gitignore``), named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-loads what is there. The library is bound with ``ctypes``. Nothing here
+source, the shared headers and the flags, so an edited source or header
+rebuilds and an unchanged one loads what is there. The library is bound with ``ctypes``. Nothing here
 runs at import time. Each source has its own lock, so different sources
 build in parallel (:func:`load_libraries`).
 """
@@ -50,7 +50,10 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
+    """Where ``csrc/<source>`` builds to: named by a hash of the source,
+    the headers of ``csrc/`` (which a source may include) and the flags."""
     src = (CSRC_DIR / source).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{Path(source).stem}-{digest[:16]}.so"
 

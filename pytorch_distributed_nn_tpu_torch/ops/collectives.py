@@ -10,6 +10,10 @@ and reads :func:`wire_bytes` (or the payloads) of what it recorded.
 
 ``group=None`` is the default (world) group. Gloo has no AVG reduction,
 so a mean is a SUM divided by the group's size, on every backend alike.
+
+The sequence-parallel verbs (:func:`shift_right`, :func:`all_to_all`)
+return new tensors and are differentiable (their backward is the reverse
+exchange), as the JAX verbs are under ``jax.grad``.
 """
 
 from __future__ import annotations
@@ -78,10 +82,15 @@ def payload_bytes(records: Sequence[CommRecord]) -> int:
 def ring_wire_bytes(op: str, payload: float, n: int) -> float:
     """Bytes each of ``n`` ranks sends for one collective on ``payload``
     bytes, by the ring algorithm: an all-reduce (or a broadcast done as
-    one) sends 2(n-1)/n of the payload."""
-    if op not in ("all_reduce", "broadcast"):
-        raise ValueError(f"unknown collective {op!r}")
-    return 2.0 * payload * (n - 1) / max(n, 1)
+    one) sends 2(n-1)/n of the payload; a ring shift sends the payload once
+    (nothing at n = 1); an all-to-all keeps 1/n of it and sends the rest."""
+    if op in ("all_reduce", "broadcast"):
+        return 2.0 * payload * (n - 1) / max(n, 1)
+    if op == "shift":
+        return float(payload) if n > 1 else 0.0
+    if op == "all_to_all":
+        return payload * (n - 1) / max(n, 1)
+    raise ValueError(f"unknown collective {op!r}")
 
 
 def world_size(group=None) -> int:
@@ -94,9 +103,11 @@ def rank(group=None) -> int:
     return dist.get_rank(group) if dist.is_initialized() else 0
 
 
-def _record(op: str, x: torch.Tensor, group) -> None:
-    n = dist.get_world_size(group)
-    payload = x.numel() * x.element_size()
+def _record(op: str, x: torch.Tensor | Sequence[torch.Tensor], group,
+            n: int | None = None) -> None:
+    n = dist.get_world_size(group) if n is None else n
+    xs = [x] if isinstance(x, torch.Tensor) else x
+    payload = sum(t.numel() * t.element_size() for t in xs)
     _recorder.record(CommRecord(op=op, bytes_payload=payload,
                                 bytes_wire=ring_wire_bytes(op, payload, n)))
 
@@ -150,3 +161,93 @@ def flat_all_reduce_mean(tensors: Sequence[torch.Tensor],
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].view_as(t))
         offset += t.numel()
+
+
+# --------------------------------------------------------------------------
+# sequence parallelism: the ring shift and the all-to-all over a group
+# --------------------------------------------------------------------------
+
+def _shift(xs: Sequence[torch.Tensor], group, size: int,
+           step: int) -> list[torch.Tensor]:
+    """Rank i of the group sends ``xs`` to rank (i + step) % size and
+    receives the same shapes from (i - step) % size, all in one batch of
+    P2P ops (Gloo takes CPU tensors, NCCL CUDA ones)."""
+    _record("shift", xs, group, n=size)
+    if size == 1:
+        return list(xs)
+    i = dist.get_rank(group)
+    dst = dist.get_global_rank(group, (i + step) % size)
+    src = dist.get_global_rank(group, (i - step) % size)
+    outs = [torch.empty_like(x, memory_format=torch.contiguous_format)
+            for x in xs]
+    ops = [dist.P2POp(dist.isend, x.contiguous(), dst, group=group)
+           for x in xs]
+    ops += [dist.P2POp(dist.irecv, o, src, group=group) for o in outs]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return outs
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, size: int, *xs):
+        ctx.group, ctx.size = group, size
+        return tuple(_shift(xs, group, size, +1))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        gs = [torch.zeros_like(g) if g is None else g for g in gs]
+        return (None, None, *_shift(gs, ctx.group, ctx.size, -1))
+
+
+def shift_right(xs: Sequence[torch.Tensor], group,
+                size: int) -> list[torch.Tensor]:
+    """The ring shift i -> i + 1 (wrapping) of every tensor of ``xs`` over
+    ``group`` of ``size`` ranks, in one batch: the JAX package's
+    ``shift_right`` (a ppermute). At size 1 it is the identity and issues
+    no P2P (a one-rank ring has no group: None is not the world there).
+    Differentiable: the gradient shifts left."""
+    if size == 1:
+        return _shift(xs, group, size, +1)
+    return list(_Shift.apply(group, size, *xs))
+
+
+def _all_to_all(x: torch.Tensor, group, size: int, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
+    _record("all_to_all", x, group, n=size)
+    if size == 1:
+        return x
+    send = torch.stack(x.chunk(size, dim=split_axis)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size: int, split_axis: int, concat_axis: int):
+        ctx.args = (group, size, split_axis, concat_axis)
+        return _all_to_all(x, group, size, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, size, split_axis, concat_axis = ctx.args
+        return (_all_to_all(g, group, size, concat_axis, split_axis),
+                None, None, None, None)
+
+
+def all_to_all(x: torch.Tensor, group, size: int, *, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """The JAX package's tiled ``all_to_all`` over ``group`` of ``size``
+    ranks: ``x`` is cut into ``size`` equal chunks along ``split_axis``,
+    chunk j goes to rank j of the group, and the chunks received are
+    concatenated along ``concat_axis`` in rank order
+    (``dist.all_to_all_single`` on a contiguous (size, ...) buffer). At size
+    1 it is the identity. Differentiable: the gradient goes back by the
+    all-to-all with the two axes swapped."""
+    if x.shape[split_axis] % size:
+        raise ValueError(f"all_to_all: axis {split_axis} of {tuple(x.shape)} "
+                         f"does not split {size} ways")
+    if size == 1:
+        return _all_to_all(x, group, size, split_axis, concat_axis)
+    return _AllToAll.apply(x, group, size, split_axis, concat_axis)

@@ -146,7 +146,7 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
         return True
     if devs == {"cuda"} and len({t.device for t in ts}) == 1:
         return False
-    raise ValueError(f"flash attention needs every tensor on one cpu or "
+    raise ValueError(f"the attention kernels need every tensor on one cpu or "
                      f"cuda device, got {sorted(str(t.device) for t in ts)}")
 
 
@@ -254,17 +254,18 @@ def _check_shapes(q, k, v, do=None, lse=None, delta=None) -> None:
 def _check_kernel_inputs(*ts: torch.Tensor, lse=None, delta=None) -> None:
     D = ts[0].shape[3]
     if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash kernels take head_dim "
+        raise ValueError(f"the attention kernels take head_dim "
                          f"{KERNEL_HEAD_DIMS}, got {D}")
     for t in ts:
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"the flash kernels take bfloat16, got {t.dtype}")
+            raise TypeError(f"the attention kernels take bfloat16, got "
+                            f"{t.dtype}")
         if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) \
                 or t.data_ptr() % 16:
             raise ValueError(
-                "the flash kernels need a contiguous head dim, strides that "
-                f"are multiples of 8 and 16-byte alignment, got strides "
-                f"{t.stride()}")
+                "the attention kernels need a contiguous head dim, strides "
+                "that are multiples of 8 and 16-byte alignment, got "
+                f"strides {t.stride()}")
     for st in (lse, delta):
         if st is not None and (st.dtype != torch.float32
                                or not st.is_contiguous()):

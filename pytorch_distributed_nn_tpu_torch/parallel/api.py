@@ -3,7 +3,8 @@
 
     step(state, x, y) -> (state, metrics)
 
-Ported: ``single``, ``dp`` and ``dp_explicit`` over a process group. The
+Ported: ``single``, ``dp`` and ``dp_explicit`` over a process group, and
+sequence parallelism (``mesh.seq > 1``) under ``single``/``dp``. The
 sharded strategies raise, naming the ROADMAP slice that ports them.
 """
 
@@ -13,6 +14,7 @@ import logging
 from typing import Callable
 
 from pytorch_distributed_nn_tpu_torch.config import TrainConfig
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import MeshSpec
 from pytorch_distributed_nn_tpu_torch.train.state import TrainState
 
 log = logging.getLogger(__name__)
@@ -36,14 +38,46 @@ def make_chunked_loss(chunk: int) -> Callable:
     return loss_fn
 
 
-def make_train_step(cfg: TrainConfig, loss_fn: Callable
+def _check_seq(cfg: TrainConfig, seq: int) -> None:
+    """The JAX package's ``mesh.seq > 1`` validations. Where it warns and
+    lets XLA all-gather the sequence around a non-sequence-parallel
+    attention, the port, which has no compiler to do that, raises."""
+    if cfg.data.dataset != "lm_synthetic":
+        raise ValueError(
+            "mesh.seq > 1 shards the sequence dim of (B, T) token batches; "
+            f"dataset {cfg.data.dataset!r} has no sequence dim to shard")
+    if cfg.parallel.strategy not in ("single", "dp"):
+        raise ValueError(
+            "mesh.seq > 1 needs the replicated step (single/dp): strategy "
+            f"{cfg.parallel.strategy!r} does not run it")
+    if cfg.data.seq_len % seq:
+        raise ValueError(f"seq_len {cfg.data.seq_len} not divisible by "
+                         f"mesh.seq {seq}")
+    impl = cfg.model.extra.get("attn_impl")
+    if impl not in ("ring", "ulysses"):
+        raise ValueError(
+            f"mesh.seq={seq} needs model.extra.attn_impl 'ring' or "
+            f"'ulysses', got {impl!r}: each rank holds 1/{seq} of every "
+            "sequence, and the port has no compiler to gather the rest "
+            "around another attention (the JAX package lets XLA all-gather "
+            "it)")
+
+
+def make_train_step(cfg: TrainConfig, loss_fn: Callable,
+                    mesh: MeshSpec | None = None
                     ) -> tuple[Callable, Callable[[TrainState], TrainState]]:
     """``(step_fn, place_state_fn)`` over the ranks of the default process
     group: the step, and the function that lays the freshly built state
-    out across them (rank 0's broadcast)."""
+    out across them (rank 0's broadcast). ``mesh`` is the resolved mesh
+    (``cfg.mesh`` when None); under sequence parallelism the step's loss
+    and gradients are each rank's mean over its tokens, averaged over
+    every rank, which is the global mean because the shards are equal."""
     from pytorch_distributed_nn_tpu_torch.parallel import dp
 
     strategy = cfg.parallel.strategy
+    seq = (mesh or cfg.mesh).seq
+    if seq > 1:
+        _check_seq(cfg, seq)
     if strategy in _LATER:
         raise NotImplementedError(
             f"strategy {strategy!r} is not ported yet (ROADMAP.md, "
@@ -55,14 +89,16 @@ def make_train_step(cfg: TrainConfig, loss_fn: Callable
             raise ValueError(
                 "xent_chunk is a causal-LM loss option (datasets "
                 f"('lm_synthetic',)), got {cfg.data.dataset!r}")
-        if cfg.data.seq_len > cfg.xent_chunk:
-            if cfg.data.seq_len % cfg.xent_chunk:
+        local_len = cfg.data.seq_len // max(seq, 1)  # a rank's tokens a row
+        if local_len > cfg.xent_chunk:
+            if local_len % cfg.xent_chunk:
                 raise ValueError(
-                    f"seq_len {cfg.data.seq_len} not divisible by "
-                    f"xent_chunk {cfg.xent_chunk} -- the dense fallback "
+                    f"a rank's {local_len} tokens a row (seq_len "
+                    f"{cfg.data.seq_len} / mesh.seq {seq}) not divisible "
+                    f"by xent_chunk {cfg.xent_chunk} -- the dense fallback "
                     "would defeat the memory bound")
             loss_fn = make_chunked_loss(cfg.xent_chunk)
-        # else: the whole sequence fits in one chunk, and the dense loss
+        # else: the rank's sequence fits in one chunk, and the dense loss
         # is already within the chunked memory bound
     accum = cfg.parallel.grad_accum
     if strategy in ("single", "dp"):

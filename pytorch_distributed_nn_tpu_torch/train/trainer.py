@@ -2,7 +2,10 @@
 loop (the JAX package's ``train/trainer.py``).
 
 Ported: the process group (``runtime/bootstrap.py``: one process a
-device, under ``torchrun`` or alone), initialisation from the model's own
+device, under ``torchrun`` or alone) and the mesh over it
+(``runtime/mesh.py``: data and sequence parallelism, each rank loading the
+rows of its data coordinate and the tokens of its seq coordinate, the model
+built with the rank's seq ring), initialisation from the model's own
 seeded init or given weights, the per-step loop with its logging cadence
 (on rank 0), and the held-out evaluation. Not ported (ROADMAP.md, trainer
 features still to port): the obs, chaos, xray and flight hooks,
@@ -31,7 +34,7 @@ from pytorch_distributed_nn_tpu_torch.models import get_model
 from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
 from pytorch_distributed_nn_tpu_torch.parallel.api import make_train_step
 from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
-from pytorch_distributed_nn_tpu_torch.runtime.mesh import data_parallel
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import process_mesh
 from pytorch_distributed_nn_tpu_torch.train.losses import (
     accuracy,
     chunked_lm_eval,
@@ -75,20 +78,24 @@ class Trainer:
         self.cfg = cfg
         self.process = bootstrap.initialize(device)
         self.device = self.process.device
-        self.mesh = data_parallel(cfg.mesh, self.process.world_size)
+        self.mesh = process_mesh(cfg.mesh, self.process.rank,
+                                 self.process.world_size)
+        spec, seq = self.mesh.spec, self.mesh.seq
         self.dataset = get_dataset(
             cfg.data.dataset, seed=cfg.seed,
             batch_size=cfg.data.batch_size, seq_len=cfg.data.seq_len,
             vocab_size=cfg.data.vocab_size)
         self.loader = DataLoader(self.dataset, self.device,
-                                 rank=self.process.rank,
-                                 world_size=self.mesh.data_degree(),
+                                 data_index=self.mesh.data_index,
+                                 data_degree=spec.data_degree(),
+                                 seq_index=seq.index, seq_degree=seq.size,
                                  prefetch=cfg.data.prefetch)
         self.loss_fn = get_loss_fn(cfg.data.dataset)
         self.model = get_model(cfg.model, device=self.device,
-                               input_shape=self.dataset.spec.x_shape)
+                               input_shape=self.dataset.spec.x_shape,
+                               seq=seq if seq.size > 1 else None)
         self.state = self._init_state(params)
-        step_fn, place_fn = make_train_step(cfg, self.loss_fn)
+        step_fn, place_fn = make_train_step(cfg, self.loss_fn, spec)
         self.step_fn = step_fn
         self.state = place_fn(self.state)
         self.history: list[StepRecord] = []
@@ -160,8 +167,9 @@ class Trainer:
     @torch.no_grad()
     def _eval_step(self, x, y) -> tuple[torch.Tensor, torch.Tensor]:
         chunk = self.cfg.xent_chunk
-        # as training: the chunked loss only where T exceeds one chunk
-        if chunk and self.cfg.data.seq_len > chunk:
+        # as training: the chunked loss only where the rank's T exceeds
+        # one chunk
+        if chunk and x.shape[-1] > chunk:
             hidden = self.model(x, return_hidden=True)
             return chunked_lm_eval(hidden, self.model.lm_head.kernel, y,
                                    chunk=chunk)
@@ -172,7 +180,8 @@ class Trainer:
         """Forward-only pass over the held-out stream (steps from
         ``EVAL_STEP_OFFSET`` on), BatchNorm on its running statistics;
         returns and records the mean loss and accuracy over every rank's
-        rows. ``step`` is 0-based as in ``StepRecord`` (-1 = before any
+        rows (and sequence shards: the mean of equal shards' means).
+        ``step`` is 0-based as in ``StepRecord`` (-1 = before any
         training)."""
         n = self.cfg.eval_batches if num_batches is None else num_batches
         if n <= 0:

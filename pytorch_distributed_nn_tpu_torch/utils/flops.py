@@ -17,6 +17,15 @@ def lm_train_flops_per_token(n_params: int, n_layers: int, seq_len: int,
     return 6.0 * n_params + (attn / 2 if causal else attn)
 
 
+def lm_tokens_per_card(batch_size: int, seq_len: int, data_degree: int,
+                       seq_degree: int) -> float:
+    """Tokens one card trains a step: B T / (data x seq). Under sequence
+    parallelism a card holds T / seq tokens of a row, but its FLOPs per
+    token are those of the whole sequence (:func:`lm_train_flops_per_token`
+    at the global T: each query still attends over all T keys)."""
+    return batch_size * seq_len / (data_degree * seq_degree)
+
+
 def resnet_forward_flops(stage_sizes=(3, 4, 6, 3), width: int = 64,
                          num_classes: int = 1000, image_hw=(224, 224),
                          in_channels: int = 3, stem: str = "conv7") -> float:

@@ -115,8 +115,11 @@ def test_dot_product_attention_matches_jax(causal):
 
 def test_unported_impls_name_the_roadmap():
     x = torch.zeros((1, 2, 2, 4))
+    # ring and ulysses are ported as MultiHeadAttention's sequence-parallel
+    # impls; as a plain attention impl they are unknown, as in the JAX
+    # package, and the error says where they live
     for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="parallel/sequence.py"):
             ta.dot_product_attention(x, x, x, causal=True, impl=impl)
     # flash is ported: on the CPU it runs its plain versions
     torch.testing.assert_close(

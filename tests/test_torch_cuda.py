@@ -351,3 +351,99 @@ def test_dp_explicit_int8_step_on_nccl_world_one(cuda):
     n_bn = len(t.model.batch_norms())
     assert got == (2 * n_bn, 2 * n_bn, 2)  # one f32 bucket a step
     assert all(np.isfinite(t.losses()))
+
+
+# --------------------------------------------------------------------------
+# the ring-attention block update on the card
+# --------------------------------------------------------------------------
+# The kernel rounds p to bf16 for the p.V product and scales the f32 dot
+# after the product; the plain version keeps f32 p and scales q first. So
+# acc and l agree to FLASH_TOL of their largest element and m (f32
+# statistics of the same bf16 inputs) to LSE_TOL, absolute.
+
+def _ring_carries(cuda, B, T, H, D, seed):
+    """Non-trivial incoming carries: m near the logits' scale, l > 0."""
+    g = torch.Generator(cuda).manual_seed(seed)
+    m = torch.randn((B * H, T), generator=g, device=cuda)
+    l = torch.rand((B * H, T), generator=g, device=cuda) * 4 + 0.5
+    acc = torch.randn((B, T, H, D), generator=g, device=cuda)
+    return m, l, acc
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("pair", ["diagonal", "past", "future"])
+@pytest.mark.parametrize("T,D,hkv", [(64, 128, 4), (200, 128, 2),
+                                     (257, 64, 8)])
+def test_ring_block_kernel_matches_plain_version(cuda, T, D, hkv, pair,
+                                                 causal):
+    from pytorch_distributed_nn_tpu_torch.ops import ring_attention as ra
+
+    q, k, v, _ = _flash_inputs(cuda, 2, T, 8, hkv, D, seed=T + D)
+    q_off, k_off = {"diagonal": (T, T), "past": (2 * T, 0),
+                    "future": (0, T)}[pair]
+    m, l, acc = _ring_carries(cuda, 2, T, 8, D, seed=T)
+    want = ra.ring_block_reference(q, k, v, m, l, acc, q_off, k_off,
+                                   causal=causal)
+    before = (m.clone(), l.clone(), acc.clone())
+    n = ra.ring_block_update.launches
+    got = ra.ring_block_update(q, k, v, m, l, acc, q_off, k_off,
+                               causal=causal)
+    torch.cuda.synchronize()
+    assert ra.ring_block_update.launches == n + 1
+    assert got[0] is m and got[1] is l and got[2] is acc  # in place
+    if causal and pair == "future":  # no iteration: untouched, bitwise
+        for a, b in zip((m, l, acc), before):
+            assert torch.equal(a, b)
+    assert (m - want[0]).abs().max().item() <= LSE_TOL
+    assert _rel(l, want[1]) <= FLASH_TOL
+    assert _rel(acc, want[2]) <= FLASH_TOL
+
+
+def test_ring_block_kernel_reads_row_slices_in_place(cuda):
+    """A shard that is a row slice of the whole sequence (as the ring
+    emulation of chip_smoke.py hands it) gives what a contiguous copy
+    gives, bit for bit."""
+    from pytorch_distributed_nn_tpu_torch.ops import ring_attention as ra
+
+    q, k, v, _ = _flash_inputs(cuda, 1, 512, 8, 4, 128, seed=9)
+    sl = slice(256, 512)
+    outs = []
+    for args in ((q[:, sl], k[:, :256], v[:, :256]),
+                 (q[:, sl].contiguous(), k[:, :256].contiguous(),
+                  v[:, :256].contiguous())):
+        m, l, acc = _ring_carries(cuda, 1, 256, 8, 128, seed=1)
+        outs.append(ra.ring_block_update(*args, m, l, acc, 256, 0,
+                                         causal=True))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_ring_attention_on_the_card_matches_flash(cuda):
+    """The one-rank ring (the world-1 main path: one diagonal pair) against
+    flash attention, forward and gradients, and its launch counts."""
+    from pytorch_distributed_nn_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_nn_tpu_torch.ops import ring_attention as ra
+    from pytorch_distributed_nn_tpu_torch.parallel.sequence import (
+        ring_attention,
+    )
+    from pytorch_distributed_nn_tpu_torch.runtime.mesh import SeqGroup
+
+    q, k, v, do = _flash_inputs(cuda, 2, 300, 8, 4, 128, seed=11)
+    outs = {}
+    for impl in ("ring", "flash"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        n = (ra.ring_block_update.launches, fa.flash_fwd.launches,
+             fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+        if impl == "ring":
+            out = ring_attention(*leaves, seq=SeqGroup(), causal=True)
+        else:
+            out = fa.flash_attention(*leaves, causal=True)
+        out.backward(do)
+        torch.cuda.synchronize()
+        counts = tuple(a - b for a, b in zip(
+            (ra.ring_block_update.launches, fa.flash_fwd.launches,
+             fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches), n))
+        outs[impl] = (out, *[t.grad for t in leaves], counts)
+    assert outs["ring"][4] == (1, 0, 1, 1)
+    for a, b in zip(outs["ring"][:4], outs["flash"][:4]):
+        assert _rel(a, b) <= FLASH_TOL

@@ -80,8 +80,8 @@ def test_loader_gives_each_rank_its_rows():
     ds = tdata.get_dataset("cifar10", seed=1, batch_size=8)
     x, y = ds.batch(3)
     for rank in range(4):
-        loader = DataLoader(ds, torch.device("cpu"), rank=rank, world_size=4,
-                            prefetch=0)
+        loader = DataLoader(ds, torch.device("cpu"), data_index=rank,
+                            data_degree=4, prefetch=0)
         xr, yr = loader.batch_at(3)
         np.testing.assert_array_equal(xr.numpy(), x[2 * rank:2 * rank + 2])
         np.testing.assert_array_equal(yr.numpy(), y[2 * rank:2 * rank + 2])
