@@ -441,6 +441,7 @@ def phase_flash(flush):
         bound, by = flash_bound_ms(name, T)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library[name],
                           bound_ms=bound, bound_by=by,
+                          share_of_bound=bound / ms,
                           max_abs_err=errs[name],
                           tflops=FLASH_KERNELS[name][1] * FLASH_B * FLASH_H
                           * T * T * FLASH_D / ms / 1e9)

@@ -122,13 +122,18 @@ def _rel(got, ref):
             / ref.float().abs().max().clamp(min=FLOOR)).item()
 
 
+# T at the tile edges of the kernels (64-row and 128-row tiles) and past
+# them; every GQA group size of the 8 query heads the tests use
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("T,D", [(1, 128), (50, 128), (257, 128),
-                                 (257, 64)])
-def test_flash_kernels_match_plain_versions(cuda, T, D, causal):
+@pytest.mark.parametrize("hkv", [8, 4, 2])  # G = H / Hkv = 1, 2, 4
+@pytest.mark.parametrize("T,D", [(1, 128), (50, 128), (63, 128), (64, 128),
+                                 (65, 128), (127, 128), (128, 128),
+                                 (129, 128), (257, 128), (1000, 128),
+                                 (63, 64), (129, 64), (257, 64), (1000, 64)])
+def test_flash_kernels_match_plain_versions(cuda, T, D, hkv, causal):
     from pytorch_distributed_nn_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, do = _flash_inputs(cuda, 2, T, 8, 4, D, seed=T)
+    q, k, v, do = _flash_inputs(cuda, 2, T, 8, hkv, D, seed=T)
     n = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
          fa.flash_bwd_dkv.launches)
     o, lse = fa.flash_fwd(q, k, v, causal)
@@ -147,10 +152,45 @@ def test_flash_kernels_match_plain_versions(cuda, T, D, causal):
     assert _rel(dq, dq_ref) <= FLASH_TOL
     assert _rel(dk, dk_ref) <= FLASH_TOL
     assert _rel(dv, dv_ref) <= FLASH_TOL
+    # f32 outputs, as the ring path asks for its partial sums
+    dq32 = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal,
+                           out_dtype=torch.float32)
     dk32, dv32 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal,
                                   out_dtype=torch.float32)
-    assert dk32.dtype == torch.float32
+    assert dq32.dtype == dk32.dtype == torch.float32
+    assert _rel(dq32, dq_ref) <= FLASH_TOL
     assert _rel(dk32, dk_ref) <= FLASH_TOL and _rel(dv32, dv_ref) <= FLASH_TOL
+
+
+@pytest.mark.parametrize("pair", ["diagonal", "past"])
+def test_flash_backward_reads_row_slices_in_place(cuda, pair):
+    """Both backward passes on row slices of a longer sequence, as the
+    seq = 4 ring replay of chip_smoke.py hands them (a query shard against
+    its own K/V shard, causal, or an earlier one, dense): bit for bit what
+    contiguous copies give, and within FLASH_TOL of the plain versions."""
+    from pytorch_distributed_nn_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(cuda, 2, 900, 8, 4, 128, seed=13)
+    qs, ks = {"diagonal": (slice(300, 600), slice(300, 600)),
+              "past": (slice(600, 900), slice(0, 300))}[pair]
+    causal = pair == "diagonal"
+    views = (q[:, qs], k[:, ks], v[:, ks], do[:, qs])
+    o, lse = fa.flash_fwd(*views[:3], causal)
+    delta = fa.flash_delta(o, views[3])
+    f32 = torch.float32
+    outs = []
+    for args in (views, tuple(x.contiguous() for x in views)):
+        args = (*args, lse, delta, causal)
+        outs.append((fa.flash_bwd_dq(*args, out_dtype=f32),
+                     *fa.flash_bwd_dkv(*args, out_dtype=f32)))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    args = (*views, lse, delta, causal)
+    dq, dk, dv = outs[0]
+    assert _rel(dq, fa.flash_bwd_dq_reference(*args)) <= FLASH_TOL
+    dk_ref, dv_ref = fa.flash_bwd_dkv_reference(*args)
+    assert _rel(dk, dk_ref) <= FLASH_TOL and _rel(dv, dv_ref) <= FLASH_TOL
 
 
 def test_flash_gradients_are_deterministic(cuda):
