@@ -15,9 +15,10 @@ each. Prints one line ``AB {...}`` of milliseconds, keys ``<kernel>_<rep>``:
 - ``dq`` and ``dkv``: the backward passes ``flash_bwd_dq`` and
   ``flash_bwd_dkv`` with bf16 outputs (the flash path's);
 - ``dq_f32`` and ``dkv_f32``: the same with f32 outputs (the ring path's);
-- ``sdpa_bwd`` (once): the backward of F.scaled_dot_product_attention on
-  the same inputs, which computes dq, dk and dv in one call; the
-  yardstick, never used by the port.
+- ``sdpa_fwd`` and ``sdpa_bwd`` (once each): the forward of
+  F.scaled_dot_product_attention on the same inputs, and its backward,
+  which computes dq, dk and dv in one call; the yardsticks, never used by
+  the port.
 
 Beside each time, ``<key>_mhz`` and ``<key>_w``: the lowest SM clock and
 the highest power draw ``nvidia-smi`` read (every 0.1 s) while it was
@@ -86,8 +87,16 @@ def main() -> int:
     f32 = torch.float32
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
-    out_t = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return sdpa()
+
+    out_t = sdpa()
     dot = do.transpose(1, 2).contiguous()
     kernels = {
         "flash_fwd": lambda: fa.flash_fwd(q, k, v, True),
@@ -99,6 +108,7 @@ def main() -> int:
         "dkv_f32": lambda: fa.flash_bwd_dkv(*args, out_dtype=f32)}
     runs = [(f"{name}_{rep}", fn) for rep in range(2)
             for name, fn in kernels.items()]
+    runs.append(("sdpa_fwd", sdpa_fwd))
     runs.append(("sdpa_bwd", lambda: torch.autograd.grad(
         out_t, (qt, kt, vt), dot, retain_graph=True)))
     out = {"tree": sys.argv[1]}

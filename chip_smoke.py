@@ -9,8 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. build   -- nvcc builds the five csrc/*.cu (int8_matmul, flash_attention,
               bn_stats, quantize, ring_attention) for sm_90a, one nvcc each,
-              started together; prints seconds and the compiler's
-              register/spill report.
+              started together; prints seconds and each kernel's
+              registers and spilled bytes from the compiler's report.
 2. kernel  -- int8_matmul (the W8A16 CUDA kernel) against its plain PyTorch
               version at every (K, N) of the Llama-3-8B path, M in
               {1, 8, 128}; times the kernel, the plain version and one
@@ -116,6 +116,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -177,6 +178,49 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_name(mangled):
+    """``flash_fwd_kernel<128>`` of a kernel's mangled name (a function,
+    maybe templated on one int, maybe inside one namespace)."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    nested = mangled.startswith("_ZN")
+    pos = 3 if nested else 2
+
+    def ident():  # the next length-prefixed identifier
+        nonlocal pos
+        n = re.match(r"\d+", mangled[pos:])
+        start = pos + n.end()
+        pos = start + int(n.group())
+        return mangled[start:pos]
+
+    name = ident()
+    if nested:
+        name = ident()  # the first was the (anonymous) namespace
+    targ = re.match(r"ILi(\d+)E", mangled[pos:])
+    return name + (f"<{targ.group(1)}>" if targ else "")
+
+
+def kernel_resources(report):
+    """{kernel: {"registers": n, "spill_bytes": n}} from nvcc's -Xptxas -v
+    report, kernels named by :func:`kernel_name`."""
+    out, name = {}, None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = kernel_name(entry.group(1))
+            out[name] = {}
+        elif name is not None:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", line)
+            if spill:
+                out[name]["spill_bytes"] = int(spill.group(1)) + int(
+                    spill.group(2))
+            regs = re.search(r"Used (\d+) registers", line)
+            if regs:
+                out[name]["registers"] = int(regs.group(1))
+    return out
 
 
 def time_ms(fn, iters, flush=None):
@@ -295,10 +339,19 @@ def rel_err(got, ref):
 
 
 def flash_check(name, got, ref, tol=FLASH_TOL):
-    err = rel_err(got, ref)
-    if not err <= tol:
-        raise AssertionError(f"{name}: max|err|/max|ref| {err} > {tol}")
-    return (got.float() - ref.float()).abs().max().item()
+    """max|err| and max|err|/max|ref| of ``got`` against ``ref``, logged;
+    raises when the latter is above ``tol``."""
+    err = (got.float() - ref.float()).abs().max().item()
+    rel = err / ref.float().abs().max().item()
+    log(f"[check] {name}: max|err| {err:.3e}, max|err|/max|ref| {rel:.3e}")
+    if not rel <= tol:
+        raise AssertionError(f"{name}: max|err|/max|ref| {rel} > {tol}")
+    return dict(max_abs_err=err, rel_err=rel)
+
+
+def worst(*checks):
+    """The largest of each error over ``flash_check`` results."""
+    return {key: max(c[key] for c in checks) for key in checks[0]}
 
 
 def flash_bound_ms(name, T):
@@ -338,7 +391,7 @@ def phase_flash(flush):
 
     from pytorch_distributed_nn_tpu_torch.ops import flash_attention as fa
 
-    errs = {name: 0.0 for name in FLASH_KERNELS}
+    errs = {}
     # T = 4096: every output in full against the plain versions
     T = 4096
     q, k, v, do = flash_inputs(T, seed=0)
@@ -356,11 +409,11 @@ def phase_flash(flush):
     errs["flash_bwd_dq"] = flash_check(
         "flash_bwd_dq, T=4096", dq, fa.flash_bwd_dq_reference(*args))
     dk_ref, dv_ref = fa.flash_bwd_dkv_reference(*args)
-    errs["flash_bwd_dkv"] = max(flash_check("flash_bwd_dkv dk, T=4096", dk,
-                                            dk_ref),
-                                flash_check("flash_bwd_dkv dv, T=4096", dv,
-                                            dv_ref))
-    log(f"[flash] T=4096 in full: max|err| {errs}, lse {lse_err:.3e}")
+    errs["flash_bwd_dkv"] = worst(flash_check("flash_bwd_dkv dk, T=4096",
+                                              dk, dk_ref),
+                                  flash_check("flash_bwd_dkv dv, T=4096",
+                                              dv, dv_ref))
+    log(f"[flash] T=4096 in full: {errs}, lse {lse_err:.3e}")
     del o_ref, lse_ref, dk_ref, dv_ref
     torch.cuda.empty_cache()
 
@@ -376,23 +429,23 @@ def phase_flash(flush):
     torch.cuda.synchronize()
     last = slice(T - 512, T)
     o_ref, lse_ref = fa.flash_forward_reference(q, k, v, True, q_rows=last)
-    errs["flash_fwd"] = max(errs["flash_fwd"], flash_check(
+    errs["flash_fwd"] = worst(errs["flash_fwd"], flash_check(
         "flash_fwd O, T=32768", o[:, last], o_ref))
     lse_err = max(lse_err, (lse[:, last] - lse_ref).abs().max().item())
     if not lse_err <= LSE_TOL:
         raise AssertionError(f"flash_fwd lse, T=32768: {lse_err} > {LSE_TOL}")
-    errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], flash_check(
+    errs["flash_bwd_dq"] = worst(errs["flash_bwd_dq"], flash_check(
         "flash_bwd_dq, T=32768", dq[:, last],
         fa.flash_bwd_dq_reference(*args, q_rows=last)))
     for rows in (slice(0, 512), last):
         dk_ref, dv_ref = fa.flash_bwd_dkv_reference(*args, k_rows=rows)
-        errs["flash_bwd_dkv"] = max(
+        errs["flash_bwd_dkv"] = worst(
             errs["flash_bwd_dkv"],
             flash_check(f"flash_bwd_dkv dk rows {rows}", dk[:, rows], dk_ref),
             flash_check(f"flash_bwd_dkv dv rows {rows}", dv[:, rows], dv_ref))
     del o_ref, lse_ref, dk_ref, dv_ref
     torch.cuda.empty_cache()
-    log(f"[flash] T=32768 on row slices: max|err| {errs}, lse {lse_err:.3e}")
+    log(f"[flash] T=32768 on row slices: {errs}, lse {lse_err:.3e}")
 
     # times at T = 32768: the kernels (median of 10), their plain versions
     # (the whole output, 2048 rows at a time, one run), the library call
@@ -442,7 +495,7 @@ def phase_flash(flush):
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library[name],
                           bound_ms=bound, bound_by=by,
                           share_of_bound=bound / ms,
-                          max_abs_err=errs[name],
+                          **errs[name],
                           tflops=FLASH_KERNELS[name][1] * FLASH_B * FLASH_H
                           * T * T * FLASH_D / ms / 1e9)
         log(f"[flash] {name} T=32768: {json.dumps(rows[name])}")
@@ -811,11 +864,11 @@ def ring_main_pair_check(T, seed, q_rows, edge=512):
         bwd[f"dv rows {r.start}:{r.stop}"] = flash_check(
             f"ring pair dv (f32), T={T}", dv[:, r], dv_ref)
         del dk_ref, dv_ref
-    log(f"[ring] T={T} main-path pair backward (f32 out) vs plain, "
-        f"max|err|: {json.dumps(bwd)}")
+    log(f"[ring] T={T} main-path pair backward (f32 out) vs plain: "
+        f"{json.dumps(bwd)}")
     del q, k, v, do, out, lse, delta, dq, dk, dv
     torch.cuda.empty_cache()
-    return dict(forward=errs, backward_max_abs_err=bwd)
+    return dict(forward=errs, backward=bwd)
 
 
 def phase_ring(flush):
@@ -959,7 +1012,8 @@ def phase_ring(flush):
                                  for e in c["forward"].values()]
     return dict(check_8192=errs, ring_forward=fwd, ring_backward=bwd,
                 main_pairs=main, times=rows,
-                max_abs_err=max(e["max_abs_err"] for e in checks))
+                max_abs_err=max(e["max_abs_err"] for e in checks),
+                rel_err=max(e["acc_rel"] for e in checks))
 
 
 def set_attn_impl(model, impl):
@@ -2033,12 +2087,13 @@ def main() -> int:
                "quantize.cu", "ring_attention.cu")
     build.load_libraries(*sources)  # one nvcc each, all started together
     log(f"[build] {' + '.join(sources)}: {time.monotonic() - t0:.2f} s")
+    resources = {}
     for src in sources:
         secs, report = build.build_info[src]
         log(f"[build] {src}: nvcc {secs:.2f} s")
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line or "entry" in line:
-                log(f"[build] {line.strip()}")
+        resources.update(kernel_resources(report))
+    for kernel, res in resources.items():
+        log(f"[build] {kernel}: {json.dumps(res)}")
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows, max_err, library_label = phase_kernel(flush)
@@ -2081,6 +2136,7 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=FLASH_SOURCE, replaces=replaces,
             launches=flash_launches[name], **flash_rows[name],
+            resources=resources.get(f"{name}_kernel<128>"),
             library="F.scaled_dot_product_attention(is_causal=True, "
                     "enable_gqa=True)" + (" backward (dq, dk and dv)"
                                           if name != "flash_fwd" else ""),
@@ -2112,14 +2168,17 @@ def main() -> int:
         replaces=RING_TPU,
         launches=ring_train["llama3_longcontext"]["launches"][
             "ring_block_update"],
-        max_abs_err=ring["max_abs_err"], ms=main_pair["ms"],
+        max_abs_err=ring["max_abs_err"], rel_err=ring["rel_err"],
+        ms=main_pair["ms"],
         plain_ms=main_pair["plain_ms"], bound_ms=main_pair["bound_ms"],
         bound_by=main_pair["bound_by"], library_ms=main_pair["library_ms"],
         library=RING_LIBRARY,
+        resources=resources.get("ring_block_kernel<128>"),
         per="one call at the world-1 main path's shape: the diagonal pair "
             "at Tl = 32768 (B 1, H 8, Hkv 4, D 128, causal); max_abs_err "
-            "of acc against the plain version over every check (Tl 8192; "
-            "the main path's pairs at Tl 32768 and, on row slices, 98304)",
+            "and rel_err (max|err|/max|ref|) of acc against the plain "
+            "version over every check (Tl 8192; the main path's pairs at "
+            "Tl 32768 and, on row slices, 98304)",
         at_8192={k: v for k, v in ring["times"].items() if "8192" in k}))
     log(json.dumps(dict(forward=forward, serve=serve, auto=auto,
                         train_check=train_check, train=train,

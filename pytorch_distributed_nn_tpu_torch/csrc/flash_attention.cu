@@ -31,173 +31,117 @@
 // kernel keeps the (T, T) scores out of device memory: one tile of s lives
 // in registers at a time.
 //
-// The forward (and ring_attention.cu, which shares its K loop) still runs
-// mma.sync m16n8k16 from padded shared-memory tiles loaded synchronously
-// (tile_mma.cuh): one block of 4 warps a 64-row tile, each warp 16 rows.
-//
-// The two backward passes are built for Hopper (wgmma_tile.cuh). What held
-// the mma.sync design back: mma.sync reaches about two thirds of the
+// All three kernels are built for Hopper (wgmma_tile.cuh). What held the
+// first, mma.sync design back: mma.sync reaches about two thirds of the
 // tensor-core peak at best, only wgmma the whole of it; a synchronous tile
 // load leaves the tensor cores idle while it waits; and 4 warps a block,
 // lock-stepped by a __syncthreads a tile, leave them idle again while every
-// warp computes exp and ds. So:
-// - each block runs two warpgroups of 64 rows each on wgmma: s and dp (or
-//   s^T and dp^T) as m64n64k16 products with both operands in shared memory,
-//   then the gradient products with the f32 scores packed to bf16 as the
-//   register A operand and the other factor read through an MN-major
-//   (transposed) descriptor of the same shared tile: no tile is transposed;
+// warp computes exp (and ds). So:
+// - each block runs two warpgroups of 64 rows each on wgmma: the score
+//   products (s, and dp in the backward) as m64n128k16 (forward) or
+//   m64n64k16 (backward) with both operands in shared memory, then the
+//   products that consume them (p V; dq, dk, dv) with the f32 scores packed
+//   to bf16 as the register A operand and the other factor read through an
+//   MN-major (transposed) descriptor of the same shared tile: no tile is
+//   transposed;
 // - the streamed tiles come through a ring of cp.async stages into
 //   128-byte-swizzled shared memory, tracked by mbarriers instead of
 //   __syncthreads, so the next tile's copy is in flight while this one
 //   computes and the two warpgroups run out of step;
 // - the warpgroups take turns (two named barriers) to issue their products,
-//   so one warpgroup's exp and ds overlap the other's tensor-core work.
-// The dk/dv pass takes 128 keys a block (K and V loaded once) and streams
-// 64-row Q/dO tiles with their lse and delta; the dq pass takes 128 query
-// rows (Q and dO loaded once) and streams 64-key K/V tiles. Every tile
-// applies the mask; rows and keys at or past T get p = 0 from it (the
-// zero-filled copies only keep the products finite). Registers bound the
-// design: a dk/dv thread holds dk and dv (64 + 64 f32 at D 128) besides
-// s^T and dp^T (32 + 32) and the packed p^T and ds^T of the previous tile
-// (16 + 16), so a block has 256 threads, one block an SM.
+//   so one warpgroup's exp overlaps the other's tensor-core work.
+// The forward takes 128 query rows a block (Q loaded once) and streams
+// 128-key K/V tiles through the K loop it shares with ring_attention.cu
+// (attend_kv_tiles): s of tile i and p V of tile i - 1 in one turn. The
+// dk/dv pass takes 128 keys a block (K and V loaded once) and streams 64-row
+// Q/dO tiles with their lse and delta; the dq pass takes 128 query rows (Q
+// and dO loaded once) and streams 64-key K/V tiles. The backward applies the
+// mask on every tile, the forward on the tiles that a warp does not see
+// whole; rows and keys at or past T get p = 0 from it (the zero-filled
+// copies only keep the products finite). Registers bound the design: a dk/dv
+// thread holds dk and dv (64 + 64 f32 at D 128) besides s^T and dp^T
+// (32 + 32) and the packed p^T and ds^T of the previous tile (16 + 16), so a
+// block has 256 threads, one block an SM.
 // No atomics anywhere: every output element is summed in a fixed order (the
 // dk/dv pass sums the K/V head's query-head group in its own accumulator),
-// so the gradients are bitwise deterministic.
+// so the outputs are bitwise deterministic.
 
 #include <cmath>
 
-#include "tile_mma.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// Forward: one block per (64-row Q tile, b * H + h); streams the K/V tiles of
-// head h / G up to the diagonal (causal) or to T.
+// Forward: one block per (128-row Q tile, b * H + h); the shared K loop
+// (attend_kv_tiles) streams the K/V tiles of head h / G up to the block's
+// last row (causal) or to T, then O = acc / l in bf16 and
+// lse = m + log(l), l floored at 1e-30.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      float* __restrict__ lse, int H, int Hkv, int T,
                      View vq, View vk, View vv, View vo, int causal,
                      float scale) {
-  constexpr int BQ = 64, BK = 64, LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * LD;
-  bf16* sV = sK + BK * LD;
-
+  constexpr int BQ = 128;
+  extern __shared__ unsigned char smem[];
   const int nq = (T + BQ - 1) / BQ;
-  const int qi = nq - 1 - (int)blockIdx.x;  // longest causal rows first
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, hk = h / (H / Hkv);
-  const int q0 = qi * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int rowA = q0 + warp * 16 + g, rowB = rowA + 8;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * BQ;  // longest causal rows first
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / (H / Hkv);
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rowA = q0 + wg * 64 + warp * 16 + g, rowB = rowA + 8;
+  // key c is live for a row when c < its limit: T, or row + 1 (causal)
+  const int hiA = causal ? min(T, rowA + 1) : T;
+  const int hiB = causal ? min(T, rowB + 1) : T;
 
-  const bf16* qb = q + b * vq.sb + h * vq.sh;
-  const bf16* kb = k + b * vk.sb + hk * vk.sh;
-  const bf16* vb = v + b * vv.sb + hk * vv.sh;
-
-  load_tile<BQ, D>(sQ, qb, vq.st, q0, T);
-  __syncthreads();
-  uint32_t qa[D / 16][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a(sQ, LD, warp * 16, kk * 16, qa[kk]);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
   const int kend = causal ? min(T, q0 + BQ) : T;
-  attend_kv_tiles<D>(sK, sV, kb, vb, vk.st, vv.st, kend, T, qa, rowA, rowB,
-                     causal, 0, scale, m, l, acc);
+  attend_kv_tiles<D>(smem, q + b * vq.sb + h * vq.sh, vq.st, q0, T,
+                     k + b * vk.sb + hk * vk.sh, vk.st,
+                     v + b * vv.sb + hk * vv.sh, vv.st, T, kend, hiA, hiB,
+                     scale, m, l, acc);
 
-  const float l0 = fmaxf(l[0], 1e-30f), l1 = fmaxf(l[1], 1e-30f);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const float lA = fmaxf(l[0], 1e-30f), lB = fmaxf(l[1], 1e-30f);
+  const float invA = 1.f / lA, invB = 1.f / lB;
   bf16* ob = o + b * vo.sb + h * vo.sh;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t;
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t;
     if (rowA < T)
-      store_pair(ob, rowA * vo.st + c, acc[n][0] * inv0, acc[n][1] * inv0, 0);
+      store_pair(ob, rowA * vo.st + c, acc[4 * j] * invA,
+                 acc[4 * j + 1] * invA, 0);
     if (rowB < T)
-      store_pair(ob, rowB * vo.st + c, acc[n][2] * inv1, acc[n][3] * inv1, 0);
+      store_pair(ob, rowB * vo.st + c, acc[4 * j + 2] * invB,
+                 acc[4 * j + 3] * invB, 0);
   }
   if (t == 0) {
     float* lb = lse + (long long)bh * T;
-    if (rowA < T) lb[rowA] = m[0] + logf(l0);
-    if (rowB < T) lb[rowB] = m[1] + logf(l1);
+    if (rowA < T) lb[rowA] = m[0] + logf(lA);
+    if (rowB < T) lb[rowB] = m[1] + logf(lB);
   }
 }
 
 // ---------------------------------------------------------------------------
 // The backward passes: two warpgroups (256 threads) a block, each owning 64
-// rows of the block's tile, on wgmma. The streamed tiles pass through a
-// ring of kStages stages of 128-byte-swizzled shared memory
-// (wgmma_tile.cuh), copied by cp.async, every thread its share. No
-// __syncthreads in the loop: a stage's "full" mbarrier completes when every
-// thread's copies into it have landed, its "empty" mbarrier when every
-// thread's warpgroup has done reading it. So the two warpgroups run out of
-// step, and two named barriers make them take turns issuing their products:
-// one warpgroup's exp and ds (CUDA cores, the exp unit) run while the
-// other's products hold the tensor cores. In its turn at tile i a
-// warpgroup issues tile i's score products and tile i - 1's gradient
-// products (whose A operand, the packed p or ds, it made after its last
-// turn; zeros at i = 0), and it waits for all of them within the tile: no
-// product is in flight across a branch or the loop's back edge, so ptxas
-// keeps the wgmma pipeline. A tile with nothing live for a warpgroup (past
-// the diagonal or past T; at T = 32768 under 1% of the tiles) is computed
-// like any other and masked to p = 0. The copy of tile i + 1 is issued at
-// tile i into the stage of tile i + 1 - kStages, which both warpgroups
-// released at least a tile earlier.
+// rows of the block's tile, on wgmma, the streamed tiles passing through the
+// ring of wgmma_tile.cuh and the warpgroups taking turns to issue their
+// products. In its turn at tile i a warpgroup issues tile i's score
+// products and tile i - 1's gradient products (whose A operand, the packed
+// p or ds, it made after its last turn; zeros at i = 0), and it waits for
+// all of them within the tile: no product is in flight across a branch or
+// the loop's back edge, so ptxas keeps the wgmma pipeline. A tile with
+// nothing live for a warpgroup (past the diagonal or past T; at T = 32768
+// under 1% of the tiles) is computed like any other and masked to p = 0.
+// The copy of tile i + 1 is issued at tile i into the stage of tile
+// i + 1 - kStages, which both warpgroups released at least a tile earlier.
 // ---------------------------------------------------------------------------
-constexpr int kBwdThreads = 256;
-constexpr int kStages = 4;
-
-// The ring's mbarriers at bars: full[kStages], then empty[kStages]. Every
-// thread arrives once on each per tile: its copies on full, its release on
-// empty.
-struct Ring {
-  uint32_t bars;
-  __device__ uint32_t full(int st) const { return bars + 8 * st; }
-  __device__ uint32_t empty(int st) const {
-    return bars + 8 * (kStages + st);
-  }
-  __device__ void init() const {
-    if (threadIdx.x == 0)
-      for (int st = 0; st < kStages; ++st) {
-        mbar_init(full(st), kBwdThreads);
-        mbar_init(empty(st), kBwdThreads);
-      }
-    __syncthreads();
-  }
-  // before copying tile j: its stage's previous tile is released
-  __device__ void acquire(int j) const {
-    if (j >= kStages) mbar_wait(empty(j % kStages), (j / kStages - 1) & 1);
-  }
-  // after issuing tile j's copies
-  __device__ void commit(int j) const {
-    cp_async_mbar_arrive(full(j % kStages));
-  }
-  // before reading tile i: its copies have landed, and wgmma sees them
-  __device__ void wait(int i) const {
-    mbar_wait(full(i % kStages), (i / kStages) & 1);
-    fence_proxy_async();
-  }
-  __device__ void release(int i) const { mbar_arrive(empty(i % kStages)); }
-};
-
-// The turn of warpgroup wg (named barriers 1 and 2): warpgroup 0 goes first
-__device__ __forceinline__ void turn_begin(int wg) {
-  bar_sync(1 + wg, kBwdThreads);
-}
-__device__ __forceinline__ void turn_end(int wg) {
-  bar_arrive(2 - wg, kBwdThreads);
-}
+constexpr int kStages = 4;  // the backward passes' ring
 
 // ---------------------------------------------------------------------------
 // dq pass: one block per (128-row Q tile, b * H + h). Q and dO are loaded
@@ -208,7 +152,7 @@ __device__ __forceinline__ void turn_end(int wg) {
 // an MN-major B operand of the same shared tile.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const bf16* __restrict__ dout,
@@ -221,7 +165,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   extern __shared__ unsigned char smem[];
   const uint32_t sQ = align1024(smem_u32(smem)), sG = sQ + kQ;  // dO
   const uint32_t sKV = sG + kQ;  // stage s: K at sKV + 2 s kKV, V after it
-  const Ring ring{sKV + kStages * 2 * kKV};
+  const Ring<kStages> ring{sKV + kStages * 2 * kKV};
   ring.init();
 
   const int nq = (T + BQ - 1) / BQ;
@@ -251,14 +195,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   auto issue = [&](int j) {  // this thread's share of K/V tile j
     if (j >= n) return;
     ring.acquire(j);
-    load_tile_sw128<BK, D, kBwdThreads>(stage(j), kb, vk.st, j * BK, T);
-    load_tile_sw128<BK, D, kBwdThreads>(stage(j) + kKV, vb, vv.st, j * BK,
+    load_tile_sw128<BK, D, kThreads>(stage(j), kb, vk.st, j * BK, T);
+    load_tile_sw128<BK, D, kThreads>(stage(j) + kKV, vb, vv.st, j * BK,
                                         T);
     ring.commit(j);
   };
-  load_tile_sw128<BQ, D, kBwdThreads>(sQ, q + b * vq.sb + h * vq.sh, vq.st,
+  load_tile_sw128<BQ, D, kThreads>(sQ, q + b * vq.sb + h * vq.sh, vq.st,
                                       q0, T);
-  load_tile_sw128<BQ, D, kBwdThreads>(sG, dout + b * vdo.sb + h * vdo.sh,
+  load_tile_sw128<BQ, D, kThreads>(sG, dout + b * vdo.sb + h * vdo.sh,
                                       vdo.st, q0, T);
   issue(0);  // Q and dO land with tile 0
   if (wg == 1) turn_end(1);  // warpgroup 0 takes the first turn
@@ -357,7 +301,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 // accumulator a key for the whole group: no second pass, no atomics.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
@@ -376,7 +320,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   // stage s: the Q tile's lse at [2 s BQ, 2 s BQ + BQ), its delta after it
   const uint32_t sLD = sQG + kStages * 2 * kQ;
   const float* lds = reinterpret_cast<const float*>(smem + (sLD - s0));
-  const Ring ring{sLD + kStages * 2 * BQ * 4};
+  const Ring<kStages> ring{sLD + kStages * 2 * BQ * 4};
   ring.init();
 
   const int bhk = blockIdx.x, b = bhk / Hkv, hk = bhk % Hkv, G = H / Hkv;
@@ -401,8 +345,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     if (j >= n) return;
     ring.acquire(j);
     const int gi = j / nqt, q0 = (qstart + j % nqt) * BQ;
-    load_tile_sw128<BQ, D, kBwdThreads>(stage(j), qg + gi * qsh, qst, q0, T);
-    load_tile_sw128<BQ, D, kBwdThreads>(stage(j) + kQ, gg + gi * gsh, gst,
+    load_tile_sw128<BQ, D, kThreads>(stage(j), qg + gi * qsh, qst, q0, T);
+    load_tile_sw128<BQ, D, kThreads>(stage(j) + kQ, gg + gi * gsh, gst,
                                         q0, T);
     if (threadIdx.x < 2 * BQ) {
       const int r = q0 + (threadIdx.x & (BQ - 1));
@@ -411,9 +355,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     }
     ring.commit(j);
   };
-  load_tile_sw128<BK, D, kBwdThreads>(sK, k + b * vk.sb + hk * vk.sh, vk.st,
+  load_tile_sw128<BK, D, kThreads>(sK, k + b * vk.sb + hk * vk.sh, vk.st,
                                       k0, T);
-  load_tile_sw128<BK, D, kBwdThreads>(sV, v + b * vv.sb + hk * vv.sh, vv.st,
+  load_tile_sw128<BK, D, kThreads>(sV, v + b * vv.sb + hk * vv.sh, vv.st,
                                       k0, T);
   issue(0);  // K and V land with tile 0
   if (wg == 1) turn_end(1);  // warpgroup 0 takes the first turn
@@ -538,10 +482,11 @@ template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int B, int H, int Hkv, int T, const long long* strides, int causal,
         cudaStream_t st) {
-  const int bytes = 3 * 64 * (D + kPad) * (int)sizeof(bf16);
+  const int bytes = fwd_smem_bytes<D>();
   cudaError_t err = allow_smem(flash_fwd_kernel<D>, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + 63) / 64, B * H);
+  dim3 grid(B * H, (T + 127) / 128);
+  if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
   flash_fwd_kernel<D><<<grid, kThreads, bytes, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
@@ -563,7 +508,7 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (T + 127) / 128);
   if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
-  flash_bwd_dq_kernel<D><<<grid, kBwdThreads, bytes, st>>>(
+  flash_bwd_dq_kernel<D><<<grid, kThreads, bytes, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta), dq, H,
@@ -589,7 +534,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * Hkv, (T + 127) / 128);
   if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
-  flash_bwd_dkv_kernel<D><<<grid, kBwdThreads, bytes, st>>>(
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, bytes, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta), dk,

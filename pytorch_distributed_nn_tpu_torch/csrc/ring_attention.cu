@@ -23,76 +23,63 @@
 // (B, Tq, H, D) f32 tensor, the model's layout.
 //
 // Arithmetic, as the port's flash forward (flash_attention.cu): bf16
-// operands on the tensor cores (mma.sync m16n8k16) with f32 accumulation;
-// the f32 dot is scaled after the product (the TPU kernel scales q before
-// it: one f32 rounding apart); p is rounded to bf16 for the p.V product;
-// m, l and acc stay f32. Masked logits take the finite -1e30.
+// operands on the tensor cores (wgmma) with f32 accumulation; the f32 dot is
+// scaled after the product (the TPU kernel scales q before it: one f32
+// rounding apart); p is rounded to bf16 for the p.V product; m, l and acc
+// stay f32. Masked logits take the finite -1e30.
 //
 // What bounds it on an H100. At the long-context shapes (Tq = Tk = 8192 or
 // 32768, D = 128) a pair does 4 Tq Tk D flops per head (half of it on a
 // causal diagonal) for ~12 Tq D bytes: far above the 295 flops per byte
-// where the tensor cores, not memory, are the limit. The design is the flash
-// forward's, and so is the K loop (attend_kv_tiles in tile_mma.cuh, with
-// the offsets' difference in its mask): one block of 4 warps owns a 64-row
-// Q tile (16 rows a warp) and streams 64-key K/V tiles through padded
-// shared memory, so the (Tq, Tk) scores never reach device memory; the
-// carries are read once into registers before the loop and written once
-// after it (the f32 acc adds 8 Tq D bytes a head, under 2% of a causal
-// pair's time at Tq = 8192). The K loop ends at the last key a row of the
-// tile may see, so a fully-future shard costs no iteration and leaves its
-// carries untouched. Loads are synchronous; wgmma, TMA and pipelining are
-// left for later.
+// where the tensor cores, not memory, are the limit. So the kernel is the
+// flash forward with carries: the same block of two warpgroups over 128
+// query rows and the same K loop (attend_kv_tiles in wgmma_tile.cuh: wgmma,
+// 128-key K/V tiles through a cp.async ring, the warpgroups taking turns),
+// with the offsets' difference in its mask; the (Tq, Tk) scores never reach
+// device memory. The carries are read once into the accumulator layout
+// before the loop and written once after it (warp w of a warpgroup holds
+// rows 16w + g and 16w + g + 8, g = lane / 4; the f32 acc adds 8 Tq D bytes
+// a head, under 2% of a causal pair's time at Tq = 8192). m and l stay in
+// their natural-log units; the loop applies the log2 scaling on the fly, so
+// a row that no live key moves writes back the bits it read. The K loop ends
+// at the last key a row of the block may see, so a fully-future shard costs
+// no iteration and leaves its carries untouched.
 
 #include <cmath>
 
-#include "tile_mma.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
-// One block per (64-row Q tile, b * H + h).
+// One block per (b * H + h, 128-row Q tile).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     ring_block_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, float* __restrict__ m_io,
                       float* __restrict__ l_io, float* __restrict__ acc_io,
                       int H, int Hkv, int Tq, int Tk, View vq, View vk,
                       View vv, long long q_off, long long k_off, int causal,
                       float scale) {
-  constexpr int BQ = 64, BK = 64, LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * LD;
-  bf16* sV = sK + BK * LD;
-
+  constexpr int BQ = 128;
+  extern __shared__ unsigned char smem[];
   const int nq = (Tq + BQ - 1) / BQ;
-  const int qi = nq - 1 - (int)blockIdx.x;  // longest causal rows first
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, hk = h / (H / Hkv);
-  const int q0 = qi * BQ;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * BQ;  // longest causal rows first
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / (H / Hkv);
 
-  // keys this tile may see: local key c is live for some row of the tile
-  // iff k_off + c <= q_off + q0 + BQ - 1
+  // keys this block may see: local key c is live for some row of the block
+  // iff k_off + c <= q_off + min(q0 + BQ, Tq) - 1
   int kend = Tk;
   if (causal) {
-    const long long lim = q_off + q0 + BQ - k_off;
+    const long long lim = q_off + min(q0 + BQ, Tq) - k_off;
     kend = lim < 0 ? 0 : (lim < Tk ? (int)lim : Tk);
   }
   if (kend == 0) return;  // a fully-future shard: the carries stay as they are
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int rowA = q0 + warp * 16 + g, rowB = rowA + 8;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rowA = q0 + wg * 64 + warp * 16 + g, rowB = rowA + 8;
 
-  const bf16* qb = q + b * vq.sb + h * vq.sh;
-  const bf16* kb = k + b * vk.sb + hk * vk.sh;
-  const bf16* vb = v + b * vv.sb + hk * vv.sh;
-
-  load_tile<BQ, D>(sQ, qb, vq.st, q0, Tq);
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a(sQ, LD, warp * 16, kk * 16, qa[kk]);
-
-  // the incoming carries, in the C-fragment layout; rows past Tq are never
+  // the incoming carries, in the accumulator layout; rows past Tq are never
   // stored
   float* mrow = m_io + (long long)bh * Tq;
   float* lrow = l_io + (long long)bh * Tq;
@@ -100,17 +87,17 @@ __global__ void __launch_bounds__(kThreads)
   float* accA = acc_io + ((long long)b * Tq + rowA) * rowstride + h * D;
   float* accB = accA + 8 * rowstride;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t;
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t;
     float2 a = make_float2(0.f, 0.f), bb = make_float2(0.f, 0.f);
     if (rowA < Tq) a = *reinterpret_cast<const float2*>(accA + c);
     if (rowB < Tq) bb = *reinterpret_cast<const float2*>(accB + c);
-    acc[n][0] = a.x;
-    acc[n][1] = a.y;
-    acc[n][2] = bb.x;
-    acc[n][3] = bb.y;
+    acc[4 * j] = a.x;
+    acc[4 * j + 1] = a.y;
+    acc[4 * j + 2] = bb.x;
+    acc[4 * j + 3] = bb.y;
   }
   if (rowA < Tq) {
     m[0] = mrow[rowA];
@@ -121,20 +108,28 @@ __global__ void __launch_bounds__(kThreads)
     l[1] = lrow[rowB];
   }
 
-  // the offsets' difference, clamped to an int: every diag >= Tk makes
+  // key c is live for row r when c < Tk and, causal, r + diag >= c, with
+  // diag the offsets' difference clamped to an int: every diag >= Tk makes
   // every key live, every diag <= -Tq none
   const long long d = q_off - k_off;
   const int diag = d > Tk ? Tk : (d < -(long long)Tq ? -Tq : (int)d);
-  attend_kv_tiles<D>(sK, sV, kb, vb, vk.st, vv.st, kend, Tk, qa, rowA, rowB,
-                     causal, diag, scale, m, l, acc);
+  auto limit = [&](int row) {
+    return causal ? max(0, min(Tk, row + diag + 1)) : Tk;
+  };
+  attend_kv_tiles<D>(smem, q + b * vq.sb + h * vq.sh, vq.st, q0, Tq,
+                     k + b * vk.sb + hk * vk.sh, vk.st,
+                     v + b * vv.sb + hk * vv.sh, vv.st, Tk, kend,
+                     limit(rowA), limit(rowB), scale, m, l, acc);
 
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t;
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t;
     if (rowA < Tq)
-      *reinterpret_cast<float2*>(accA + c) = make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(accA + c) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
     if (rowB < Tq)
-      *reinterpret_cast<float2*>(accB + c) = make_float2(acc[n][2], acc[n][3]);
+      *reinterpret_cast<float2*>(accB + c) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
   }
   if (t == 0) {
     if (rowA < Tq) {
@@ -153,10 +148,11 @@ int update(const void* q, const void* k, const void* v, void* m, void* l,
            void* acc, int B, int H, int Hkv, int Tq, int Tk,
            const long long* strides, long long q_off, long long k_off,
            int causal, cudaStream_t st) {
-  const int bytes = 3 * 64 * (D + kPad) * (int)sizeof(bf16);
+  const int bytes = fwd_smem_bytes<D>();
   cudaError_t err = allow_smem(ring_block_kernel<D>, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Tq + 63) / 64, B * H);
+  dim3 grid(B * H, (Tq + 127) / 128);
+  if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
   ring_block_kernel<D><<<grid, kThreads, bytes, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<float*>(m),

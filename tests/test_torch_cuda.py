@@ -410,18 +410,33 @@ def _ring_carries(cuda, B, T, H, D, seed):
     return m, l, acc
 
 
+# the shards' global offsets (q_off, k_off) of each pair: the straddling
+# pairs' offsets are no multiple of a tile, so part of their rows see no key
+RING_PAIRS = {"diagonal": lambda T: (T, T), "past": lambda T: (2 * T, 0),
+              "future": lambda T: (0, T), "straddle_future": lambda T: (0, 37),
+              "straddle_past": lambda T: (37, 0)}
+
+
+def _dead_rows(Tq, q_off, k_off, causal):
+    """The query rows that no key of the visiting shard is visible to."""
+    r = torch.arange(Tq)
+    return q_off + r < k_off if causal else torch.zeros(Tq, dtype=torch.bool)
+
+
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("pair", ["diagonal", "past", "future"])
-@pytest.mark.parametrize("T,D,hkv", [(64, 128, 4), (200, 128, 2),
-                                     (257, 64, 8)])
-def test_ring_block_kernel_matches_plain_version(cuda, T, D, hkv, pair,
+@pytest.mark.parametrize("pair", list(RING_PAIRS))
+@pytest.mark.parametrize("Tq,Tk,D,hkv", [(64, 64, 128, 4), (200, 200, 128, 2),
+                                         (257, 257, 64, 8),
+                                         (200, 129, 128, 4)])
+def test_ring_block_kernel_matches_plain_version(cuda, Tq, Tk, D, hkv, pair,
                                                  causal):
     from pytorch_distributed_nn_tpu_torch.ops import ring_attention as ra
 
-    q, k, v, _ = _flash_inputs(cuda, 2, T, 8, hkv, D, seed=T + D)
-    q_off, k_off = {"diagonal": (T, T), "past": (2 * T, 0),
-                    "future": (0, T)}[pair]
-    m, l, acc = _ring_carries(cuda, 2, T, 8, D, seed=T)
+    q, k, v, _ = _flash_inputs(cuda, 2, max(Tq, Tk), 8, hkv, D,
+                               seed=Tq + D)
+    q, k, v = q[:, :Tq], k[:, :Tk], v[:, :Tk]
+    q_off, k_off = RING_PAIRS[pair](Tq)
+    m, l, acc = _ring_carries(cuda, 2, Tq, 8, D, seed=Tq)
     want = ra.ring_block_reference(q, k, v, m, l, acc, q_off, k_off,
                                    causal=causal)
     before = (m.clone(), l.clone(), acc.clone())
@@ -431,12 +446,36 @@ def test_ring_block_kernel_matches_plain_version(cuda, T, D, hkv, pair,
     torch.cuda.synchronize()
     assert ra.ring_block_update.launches == n + 1
     assert got[0] is m and got[1] is l and got[2] is acc  # in place
-    if causal and pair == "future":  # no iteration: untouched, bitwise
-        for a, b in zip((m, l, acc), before):
-            assert torch.equal(a, b)
+    # the rows that see no key keep their carries bit for bit (every row of
+    # the future pair: no iteration at all)
+    dead = _dead_rows(Tq, q_off, k_off, causal).to(cuda)
+    assert bool(dead.all()) == (causal and pair == "future")
+    for a, b in zip((m, l), before[:2]):
+        assert torch.equal(a[:, dead], b[:, dead])
+    assert torch.equal(acc[:, dead], before[2][:, dead])
     assert (m - want[0]).abs().max().item() <= LSE_TOL
     assert _rel(l, want[1]) <= FLASH_TOL
     assert _rel(acc, want[2]) <= FLASH_TOL
+
+
+def test_flash_forward_and_ring_block_are_deterministic(cuda):
+    """Two launches on the same inputs give the same bits: every output
+    element is summed in a fixed order (no atomics)."""
+    from pytorch_distributed_nn_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_nn_tpu_torch.ops import ring_attention as ra
+
+    q, k, v, _ = _flash_inputs(cuda, 2, 777, 8, 4, 128, seed=7)
+    fwd = [fa.flash_fwd(q, k, v, True) for _ in range(2)]
+    ring = []
+    for _ in range(2):
+        m, l, acc = _ring_carries(cuda, 2, 777, 8, 128, seed=3)
+        ring.append(ra.ring_block_update(q, k, v, m, l, acc, 100, 37,
+                                         causal=True))
+    torch.cuda.synchronize()
+    for a, b in zip(*fwd):
+        assert torch.equal(a, b)
+    for a, b in zip(*ring):
+        assert torch.equal(a, b)
 
 
 def test_ring_block_kernel_reads_row_slices_in_place(cuda):

@@ -44,7 +44,10 @@ from pytorch_distributed_nn_tpu_torch.runtime.mesh import (
 
 B, H, HKV, TL, D = 2, 2, 1, 64, 32
 TOL = 1e-5
-PAIRS = {"diagonal": (TL, TL), "past": (2 * TL, 0), "future": (0, TL)}
+# (q_off, k_off): the straddling pairs' offsets are no multiple of a tile,
+# so part of their rows see no key
+PAIRS = {"diagonal": (TL, TL), "past": (2 * TL, 0), "future": (0, TL),
+         "straddle_future": (0, 37), "straddle_past": (37, 0)}
 
 
 def _block_inputs(seed):
@@ -96,9 +99,13 @@ def test_ring_block_update_matches_jax(pair, causal, oracle):
     _close(tm.numpy(), np.asarray(jm)[..., 0])
     _close(tl.numpy(), np.asarray(jl)[..., 0])
     _close(_bh(tacc.numpy()), jacc)
-    if causal and pair == "future":  # no key visible: carries unchanged
-        np.testing.assert_array_equal(tm.numpy(), m)
-        np.testing.assert_array_equal(tacc.numpy(), acc)
+    # the rows that see no key (every row of the future pair) keep their
+    # carries bit for bit
+    dead = q_off + np.arange(TL) < k_off if causal else np.zeros(TL, bool)
+    assert dead.all() == (causal and pair == "future")
+    np.testing.assert_array_equal(tm.numpy()[:, dead], m[:, dead])
+    np.testing.assert_array_equal(tl.numpy()[:, dead], l[:, dead])
+    np.testing.assert_array_equal(tacc.numpy()[:, dead], acc[:, dead])
 
 
 def test_ring_block_update_checks_shapes():
