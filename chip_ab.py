@@ -1,14 +1,28 @@
 #!/usr/bin/env python
-"""Time the long-context attention kernels of one checkout, to compare two
-commits on one card.
+"""Time the long-context attention kernels and the W8A16 matmul of one
+checkout, to compare two commits on one card.
 
-    python3 chip_ab.py ROOT
+    python3 chip_ab.py ROOT [all|attention|int8|serve]
 
 imports ``chip_smoke`` and ``pytorch_distributed_nn_tpu_torch`` from the
-checkout at ROOT, builds its flash and ring kernels, and times them at B 1,
-T 32768, H 8, Hkv 4, D 128, causal, bf16 inputs: ``chip_smoke.time_ms``,
-the median of 20 launches with the L2 cache flushed before each, twice
-each. Prints one line ``AB {...}`` of milliseconds, keys ``<kernel>_<rep>``:
+checkout at ROOT, builds its kernels and times them with
+``chip_smoke.time_ms``, the median of 20 launches with the L2 cache flushed
+before each, twice each (the second argument picks the kernels; all by
+default; ``serve`` is run only when asked). Prints one line ``AB {...}``
+of milliseconds, keys ``<kernel>_<rep>``. The int8 keys:
+
+- ``int8_m8`` and ``int8_m128``: one Llama-3-8B forward's 129 W8A16 calls
+  at M = 8 (decode) and M = 128 (prefill), the sum over
+  ``chip_smoke.PATH_SHAPES`` of each call's time times its count.
+
+The serve keys: ``decode_profile``, one B = 8 decode step of the
+full-width int8 Llama-3-8B under torch.profiler
+(``chip_smoke.profile_decode_step``), and ``serve``, the tree's own serving
+phase (``chip_smoke.phase_serve``: 16 requests through the engine, the
+three solo checks included). Both are set largely by the host, so compare
+trees only within one call.
+
+The attention keys, at B 1, T 32768, H 8, Hkv 4, D 128, causal, bf16:
 
 - ``flash_fwd``: the forward;
 - ``ring``: ``ring_block_update`` on the diagonal pair (offsets 0 and 0);
@@ -61,20 +75,73 @@ def under_watch(fn):
     return result, min(r[0] for r in reads), max(r[1] for r in reads)
 
 
+def int8_forward_ms(cs, tmm, m, flush):
+    """One 8B forward's W8A16 calls at M = m: each PATH_SHAPES call timed
+    alone (seeded weights, one shape on the card at a time) times its
+    count."""
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(0)
+    total = 0.0
+    for name, k, n, per in cs.PATH_SHAPES:
+        kp, np_ = tmm.padded_kn(k, n)
+        q = torch.empty((kp, np_), dtype=torch.int8, device="cuda")
+        q.random_(-64, 64, generator=g)
+        s = torch.full((1, np_), 2.7e-4, device="cuda")
+        od = torch.float32 if name == "lm_head" else torch.bfloat16
+        x = torch.randn((m, kp), generator=g, device="cuda").to(
+            torch.bfloat16)
+        total += per * cs.time_ms(lambda: tmm.int8_matmul(x, q, s, od), 20,
+                                  flush)
+        del q, s, x
+    return total
+
+
 def main() -> int:
     root = os.path.abspath(sys.argv[1])
+    which = sys.argv[2] if len(sys.argv) > 2 else "all"
+    if which not in ("all", "attention", "int8", "serve"):
+        raise SystemExit(f"unknown kernel set {which!r}")
     sys.path.insert(0, root)
     import torch
 
     import chip_smoke as cs
     from pytorch_distributed_nn_tpu_torch.ops import build
+    from pytorch_distributed_nn_tpu_torch.ops import int8_matmul as tmm
+
+    if not tmm.__file__.startswith(root):
+        raise SystemExit(f"imported {tmm.__file__}, not the checkout {root}")
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    out = {"tree": sys.argv[1]}
+    if which in ("all", "int8"):
+        build.load_library("int8_matmul.cu")
+        for rep in range(2):
+            for m in (8, 128):
+                key = f"int8_m{m}_{rep}"
+                out[key], out[f"{key}_mhz"], out[f"{key}_w"] = under_watch(
+                    lambda: int8_forward_ms(cs, tmm, m, flush))
+    if which in ("all", "attention"):
+        attention(cs, build, flush, out)
+    if which == "serve":
+        del flush
+        build.load_library("int8_matmul.cu")
+        model = cs.build_model(seed=0)
+        g = torch.Generator("cuda").manual_seed(1)
+        tokens = torch.randint(0, cs.V, (8, 65), generator=g, device="cuda",
+                               dtype=torch.int32)
+        out["decode_profile"] = cs.profile_decode_step(model, tokens)
+        out["serve"] = cs.phase_serve(model)[0]
+    print("AB " + json.dumps(out))
+    return 0
+
+
+def attention(cs, build, flush, out):
+    import torch
+
     from pytorch_distributed_nn_tpu_torch.ops import flash_attention as fa
     from pytorch_distributed_nn_tpu_torch.ops import ring_attention as ra
 
-    if not fa.__file__.startswith(root):
-        raise SystemExit(f"imported {fa.__file__}, not the checkout {root}")
     build.load_libraries("flash_attention.cu", "ring_attention.cu")
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     T = 32768
     q, k, v, do = cs.flash_inputs(T, seed=1)
     bh = cs.FLASH_B * cs.FLASH_H
@@ -111,12 +178,9 @@ def main() -> int:
     runs.append(("sdpa_fwd", sdpa_fwd))
     runs.append(("sdpa_bwd", lambda: torch.autograd.grad(
         out_t, (qt, kt, vt), dot, retain_graph=True)))
-    out = {"tree": sys.argv[1]}
     for key, fn in runs:
         out[key], out[f"{key}_mhz"], out[f"{key}_w"] = under_watch(
             lambda: cs.time_ms(fn, 20, flush))
-    print("AB " + json.dumps(out))
-    return 0
 
 
 if __name__ == "__main__":

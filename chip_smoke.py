@@ -13,9 +13,11 @@ Phases (any failure exits non-zero and prints no result line):
               registers and spilled bytes from the compiler's report.
 2. kernel  -- int8_matmul (the W8A16 CUDA kernel) against its plain PyTorch
               version at every (K, N) of the Llama-3-8B path, M in
-              {1, 8, 128}; times the kernel, the plain version and one
-              library call with CUDA events (L2 flushed before each launch:
-              the decode path reads every weight cold).
+              {1, 8, 16, 64, 128}; each row alone (M = 1) bit for bit
+              against M = 8 and M = 128; times the kernel, the plain
+              version, one library call and torch.sum over the weight's
+              bytes with CUDA events (L2 flushed before each launch: the
+              decode path reads every weight cold).
 3. flash   -- the three flash-attention kernels (forward, dq pass, dk/dv
               pass) at the long-context shapes (B 1, H 8, Hkv 4, D 128,
               causal, bf16) against their plain versions: in full at
@@ -35,7 +37,7 @@ Phases (any failure exits non-zero and prints no result line):
 6. forward -- the full-width quantized Llama-3-8B (32 layers, d 4096, vocab
               128256, seeded synthetic int8 weights): one prefill and 4
               teacher-forced decode steps with the kernel (129 launches per
-              forward), again with every kernel call held against the plain
+              forward, and 129 w8a16 kernels in a profiled decode step), again with every kernel call held against the plain
               version on its own live activations, and again with the plain
               version swapped in; the logits must agree, and the greedy
               token must agree on every row where the plain top-2 margin is
@@ -57,7 +59,9 @@ The data-parallel slice (run after phase 3, and after phase 5):
 9. quantize -- the stochastic int8 kernel on a 25 MB bucket and on the
               whole ResNet-50 gradient: bit for bit its plain version,
               |q scale - x| < scale, mean error within 4 sigma, saturation;
-              one step's buckets timed for the kernel and the plain version.
+              one step's buckets timed for the kernel (CUDA events around
+              the calls, and the launches' own device time by
+              torch.profiler) and the plain version.
 10. dp_check -- one full-width ResNet-50 step at batch 256, bn_stats kernel
               against the torch reductions: loss and every gradient.
 11. dp_train -- the main path: resnet50_dp with parallel.strategy
@@ -158,6 +162,8 @@ PATH_SHAPES = [("qkv", 4096, 6144, 32), ("out", 4096, 4096, 32),
 # kernel vs plain version: the same f32 products summed in another order;
 # a bf16 output may round to the neighbouring bf16 value
 TOL = {"bfloat16": 2 ** -7, "float32": 1e-5}
+# the M of phase 2: decode (1, 8) and the engine's prefill buckets
+INT8_MS = (1, 8, 16, 64, 128)
 # full-width logits, kernel vs plain version, max|diff| over the largest
 # logit. The two differ in summation order only, but 32 layers of random
 # weights amplify rounding-order noise: an element that rounds to the
@@ -265,6 +271,38 @@ def library_call(x, q, s, out_dtype):
             lambda: torch.matmul(x, w))
 
 
+def read_ms(nbytes, flush):
+    """torch.sum over a tensor of ``nbytes`` under the same L2 flush: what
+    reading the weights' bytes once takes with this timing (a yardstick of
+    the method, never used by the port)."""
+    import torch
+
+    buf = torch.zeros((nbytes // 4,), dtype=torch.float32, device="cuda")
+    ms = time_ms(lambda: buf.sum(), 20, flush)
+    del buf
+    return ms
+
+
+def int8_invariance(name, x, q, s, out_dtype):
+    """The engine's bit-identity contract on the card: each row alone (M = 1)
+    gives the same bits as inside M = 8 and M = 128."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.ops import int8_matmul as tmm
+
+    alone = torch.cat([tmm.int8_matmul(x[i:i + 1], q, s, out_dtype)
+                       for i in range(x.shape[0])])
+    for m in (8, 128):
+        got = tmm.int8_matmul(x[:m], q, s, out_dtype)
+        if not torch.equal(got, alone[:m]):
+            rows = int((got != alone[:m]).any(dim=1).sum())
+            raise AssertionError(
+                f"int8_matmul {name}: {rows} of {m} rows differ in bits "
+                f"from the same rows alone (M = 1)")
+    log(f"[kernel] {name}: every row of M = 8 and M = 128 equals itself "
+        "alone (M = 1) bit for bit")
+
+
 def phase_kernel(flush):
     import torch
 
@@ -280,7 +318,8 @@ def phase_kernel(flush):
         s = torch.full((1, np_), 2.7e-4, device=dev)
         out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
         dt = "float32" if name == "lm_head" else "bfloat16"
-        for m in (1, 8, 128):
+        weight_read_ms = read_ms(q.numel(), flush)
+        for m in INT8_MS:
             x = torch.randn((m, kp), generator=g, device=dev).to(
                 torch.bfloat16)
             got = tmm.int8_matmul(x, q, s, out_dtype=out_dtype)
@@ -293,6 +332,8 @@ def phase_kernel(flush):
                     f"int8_matmul {name} M={m}: max|err| {err} > "
                     f"{TOL[dt]} * max|ref| {scale}")
             max_err = max(max_err, err)
+            if m == 128:
+                int8_invariance(name, x, q, s, out_dtype)
             ms = time_ms(lambda: tmm.int8_matmul(x, q, s, out_dtype),
                          20, flush)
             plain_ms = time_ms(
@@ -308,15 +349,24 @@ def phase_kernel(flush):
             row = dict(shape=name, m=m, k=kp, n=np_, per_forward=per_fwd,
                        out=dt, max_abs_err=err, max_abs_ref=scale, ms=ms,
                        plain_ms=plain_ms, library_ms=library_ms,
+                       read_ms=weight_read_ms,
                        bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       gbytes_per_s=nbytes / ms / 1e6)
+                       gbytes_per_s=nbytes / ms / 1e6,
+                       plan=tmm.launch_plan(m, kp, np_)._asdict())
             rows.append(row)
             log(f"[kernel] {json.dumps(row)}")
             del got, ref, lib_fn
         del q, s
         torch.cuda.empty_cache()
     log(f"[kernel] library yardstick: {library_label}")
+    for m in INT8_MS:
+        at = {r["shape"]: r for r in rows if r["m"] == m}
+        fwd = {key: sum(at[name][key] * per for name, _, _, per in
+                        PATH_SHAPES)
+               for key in ("ms", "bound_ms", "read_ms", "plain_ms")}
+        log(f"[kernel] one 8B forward (129 calls) at M={m}: "
+            f"{json.dumps(fwd)}")
     return rows, max_err, library_label
 
 
@@ -1467,8 +1517,12 @@ def phase_quantize():
 
     ms = time_ms(step(tq.quantize_int8), 20)
     plain_ms = time_ms(step(tq.quantize_int8_reference), 3)
+    # the five launches' own device time, without the host's launch gaps
+    device_ms = kernel_device_ms(step(tq.quantize_int8), 5,
+                                 "quantize_kernel")
     b = bound(5 * total, 4 * total)
-    row = dict(buckets=len(sizes), elements=total, ms=ms, plain_ms=plain_ms,
+    row = dict(buckets=len(sizes), elements=total, ms=ms,
+               device_ms=device_ms, plain_ms=plain_ms,
                bound_ms=b[0], bound_by=b[1], checks=checks)
     log(f"[quantize] one step's {len(sizes)} buckets: {json.dumps(row)}")
     del grad, parts
@@ -1831,7 +1885,8 @@ def run_forwards(model, tokens, steps):
 
 def profile_decode_step(model, tokens):
     """Device time of one B=8 decode step by torch.profiler: the sum of the
-    CUDA kernels' own durations, and the W8A16 kernels' share of it. None
+    CUDA kernels' own durations, and the W8A16 kernels' share and count
+    (one a call: 129 a forward). None
     where the profiler cannot start or records no device activity. Only
     the profiler's own errors are caught: the step itself runs outside any
     ``except``. Measurement only."""
@@ -1869,10 +1924,41 @@ def profile_decode_step(model, tokens):
     if not kern:
         return None
     dev_us = sum(e.time_range.elapsed_us() for e in kern)
-    w8_us = sum(e.time_range.elapsed_us() for e in kern
-                if "w8a16" in e.name)
+    w8 = [e for e in kern if "w8a16" in e.name]
+    w8_us = sum(e.time_range.elapsed_us() for e in w8)
     return dict(kernels=len(kern), device_ms=dev_us / 1e3,
-                w8a16_ms=w8_us / 1e3)
+                w8a16_ms=w8_us / 1e3, w8a16_kernels=len(w8))
+
+
+def kernel_device_ms(fn, reps, name):
+    """Device time of the CUDA kernels whose name holds ``name`` in one call
+    of ``fn`` (the mean over ``reps`` calls under torch.profiler): the
+    kernels' own durations, without the host's launch gaps. None where the
+    profiler cannot start or records none. Measurement only."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   acc_events=True)
+    try:
+        prof.start()
+    except RuntimeError as e:
+        log(f"[profile] profiler did not start: {e}")
+        return None
+    try:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        stopped = _profiler_stop(prof)
+    if not stopped:
+        return None
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and name in e.name]
+    return sum(us) / reps / 1e3 if us else None
 
 
 def _profiler_stop(prof) -> bool:
@@ -1992,6 +2078,9 @@ def phase_forward(model):
         prof["idle_share_vs_unprofiled_step"] = 1 - prof["device_ms"] / wall
         log(f"[forward] decode step B=8 under torch.profiler: "
             f"{json.dumps(prof)}")
+        if prof["w8a16_kernels"] != 129:  # one launch a call
+            raise AssertionError(f"{prof['w8a16_kernels']} w8a16 kernels in "
+                                 "one decode forward, expected 129")
     result["profile"] = prof
     return result
 
@@ -2118,9 +2207,10 @@ def main() -> int:
     serve, launches = phase_serve(model)
 
     at8 = {r["shape"]: r for r in rows if r["m"] == 8}
+    at128 = {r["shape"]: r for r in rows if r["m"] == 128}
 
-    def per_forward(key):
-        return sum(at8[name][key] * per for name, _, _, per in PATH_SHAPES)
+    def per_forward(key, at=at8):
+        return sum(at[name][key] * per for name, _, _, per in PATH_SHAPES)
 
     kernels = [dict(
         name="int8_matmul", route="cuda", source=SOURCE,
@@ -2131,7 +2221,15 @@ def main() -> int:
         bound_by=("bytes" if all(r["bound_by"] == "bytes"
                                  for r in at8.values()) else "operations"),
         library_ms=per_forward("library_ms"), library=library_label,
-        per="one 8B decode forward at M=8 (129 calls)", shapes=rows)]
+        read_ms=per_forward("read_ms"),
+        prefill_ms=per_forward("ms", at128),
+        prefill_bound_ms=per_forward("bound_ms", at128),
+        prefill_plain_ms=per_forward("plain_ms", at128),
+        resources={k: v for k, v in resources.items() if "w8a16" in k},
+        decode_profile=forward["profile"],
+        per="one 8B decode forward at M=8 (129 calls); prefill_*: one "
+            "forward at M=128; read_ms: torch.sum over the same weight "
+            "bytes under the same flush", shapes=rows)]
     for name, (replaces, _) in FLASH_KERNELS.items():
         kernels.append(dict(
             name=name, route="cuda", source=FLASH_SOURCE, replaces=replaces,
@@ -2155,7 +2253,8 @@ def main() -> int:
     kernels.append(dict(
         name="quantize", route="cuda", source=QUANT_SOURCE,
         replaces=QUANT_TPU, launches=q_launches, max_abs_err=0.0,
-        ms=quant["ms"], plain_ms=quant["plain_ms"],
+        ms=quant["ms"], device_ms=quant["device_ms"],
+        plain_ms=quant["plain_ms"],
         bound_ms=quant["bound_ms"], bound_by=quant["bound_by"],
         library_ms=None, library="none (no single PyTorch call rounds "
         "stochastically to int8)",

@@ -15,6 +15,7 @@ pre-padded with zeros by :func:`padded_kn`. Activations are padded here.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -23,8 +24,13 @@ import torch.nn.functional as F
 _STORE_BK = 2048
 _STORE_BN = 1024
 
-_SM_COUNT = 132  # H100 SXM: the K split aims at two blocks per SM
-_BLOCK_N = 1024  # output columns per block (csrc/int8_matmul.cu kBlockN)
+_SM_COUNT = 132  # H100 SXM
+# the kernel's tiles (csrc/int8_matmul.cu kTileN, kTileK): a block owns 128
+# output columns and streams K 64 rows a stage
+_TILE_N = 128
+_TILE_K = 64
+_WAVE = 2 * _SM_COUNT  # the K split aims at one wave of two blocks per SM
+_MIN_STAGES = 4  # K rows a split streams at least, in stages
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -96,7 +102,8 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("int8_matmul.cu")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.w8a16_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.w8a16_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                     p]
         lib.w8a16_matmul.restype = ctypes.c_int
         lib.w8a16_error_string.argtypes = [ctypes.c_int]
         lib.w8a16_error_string.restype = ctypes.c_char_p
@@ -104,18 +111,51 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def launch_plan(m: int, kp: int, np_: int) -> tuple[int, int, int]:
-    """(M tile, K rows per split, number of K splits) for a call: the M
-    tile covers all rows up to 8; K is split until one M tile's column
-    strips make about two blocks per SM (never below 128 K rows a split).
-    The split depends on (Kp, Np) only, so every output element is summed
-    in the same order whatever M is: a row's result does not depend on the
-    batch it shares a call with (the engine's bit-identity contract)."""
-    mt = 8 if m >= 8 else 1 << (m - 1).bit_length()
-    strips = -(-np_ // _BLOCK_N)
-    splits = max(1, min(-(-2 * _SM_COUNT // strips), kp // 128))
-    kc = _round_up(-(-kp // splits), 16)
-    return mt, kc, -(-kp // kc)
+class Plan(NamedTuple):
+    """How one call is launched (``launch_plan``)."""
+
+    mt: int         # tokens a block: 8 per n-tile of the mma, 8..128
+    kc: int         # K rows a split, a multiple of 64
+    splits: int     # K splits; the last block of a column tile adds them
+    blocks: int     # the grid: token tiles x column tiles x splits
+    workspace: int  # f32 partial sums the splits write (0 without a split)
+
+
+def launch_plan(m: int, kp: int, np_: int) -> Plan:
+    """The launch of one call: M takes tiles of 8, 16, 32, 64 or 128 tokens
+    (the smallest that holds M, at most 128); K is split until the column
+    tiles make about one wave of two blocks per SM (never below 256 K rows
+    a split). The split depends on (Kp, Np) only, so every output element
+    is summed in the same order whatever M is: a row's result does not
+    depend on the batch it shares a call with (the engine's bit-identity
+    contract)."""
+    nt = 1 if m <= 8 else min(16, 1 << (-(-m // 8) - 1).bit_length())
+    mt = 8 * nt
+    tiles = -(-np_ // _TILE_N)
+    stages = -(-kp // _TILE_K)
+    splits = max(1, min(_WAVE // tiles, stages // _MIN_STAGES))
+    per = -(-stages // splits)
+    splits = -(-stages // per)
+    return Plan(mt=mt, kc=per * _TILE_K, splits=splits,
+                blocks=-(-m // mt) * tiles * splits,
+                workspace=splits * m * np_ if splits > 1 else 0)
+
+
+# (device index, stream) -> int32 counters of the column tiles that say which
+# block of a tile adds the K splits: zeroed once and left zeroed by every
+# launch (the last block of a tile resets its own), so a call needs no
+# memset kernel of its own
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _tile_counters(device: torch.device, stream: int, n: int
+                   ) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def _int8_matmul_cuda(x, q, s, out_dtype):
@@ -129,8 +169,9 @@ def _int8_matmul_cuda(x, q, s, out_dtype):
         raise ValueError(f"scale shape {tuple(s.shape)} != (1, {np_})")
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"out_dtype must be one of {_OUT_DTYPES}")
-    if np_ % 8:
-        raise ValueError(f"stored N {np_} is not a multiple of 8")
+    if np_ % _TILE_N or kp % 32:
+        raise ValueError(f"stored (K, N) ({kp}, {np_}) is not a multiple "
+                         f"of (32, {_TILE_N}): pad with padded_kn")
     if not (q.device == x.device == s.device):
         raise ValueError(f"tensors on different devices: x {x.device}, "
                          f"q {q.device}, s {s.device}")
@@ -140,17 +181,21 @@ def _int8_matmul_cuda(x, q, s, out_dtype):
     out = torch.empty((m, np_), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
-    mt, kc, splits = launch_plan(m, kp, np_)
-    ws = torch.empty((splits, m, np_), dtype=torch.float32, device=x.device)
+    plan = launch_plan(m, kp, np_)
+    ws = (torch.empty((plan.workspace,), dtype=torch.float32,
+                      device=x.device)
+          if plan.workspace else out)  # no split: the kernel never reads it
     for t in (x, q, s, out, ws):
         if t.data_ptr() % 16:
             raise ValueError("int8_matmul needs 16-byte aligned tensors")
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    counters = _tile_counters(x.device, stream,
+                              plan.blocks // plan.splits)
     lib = _lib()
     rc = lib.w8a16_matmul(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), m, kp, np_, kc, splits, mt,
-        int(out_dtype == torch.float32), stream)
+        ws.data_ptr(), counters.data_ptr(), m, kp, np_, plan.mt, plan.kc,
+        plan.splits, int(out_dtype == torch.float32), stream)
     if rc != 0:
         raise RuntimeError("int8_matmul kernel launch failed: "
                            + lib.w8a16_error_string(rc).decode())

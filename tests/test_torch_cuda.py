@@ -5,9 +5,9 @@ where no CUDA device is present (decided inside the fixture).
 On a GPU machine: ``python -m pytest --noconftest tests/test_torch_cuda.py``
 (``tests/conftest.py`` imports JAX, which the port does not need).
 Tolerance of the W8A16 kernel: it and the plain version sum the same f32
-products in another order (K split across blocks), so f32 outputs agree to
-~1e-6 of the largest output and bf16 outputs to one bf16 rounding step
-(2^-8). The flash kernels' tolerances are stated beside their tests.
+products in another order (tensor-core k16 steps, K split across blocks),
+so f32 outputs agree to ~1e-6 of the largest output and bf16 outputs to one
+bf16 rounding step (2^-8). The flash kernels' tolerances are stated beside their tests.
 """
 
 import numpy as np
@@ -29,7 +29,7 @@ def cuda():
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [(1, 4096, 6144), (3, 200, 384),
                                    (8, 14336, 4096), (17, 96, 1000),
-                                   (64, 2048, 1024)])
+                                   (64, 2048, 1024), (512, 4096, 4096)])
 def test_int8_matmul_kernel_matches_plain_version(cuda, m, k, n, out_dtype):
     g = torch.Generator(cuda).manual_seed(m * 7 + k)
     x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
@@ -47,6 +47,52 @@ def test_int8_matmul_kernel_matches_plain_version(cuda, m, k, n, out_dtype):
     scale = ref.float().abs().max().item()
     tol = 1e-5 if out_dtype == torch.float32 else 2 ** -7
     assert err <= tol * scale, (err, scale)
+
+
+def _int8_operands(cuda, m, k, n, seed):
+    g = torch.Generator(cuda).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    kp, np_ = tmm.padded_kn(k, n)
+    q = torch.zeros((kp, np_), dtype=torch.int8, device=cuda)
+    q[:k, :n].random_(-127, 128, generator=g)
+    s = torch.rand((1, np_), generator=g, device=cuda) * 1e-2
+    return x, q, s
+
+
+# The engine's contract: a row's output bits do not depend on M or on the
+# other rows (prefill at a bucketed length, decode at M = live slots and
+# generate() at M = 1 must give the same tokens).
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n", [(4096, 6144), (200, 384), (96, 1000)])
+def test_int8_matmul_rows_are_bitwise_batch_invariant(cuda, k, n, out_dtype):
+    x, q, s = _int8_operands(cuda, 256, k, n, seed=k + n)
+    alone = torch.cat([tmm.int8_matmul(x[i:i + 1], q, s, out_dtype)
+                       for i in range(x.shape[0])])
+    for m in (2, 3, 8, 16, 17, 64, 128, 256):
+        got = tmm.int8_matmul(x[:m], q, s, out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, alone[:m]), m
+        # the same rows behind other rows of the batch
+        shifted = tmm.int8_matmul(x[-m:], q, s, out_dtype)
+        assert torch.equal(shifted, alone[-m:]), m
+
+
+@pytest.mark.parametrize("m", [1, 8, 128])
+def test_int8_matmul_is_bitwise_repeatable(cuda, m):
+    x, q, s = _int8_operands(cuda, m, 14336, 4096, seed=m)
+    first = tmm.int8_matmul(x, q, s)
+    second = tmm.int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_int8_matmul_launches_once_a_call(cuda):
+    x, q, s = _int8_operands(cuda, 8, 4096, 4096, seed=3)
+    before = tmm.int8_matmul.launches
+    tmm.int8_matmul(x, q, s)
+    assert tmm.int8_matmul.launches == before + 1
+    tmm.int8_matmul(x, q, s, out_dtype=torch.float32)
+    assert tmm.int8_matmul.launches == before + 2
 
 
 def test_int8_matmul_kernel_raises_on_bad_input(cuda):

@@ -96,15 +96,34 @@ def test_int8_matmul_rejects_other_devices():
                                       (128, 4096, 129024), (256, 4096, 4096),
                                       (2, 128, 128)])
 def test_launch_plan_covers_k_exactly_once(m, kp, np_):
-    mt, kc, splits = tmm.launch_plan(m, kp, np_)
-    assert mt in (1, 2, 4, 8) and (mt >= m or mt == 8)
-    assert kc % 16 == 0 and kc >= 16
+    plan = tmm.launch_plan(m, kp, np_)
+    mt, kc, splits = plan.mt, plan.kc, plan.splits
+    assert mt in (8, 16, 32, 64, 128) and (mt >= m or mt == 128)
+    assert kc % 64 == 0 and kc >= 64
     # every K row belongs to exactly one split, and no split is empty
     assert (splits - 1) * kc < kp <= splits * kc
-    if -(-np_ // 1024) < 2 * 132 and kp >= 256:
+    if np_ // 128 < 132 and kp >= 256:
         assert splits > 1  # narrow layers are split over K
     # the K split ignores M: a row sums in the same order in any batch
-    assert tmm.launch_plan(1, kp, np_)[1:] == (kc, splits)
+    one = tmm.launch_plan(1, kp, np_)
+    assert (one.kc, one.splits) == (kc, splits)
+
+
+# the (K, N) of every int8 matmul on the fused Llama-3-8B path
+_PATH_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+                (4096, 128256)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 128])
+@pytest.mark.parametrize("k,n", _PATH_SHAPES)
+def test_launch_plan_fills_the_card_on_the_8b_path(k, n, m):
+    kp, np_ = tmm.padded_kn(k, n)
+    plan = tmm.launch_plan(m, kp, np_)
+    tiles = -(-m // plan.mt) * (np_ // 128)
+    assert plan.blocks == tiles * plan.splits >= 132
+    # the workspace holds every split's f32 partial sums, or none
+    assert plan.workspace == (plan.splits * m * np_ if plan.splits > 1
+                              else 0)
 
 
 def _jax_apply(mod, params, x):
