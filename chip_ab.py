@@ -2,14 +2,14 @@
 """Time the long-context attention kernels and the W8A16 matmul of one
 checkout, to compare two commits on one card.
 
-    python3 chip_ab.py ROOT [all|attention|int8|serve]
+    python3 chip_ab.py ROOT [all|attention|int8|serve|train]
 
 imports ``chip_smoke`` and ``pytorch_distributed_nn_tpu_torch`` from the
 checkout at ROOT, builds its kernels and times them with
 ``chip_smoke.time_ms``, the median of 20 launches with the L2 cache flushed
 before each, twice each (the second argument picks the kernels; all by
-default; ``serve`` is run only when asked). Prints one line ``AB {...}``
-of milliseconds, keys ``<kernel>_<rep>``. The int8 keys:
+default; ``serve`` and ``train`` are run only when asked). Prints one line
+``AB {...}`` of milliseconds, keys ``<kernel>_<rep>``. The int8 keys:
 
 - ``int8_m8`` and ``int8_m128``: one Llama-3-8B forward's 129 W8A16 calls
   at M = 8 (decode) and M = 128 (prefill), the sum over
@@ -21,6 +21,15 @@ full-width int8 Llama-3-8B under torch.profiler
 phase (``chip_smoke.phase_serve``: 16 requests through the engine, the
 three solo checks included). Both are set largely by the host, so compare
 trees only within one call.
+
+The train keys (``train``): the tree's own training phases, each as
+``chip_smoke.py`` runs it, reported by median step seconds, tokens or
+images a second, MFU and peak device memory in GB: ``lm_32k``
+(``phase_train``: ``llama3_longcontext``, flash, 4 steps), ``ring_32k``
+and ``ring_96k`` (``phase_ring_train``: attn_impl ring, 4 and 2 steps) and
+``resnet`` (``phase_dp_train``: ``resnet50_dp`` at batch 256 on
+``dp_explicit`` + int8 + ``bn_impl=pallas``, NCCL at world 1, 4 steps).
+Step times are the host's clock, so compare trees only within one call.
 
 The attention keys, at B 1, T 32768, H 8, Hkv 4, D 128, causal, bf16:
 
@@ -100,7 +109,7 @@ def int8_forward_ms(cs, tmm, m, flush):
 def main() -> int:
     root = os.path.abspath(sys.argv[1])
     which = sys.argv[2] if len(sys.argv) > 2 else "all"
-    if which not in ("all", "attention", "int8", "serve"):
+    if which not in ("all", "attention", "int8", "serve", "train"):
         raise SystemExit(f"unknown kernel set {which!r}")
     sys.path.insert(0, root)
     import torch
@@ -131,8 +140,30 @@ def main() -> int:
                                dtype=torch.int32)
         out["decode_profile"] = cs.profile_decode_step(model, tokens)
         out["serve"] = cs.phase_serve(model)[0]
+    if which == "train":
+        del flush
+        train(cs, build, out)
     print("AB " + json.dumps(out))
     return 0
+
+
+def train(cs, build, out):
+    build.load_libraries("flash_attention.cu", "ring_attention.cu",
+                         "bn_stats.cu", "quantize.cu")
+    keys = ("median_step_s", "tokens_per_s", "images_per_s", "mfu",
+            "peak_mem_gb")
+
+    def summary(result):
+        return {k: result[k] for k in keys if k in result}
+
+    out["lm_32k"] = summary(cs.phase_train()[0])
+    ring = cs.phase_ring_train()
+    out["ring_32k"] = summary(ring["llama3_longcontext"])
+    out["ring_96k"] = summary(ring["llama3_longcontext_96k"])
+    out["resnet"] = summary(cs.phase_dp_train()[0])
+    from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
+
+    bootstrap.shutdown()  # the NCCL group of the data-parallel phases
 
 
 def attention(cs, build, flush, out):

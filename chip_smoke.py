@@ -111,6 +111,32 @@ phase 14 after phase 5's check step, phases 15 and 16 after phase 5):
               ring and 2 with Ulysses attention, the losses against the
               world-1 run's.
 
+Config 4's transformer LM and config 3's BERT (phase 17 runs after phase
+3, phases 18 and 19 after phase 12):
+
+17. flash64 -- the three flash kernels at the transformer LM's shapes (B 64,
+              T 1024, H = Hkv = 12, D 64, causal, bf16), every output in
+              full against the plain versions; times of each kernel, its
+              plain version, its bound and SDPA's forward and backward (the
+              kernels line's ``at_d64``).
+18. lm_d64  -- transformer_lm_pp with --mesh.pipe 1 --parallel.strategy dp
+              at its full width and batch (12 layers, d 768, vocab 32000,
+              B 64, T 1024, remat, adam): one step's loss and every gradient
+              with the flash kernels against the plain attention; one
+              warm-up and 4 timed steps with the flash counts reset just
+              before and read just after (24 forward, 12 dq, 12 dk/dv a
+              step); tokens/s, MFU, peak memory; one profiled step.
+19. bert    -- bert_base_buckets as it is (12 layers, d 768, vocab 30522,
+              T 128, batch 256, dp_explicit, 100 MB buckets, overlap) on
+              NCCL at world 1: one step with overlap bit for bit the step
+              without; 2 warm-up and 4 timed steps, each issuing the plan's
+              buckets from the backward; the share of bytes issued before
+              the backward's last hook; tokens/s, MFU, peak memory, one
+              profiled step and the attention, f32 head and loss parts'
+              own times; then 2 steps on the int8 wire with the quantize
+              count reset just before and read just after (one launch a
+              f32 bucket a step).
+
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit from nvidia-smi, and the result JSON line.
 """
@@ -404,17 +430,18 @@ def worst(*checks):
     return {key: max(c[key] for c in checks) for key in checks[0]}
 
 
-def flash_bound_ms(name, T):
+def flash_bound_ms(name, T, B=FLASH_B, H=FLASH_H, HKV=FLASH_HKV,
+                   D=FLASH_D):
     """max(operations / bf16 peak, bytes / HBM rate) of one call: causal
     FLOPs per head from FLASH_KERNELS; each input read once, each output
     written once."""
-    n_q = FLASH_B * T * FLASH_H * FLASH_D * 2  # bf16 bytes of q (or dO, O)
-    n_kv = FLASH_B * T * FLASH_HKV * FLASH_D * 2
-    n_stat = FLASH_B * FLASH_H * T * 4  # f32 lse or delta
+    n_q = B * T * H * D * 2  # bf16 bytes of q (or dO, O)
+    n_kv = B * T * HKV * D * 2
+    n_stat = B * H * T * 4  # f32 lse or delta
     nbytes = {"flash_fwd": 2 * n_q + 2 * n_kv + n_stat,  # q k v -> O lse
               "flash_bwd_dq": 3 * n_q + 2 * n_kv + 2 * n_stat,
               "flash_bwd_dkv": 2 * n_q + 4 * n_kv + 2 * n_stat}[name]
-    ops = FLASH_KERNELS[name][1] * FLASH_B * FLASH_H * T * T * FLASH_D
+    ops = FLASH_KERNELS[name][1] * B * H * T * T * D
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / BF16_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -1836,6 +1863,455 @@ def phase_dp_preset():
     return dict(resnet50_dp=preset, mlp_mnist=mlp_row)
 
 
+# ---------------------------------------------------------------------------
+# rule 3: config 4's transformer LM at head_dim 64 on the flash kernels, and
+# config 3's BERT-base with the overlapped bucket reduce
+# ---------------------------------------------------------------------------
+# transformer_lm_pp's attention: B 64, T 1024, 12 heads of 64, causal
+LM_B, LM_T, LM_H, LM_D = 64, 1024, 12, 64
+LM_OVERRIDES = {"mesh.pipe": "1", "parallel.strategy": "dp",
+                "log_every": "1"}
+BERT_BATCH, BERT_T = 256, 128  # bert_base_buckets as it is
+
+
+def flash64_inputs(seed):
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    return [torch.randn((LM_B, LM_T, LM_H, LM_D), generator=g,
+                        device="cuda").to(torch.bfloat16) for _ in range(4)]
+
+
+def phase_flash64(flush):
+    """The three flash kernels at the transformer LM's shapes (B 64, T 1024,
+    H = Hkv = 12, D 64, causal), every output in full against the plain
+    versions (16 rows of the batch at a time); times of each kernel, its
+    plain version, its bound and SDPA's forward and backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_nn_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = flash64_inputs(seed=64)
+    o, lse = fa.flash_fwd(q, k, v, True)
+    delta = fa.flash_delta(o, do)
+    args = (q, k, v, do, lse, delta, True)
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    rows = 16  # batch rows a plain-version call takes
+
+    def plain(name):
+        """The plain version over the whole batch, ``rows`` at a time."""
+        outs = []
+        for b0 in range(0, LM_B, rows):
+            b, h = slice(b0, b0 + rows), slice(b0 * LM_H, (b0 + rows) * LM_H)
+            sub = (q[b], k[b], v[b], do[b], lse[h], delta[h], True)
+            outs.append(fa.flash_forward_reference(*sub[:3], True)
+                        if name == "flash_fwd"
+                        else fa.flash_bwd_dq_reference(*sub)
+                        if name == "flash_bwd_dq"
+                        else fa.flash_bwd_dkv_reference(*sub))
+        return outs
+
+    ref = plain("flash_fwd")
+    o_ref = torch.cat([r[0] for r in ref])
+    lse_ref = torch.cat([r[1] for r in ref])
+    errs = {"flash_fwd": flash_check("flash_fwd O, D=64", o, o_ref)}
+    lse_err = (lse - lse_ref).abs().max().item()
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"flash_fwd lse, D=64: {lse_err} > {LSE_TOL}")
+    errs["flash_bwd_dq"] = flash_check("flash_bwd_dq, D=64", dq,
+                                       torch.cat(plain("flash_bwd_dq")))
+    ref = plain("flash_bwd_dkv")
+    errs["flash_bwd_dkv"] = worst(
+        flash_check("flash_bwd_dkv dk, D=64", dk,
+                    torch.cat([r[0] for r in ref])),
+        flash_check("flash_bwd_dkv dv, D=64", dv,
+                    torch.cat([r[1] for r in ref])))
+    del ref, o_ref, lse_ref
+    torch.cuda.empty_cache()
+    kern = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, True),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq(*args),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(*args)}
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    with torch.no_grad():
+        lib_fwd = time_ms(sdpa, 10, flush)
+    out_t = sdpa()
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out_t, (qt, kt, vt), dot, retain_graph=True), 10, flush)
+    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
+               "flash_bwd_dkv": lib_bwd}
+    out = {}
+    for name in FLASH_KERNELS:
+        ms = time_ms(kern[name], 10, flush)
+        plain_ms = time_once_ms(lambda name=name: plain(name))
+        torch.cuda.empty_cache()
+        bound, by = flash_bound_ms(name, LM_T, LM_B, LM_H, LM_H, LM_D)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library[name],
+                         bound_ms=bound, bound_by=by, card=card_line(),
+                         share_of_bound=bound / ms, **errs[name],
+                         tflops=FLASH_KERNELS[name][1] * LM_B * LM_H * LM_T
+                         * LM_T * LM_D / ms / 1e9)
+        log(f"[flash64] {name} B={LM_B} T={LM_T} H={LM_H} D={LM_D}: "
+            f"{json.dumps(out[name])}")
+    log(f"[flash64] lse max|err| {lse_err:.3e}; library yardstick: "
+        "F.scaled_dot_product_attention(is_causal=True) forward, and its "
+        "backward (dq, dk and dv in one call)")
+    del qt, kt, vt, out_t, q, k, v, do, o, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family(name):
+    """A CUDA kernel's family for the step breakdowns."""
+    low = name.lower()
+    for fam, keys in (("flash_fwd", ("flash_fwd",)),
+                      ("flash_bwd_dq", ("flash_bwd_dq",)),
+                      ("flash_bwd_dkv", ("flash_bwd_dkv",)),
+                      ("quantize", ("quantize_kernel",)),
+                      ("nccl", ("nccl",)),
+                      ("optimizer", ("multi_tensor", "foreach")),
+                      ("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
+                      ("softmax", ("softmax",)),
+                      ("reduce", ("reduce",))):
+        if any(k in low for k in keys):
+            return fam
+    return "other"
+
+
+def profile_step(trainer):
+    """Device time of one training step by torch.profiler, by kernel family
+    (:func:`_family`) and the top kernels; None where the profiler records
+    no device activity. Measurement only."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   acc_events=True)
+    try:
+        prof.start()
+    except RuntimeError as e:
+        log(f"[profile] profiler did not start: {e}")
+        return None
+    try:
+        trainer.train(steps=1)
+        torch.cuda.synchronize()
+    finally:
+        stopped = _profiler_stop(prof)
+    if not stopped:
+        return None
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        return None
+    fams, names = {}, {}
+    for e in kern:
+        ms = e.time_range.elapsed_us() / 1e3
+        fam = _family(e.name)
+        fams[fam] = fams.get(fam, 0.0) + ms
+        n, t = names.get(e.name[:96], (0, 0.0))
+        names[e.name[:96]] = (n + 1, t + ms)
+    top = sorted(names.items(), key=lambda kv: -kv[1][1])[:15]
+    return dict(kernels=len(kern), device_ms=sum(fams.values()),
+                by_family_ms=fams,
+                top_kernels=[dict(name=k, calls=n, ms=t)
+                             for k, (n, t) in top])
+
+
+def lm_trainer(**overrides):
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    cfg = get_config("transformer_lm_pp", **LM_OVERRIDES, **overrides)
+    return Trainer(cfg, device="cuda")  # seeded init (cfg.seed)
+
+
+def train_report(trainer, steps, flops_per_token, tokens, peak):
+    """Step time, tokens/s, MFU and peak memory of the last ``steps``
+    steps, and one more step under torch.profiler."""
+    step_s, wait_s = step_stats(trainer, steps)
+    flops = flops_per_token * tokens
+    out = dict(card=card_line(), steps=steps,
+               losses=trainer.losses()[-steps:],
+               step_s=[r.seconds for r in trainer.history[-steps:]],
+               median_step_s=step_s, loader_wait_s_per_step=wait_s,
+               tokens_per_s=tokens / step_s,
+               model_gflop_per_token=flops_per_token / 1e9,
+               model_tflop_per_step=flops / 1e12,
+               mfu=flops / step_s / BF16_OPS_PER_S, peak_mem_gb=peak / 1e9)
+    prof = profile_step(trainer)
+    if prof is not None:
+        prof["idle_share_vs_unprofiled_step"] = (
+            1 - prof["device_ms"] / (step_s * 1e3))
+    out["profile"] = prof
+    return out
+
+
+def lm_grad_errors(got, ref):
+    """max|err| / max|ref| of each gradient of ``got`` against ``ref``. The
+    attention key biases are held otherwise: softmax is invariant to a
+    shift of a row's logits, so their exact gradient is zero and both runs
+    hold only rounding noise; each is held, in both runs, to the same
+    layer's key-kernel gradient (max|g_bias| / max|g_kernel|)."""
+    out = {}
+    for n, g in ref.items():
+        if n.endswith("attn.key.bias"):
+            kernel = ref[n[:-len("bias")] + "kernel"].float().abs().max()
+            out[n] = max(got[n].float().abs().max().item(),
+                         g.float().abs().max().item()) / kernel.item()
+        else:
+            out[n] = grad_rel_err(got[n], g)
+    return out
+
+
+def phase_lm_d64():
+    """transformer_lm_pp with --mesh.pipe 1 --parallel.strategy dp at its
+    full width and batch (12 layers, d 768, 12 heads of 64, vocab 32000,
+    B 64, T 1024, remat, adam): one step's loss and every gradient with
+    the flash kernels against the plain attention from the same weights
+    and batch; then one warm-up and 4 timed steps with the flash counts
+    reset just before and read just after (24 forward, 12 dq, 12 dk/dv a
+    step); one more step under torch.profiler."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.parallel import dp
+    from pytorch_distributed_nn_tpu_torch.utils.flops import (
+        transformer_train_flops_per_token,
+    )
+
+    trainer = lm_trainer()
+    model, cfg = trainer.model, trainer.cfg
+    L = model.num_layers
+    if (model.head_dim, cfg.data.batch_size, cfg.data.seq_len) != (
+            LM_D, LM_B, LM_T) or not cfg.model.remat:
+        raise AssertionError(f"transformer_lm_pp at {model.head_dim}, "
+                             f"{cfg.data.batch_size}, {cfg.data.seq_len}")
+    x, y = trainer.loader.batch_at(0)
+    out = {}
+    for impl in ("auto", "xla"):
+        for i in range(L):
+            getattr(model, f"block{i}").attn.impl = impl
+        reset_flash_counts()
+        loss = dp._loss_and_grads(trainer.state, x, y,
+                                  trainer.loss_fn).item()
+        counts = flash_counts()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        trainer.state.optimizer.zero_grad()
+        out[impl] = (loss, grads, counts)
+    if out["auto"][2] != {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                          "flash_bwd_dkv": L}:
+        raise AssertionError(f"flash launches in one step: {out['auto'][2]}")
+    if any(out["xla"][2].values()):
+        raise AssertionError("the plain step launched a flash kernel")
+    loss_f, grads_f, _ = out["auto"]
+    loss_x, grads_x, _ = out["xla"]
+    loss_err = abs(loss_f - loss_x) / abs(loss_x)
+    grad_err = lm_grad_errors(grads_f, grads_x)
+    worst_g = max(grad_err, key=grad_err.get)
+    log(f"[lm_d64] one step, flash vs plain attention: loss {loss_f:.6f} vs "
+        f"{loss_x:.6f} (rel {loss_err:.3e}); worst gradient {worst_g} "
+        f"max|err|/max|ref| {grad_err[worst_g]:.3e}")
+    if not (math.isfinite(loss_f) and loss_err <= TRAIN_LOSS_TOL
+            and grad_err[worst_g] <= TRAIN_GRAD_TOL):
+        raise AssertionError("the flash LM step disagrees with the plain "
+                             f"attention (limits {TRAIN_LOSS_TOL}, "
+                             f"{TRAIN_GRAD_TOL})")
+    del out, grads_f, grads_x
+    for i in range(L):
+        getattr(model, f"block{i}").attn.impl = "auto"
+    torch.cuda.empty_cache()
+    trainer.train(steps=1)  # warm-up
+    steps = 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()  # the path's count starts here
+    trainer.train(steps=steps)
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+            "flash_bwd_dkv": L * steps}
+    if launches != want:
+        raise AssertionError(f"flash launches {launches} in {steps} steps, "
+                             f"expected {want}")
+    losses = trainer.losses()[-steps:]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses {losses}")
+    per_token = transformer_train_flops_per_token(model, LM_T, causal=True)
+    report = train_report(trainer, steps, per_token, LM_B * LM_T, peak)
+    result = dict(check=dict(loss_rel_err=loss_err, worst_grad=worst_g,
+                             worst_grad_rel_err=grad_err[worst_g]),
+                  launches=launches, losses=losses, **{
+                      k: v for k, v in report.items() if k != "losses"})
+    log(f"[lm_d64] {json.dumps(result)}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return result, launches
+
+
+def bert_trainer(**overrides):
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    cfg = get_config("bert_base_buckets", log_every="1", **overrides)
+    return Trainer(cfg, device="cuda")  # seeded init (cfg.seed)
+
+
+def bert_components(model):
+    """CUDA-event medians (5 runs, forward + backward) of three parts of the
+    BERT step at the main path's shapes: the plain attention of the 12
+    layers, the f32 mlm_decoder head and the masked-LM loss."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.nn.attention import (
+        dot_product_attention,
+    )
+    from pytorch_distributed_nn_tpu_torch.train.losses import masked_lm_xent
+
+    g = torch.Generator("cuda").manual_seed(3)
+    H, D = model.num_heads, model.head_dim
+    qkv = [torch.randn((BERT_BATCH, BERT_T, H, D), generator=g,
+                       device="cuda").to(torch.bfloat16).requires_grad_()
+           for _ in range(3)]
+    do = torch.randn((BERT_BATCH, BERT_T, H, D), generator=g,
+                     device="cuda").to(torch.bfloat16)
+
+    def attention():
+        for _ in range(model.num_layers):
+            out = dot_product_attention(*qkv, causal=False, impl="xla")
+            torch.autograd.grad(out, qkv, do)
+
+    head = model.mlm_decoder
+    h = torch.randn((BERT_BATCH, BERT_T, model.d_model), generator=g,
+                    device="cuda").to(torch.bfloat16).requires_grad_()
+    dl = torch.randn((BERT_BATCH, BERT_T, head.kernel.shape[1]), generator=g,
+                     device="cuda")
+
+    def decoder():
+        out = head(h)
+        torch.autograd.grad(out, [h, head.kernel, head.bias], dl)
+
+    logits = dl.clone().requires_grad_()
+    labels = torch.randint(0, head.kernel.shape[1], (BERT_BATCH, BERT_T),
+                           generator=g, device="cuda")
+    labels[torch.rand(labels.shape, generator=g, device="cuda") > 0.15] = -1
+
+    def loss():
+        torch.autograd.grad(masked_lm_xent(logits, labels), logits)
+
+    return {name: time_ms(fn, 5) for name, fn in (
+        ("attention_plain_fwd_bwd", attention),
+        ("mlm_decoder_f32_fwd_bwd", decoder), ("mlm_loss_fwd_bwd", loss))}
+
+
+def phase_bert():
+    """bert_base_buckets as it is (12 layers, d 768, vocab 30522, T 128,
+    batch 256, dp_explicit, 100 MB buckets, overlap) on NCCL at world 1:
+    one step with and without overlap from the same seeded weights and
+    batch must leave the parameters bit for bit equal; 2 warm-up and 4
+    timed steps; one profiled step; the parts' own times; then 2 steps on
+    the int8 wire with the quantize count reset just before and read just
+    after (one launch a f32 bucket a step)."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.ops.buckets import (
+        bucket_plan,
+        issue_order,
+    )
+    from pytorch_distributed_nn_tpu_torch.parallel.api import make_train_step
+    from pytorch_distributed_nn_tpu_torch.utils.flops import (
+        transformer_train_flops_per_token,
+    )
+
+    plain = bert_trainer(**{"parallel.overlap": "false"})
+    plain.train(steps=1)
+    want = {k: v.clone() for k, v in plain.model.state_dict().items()}
+    del plain
+    torch.cuda.empty_cache()
+    trainer = bert_trainer()
+    cfg, model = trainer.cfg, trainer.model
+    if ((trainer.process.backend, trainer.process.world_size) != ("nccl", 1)
+            or not cfg.parallel.overlap
+            or (cfg.data.batch_size, cfg.data.seq_len) != (BERT_BATCH,
+                                                           BERT_T)):
+        raise AssertionError(f"bert_base_buckets: {trainer.process}, "
+                             f"{cfg.parallel}, {cfg.data}")
+    trainer.train(steps=1)
+    got = model.state_dict()
+    differ = [k for k, v in want.items() if not torch.equal(got[k], v)]
+    if differ:
+        raise AssertionError(f"overlap changed {len(differ)} parameters, "
+                             f"e.g. {differ[:3]}")
+    del want, got
+    log("[bert] one step with overlap equals the step without, bit for bit")
+    shapes = {n: (p.shape, p.dtype) for n, p in model.named_parameters()}
+    plan = bucket_plan(shapes, int(cfg.parallel.bucket_mb * 1024 * 1024))
+    reducer = trainer.step_fn.reducer(trainer.state)
+    trainer.train(steps=1)  # the second warm-up step
+    steps = 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    issued = reducer.buckets_issued
+    trainer.train(steps=steps)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = (reducer.buckets_issued - issued) / steps
+    if per_step != len(plan):
+        raise AssertionError(f"{per_step} buckets a step, the plan has "
+                             f"{len(plan)}")
+    losses = trainer.losses()[-steps:]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses {losses}")
+    last = reducer.last
+    if [tuple(x) for x in last["issued"]] != issue_order(
+            plan, last["hook_order"]):
+        raise AssertionError("buckets issued out of the hooks' order")
+    mb = [sum(shapes[n][0].numel() * 4 for n in names) / 2 ** 20
+          for _, names in plan]
+    hooks = last["hooks"]
+    overlap = dict(
+        buckets=len(plan), bucket_mib=mb, hooks=hooks,
+        issued=[dict(bucket=b, mib=mb[b], hooks_fired=k)
+                for b, k in last["issued"]],
+        share_before_last_hook=last["bytes_before_last_hook"]
+        / last["bytes_total"],
+        share_with_a_tenth_of_hooks_to_come=sum(
+            mb[b] for b, k in last["issued"] if k <= 0.9 * hooks) / sum(mb))
+    log(f"[bert] overlap: {json.dumps(overlap)}")
+    per_token = transformer_train_flops_per_token(model, BERT_T,
+                                                  causal=False)
+    report = train_report(trainer, steps, per_token, BERT_BATCH * BERT_T,
+                          peak)
+    parts = bert_components(model)
+    # the int8 wire, the same weights on: its quantize launches
+    int8 = cfg.override(**{"parallel.quantized_allreduce": "int8"})
+    trainer.step_fn, _ = make_train_step(int8, trainer.loss_fn)
+    reset_dp_counts()
+    trainer.train(steps=2)
+    q_launches = quantize_count()
+    if q_launches != 2 * len(plan):
+        raise AssertionError(f"quantize launches {q_launches} in 2 int8 "
+                             f"steps, expected {2 * len(plan)}")
+    int8_losses = trainer.losses()[-2:]
+    if not all(math.isfinite(v) for v in int8_losses):
+        raise AssertionError(f"int8 losses {int8_losses}")
+    result = dict(losses=losses, buckets_per_step=per_step, overlap=overlap,
+                  all_step_s=[r.seconds for r in trainer.history],
+                  parts_ms=parts, int8=dict(losses=int8_losses,
+                                            quantize_launches=q_launches),
+                  **{k: v for k, v in report.items() if k != "losses"})
+    log(f"[bert] {json.dumps(result)}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return result, q_launches
+
+
 def build_model(seed=0):
     import torch
 
@@ -2187,6 +2663,7 @@ def main() -> int:
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows, max_err, library_label = phase_kernel(flush)
     flash_rows, lse_err = phase_flash(flush)
+    flash64 = phase_flash64(flush)
     ring = phase_ring(flush)
     del flush
     torch.cuda.empty_cache()
@@ -2201,6 +2678,8 @@ def main() -> int:
     dp_check = phase_dp_check()
     dp_train, bn_launches, q_launches = phase_dp_train()
     dp_preset = phase_dp_preset()
+    lm_d64, lm_launches = phase_lm_d64()
+    bert, bert_q_launches = phase_bert()
 
     model = build_model(seed=0)
     forward = phase_forward(model)
@@ -2238,7 +2717,12 @@ def main() -> int:
             library="F.scaled_dot_product_attention(is_causal=True, "
                     "enable_gqa=True)" + (" backward (dq, dk and dv)"
                                           if name != "flash_fwd" else ""),
-            per="one call at B 1, T 32768, H 8, Hkv 4, D 128, causal"))
+            per="one call at B 1, T 32768, H 8, Hkv 4, D 128, causal",
+            at_d64=dict(
+                launches=lm_launches[name], **flash64[name],
+                resources=resources.get(f"{name}_kernel<64>"),
+                per="one call at B 64, T 1024, H = Hkv = 12, D 64, causal "
+                    "(transformer_lm_pp); launches: its 4 timed steps")))
     bn_step = bn["step"]
     kernels.append(dict(
         name="bn_stats", route="cuda", source=BN_SOURCE, replaces=BN_TPU,
@@ -2260,7 +2744,10 @@ def main() -> int:
         "stochastically to int8)",
         per=f"one ResNet-50 step's {quant['buckets']} f32 buckets "
             f"({quant['elements']} elements); max_abs_err against the "
-            "plain version, which it equals bit for bit"))
+            "plain version, which it equals bit for bit",
+        launches_bert_int8=bert_q_launches,
+        bert_int8="bert_base_buckets, 2 steps on the int8 wire, issued "
+                  "from the overlap hooks: one launch a f32 bucket a step"))
     main_pair = ring["times"]["diagonal_32768"]
     kernels.append(dict(
         name="ring_block_update", route="cuda", source=RING_SOURCE,
@@ -2285,7 +2772,8 @@ def main() -> int:
                         ring_train=ring_train, ring4=ring4,
                         flash_lse_err=lse_err, bn_stats=bn,
                         quantize=quant, dp_check=dp_check,
-                        dp_train=dp_train, dp_preset=dp_preset)))
+                        dp_train=dp_train, dp_preset=dp_preset,
+                        flash64=flash64, lm_d64=lm_d64, bert=bert)))
     from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
 
     bootstrap.shutdown()  # the NCCL group of the data-parallel phases

@@ -4,7 +4,7 @@ the ported slices read.
 Typed dataclasses with dotted CLI overrides (``--optim.lr=0.1``,
 ``--model.extra '{"quantized": true}'``) and the named presets the port
 runs. A field the port does not read yet is not declared, so an override
-naming it (``--checkpoint_dir``, ``--multistep_k``, ``--parallel.overlap``)
+naming it (``--checkpoint_dir``, ``--multistep_k``, ``--parallel.zero_stage``)
 fails as an unknown field instead of being ignored.
 """
 
@@ -20,7 +20,8 @@ from pytorch_distributed_nn_tpu_torch.runtime.mesh import MeshSpec
 
 @dataclass
 class OptimConfig:
-    name: str = "sgd"  # sgd | momentum | adamw
+    # sgd | momentum | adam | adamw | lamb | lion | adafactor
+    name: str = "sgd"
     lr: float = 0.01
     momentum: float = 0.9
     weight_decay: float = 0.0
@@ -34,11 +35,17 @@ class OptimConfig:
     # fractions of the post-warmup run
     step_milestones: tuple[float, ...] = (0.5, 0.75)
     step_gamma: float = 0.1
+    # skip weight decay on 1-D params (norm scales, biases); False decays
+    # every parameter, as torch does
+    decay_mask_norms: bool = False
+    # momentum/adam/adamw/lion first moments stored in this dtype ("" =
+    # the param dtype); rejected for lamb, sgd and adafactor
+    mu_dtype: str = ""
 
 
 @dataclass
 class DataConfig:
-    # mnist | cifar10 | imagenet_synthetic | lm_synthetic
+    # mnist | cifar10 | imagenet_synthetic | lm_synthetic | mlm_synthetic
     dataset: str = "mnist"
     batch_size: int = 128  # global batch size
     seq_len: int = 512
@@ -48,7 +55,8 @@ class DataConfig:
 
 @dataclass
 class ModelConfig:
-    name: str = "mlp"  # mlp | lenet | resnet50 | llama3_8b
+    # mlp | lenet | resnet50 | bert_base | transformer_lm | vit | llama3_8b
+    name: str = "mlp"
     dtype: str = "float32"  # param dtype
     compute_dtype: str = "bfloat16"
     remat: bool = False  # torch.utils.checkpoint on every block
@@ -63,6 +71,10 @@ class ParallelConfig:
     # size in MB (<= 0: no buckets, one all-reduce a tensor, unless a
     # quantized wire asks for one large bucket)
     bucket_mb: float = 25.0
+    # issue each bucket's (or, under dp, each tensor's) all-reduce from the
+    # backward as soon as its gradients are in (ops/buckets.py,
+    # OverlapReducer); the result is bit for bit the one after the backward
+    overlap: bool = True
     quantized_allreduce: str = ""  # "" | "bf16" | "int8" (dp_explicit)
     grad_accum: int = 1  # > 1 is not ported: raises
 
@@ -210,8 +222,6 @@ def _lenet_cifar10() -> TrainConfig:
 
 def _resnet50_dp() -> TrainConfig:
     # Config 2: "ResNet-50 / ImageNet, pure data-parallel DDP allreduce".
-    # The JAX preset also sets overlap=True; the port reduces after the
-    # backward (overlap is a later speed item, ROADMAP.md).
     return TrainConfig(
         preset="resnet50_dp",
         steps=100,
@@ -219,7 +229,40 @@ def _resnet50_dp() -> TrainConfig:
                           warmup_steps=5, schedule="cosine"),
         data=DataConfig(dataset="imagenet_synthetic", batch_size=1024),
         model=ModelConfig(name="resnet50"),
-        parallel=ParallelConfig(strategy="dp", bucket_mb=25.0),
+        parallel=ParallelConfig(strategy="dp", bucket_mb=25.0, overlap=True),
+    )
+
+
+def _bert_base_buckets() -> TrainConfig:
+    # Config 3: "BERT-base pretraining, large fused gradient buckets":
+    # dp_explicit, so the 100 MB buckets run through the bucket controller
+    # (ops/buckets.py), issued from the backward (overlap).
+    return TrainConfig(
+        preset="bert_base_buckets",
+        steps=100,
+        optim=OptimConfig(name="adamw", lr=1e-4, weight_decay=0.01,
+                          warmup_steps=10, schedule="linear"),
+        data=DataConfig(dataset="mlm_synthetic", batch_size=256, seq_len=128,
+                        vocab_size=30522),
+        model=ModelConfig(name="bert_base"),
+        parallel=ParallelConfig(strategy="dp_explicit", bucket_mb=100.0,
+                                overlap=True),
+    )
+
+
+def _transformer_lm_pp() -> TrainConfig:
+    # Config 4: "Transformer-LM pipeline-parallel (send/recv p2p)". The
+    # pipeline strategy is not ported yet (it raises); with
+    # --mesh.pipe 1 --parallel.strategy dp the model trains on one card.
+    return TrainConfig(
+        preset="transformer_lm_pp",
+        steps=50,
+        mesh=MeshSpec(pipe=4, data=-1),
+        optim=OptimConfig(name="adam", lr=3e-4, warmup_steps=10,
+                          schedule="cosine"),
+        data=DataConfig(dataset="lm_synthetic", batch_size=64, seq_len=1024),
+        model=ModelConfig(name="transformer_lm", remat=True),
+        parallel=ParallelConfig(strategy="pipeline"),
     )
 
 
@@ -227,6 +270,8 @@ PRESETS = {
     "mlp_mnist": _mlp_mnist,
     "lenet_cifar10": _lenet_cifar10,
     "resnet50_dp": _resnet50_dp,
+    "bert_base_buckets": _bert_base_buckets,
+    "transformer_lm_pp": _transformer_lm_pp,
     "llama3_8b_zero": _llama3_8b_zero,
     "llama3_longcontext": _llama3_longcontext,
     "llama3_longcontext_96k": _llama3_longcontext_96k,

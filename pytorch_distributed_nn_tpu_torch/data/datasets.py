@@ -1,6 +1,7 @@
 """Synthetic datasets, deterministic by (seed, step): the port's own copy
-of the JAX package's ``data/datasets.py`` for ``lm_synthetic`` and the
-vision stand-ins ``mnist``, ``cifar10`` and ``imagenet_synthetic``.
+of the JAX package's ``data/datasets.py`` for ``lm_synthetic``, BERT's
+``mlm_synthetic`` and the vision stand-ins ``mnist``, ``cifar10`` and
+``imagenet_synthetic``.
 
 ``batch(step)`` depends only on (seed, step, global batch size) and is
 byte-equal to the JAX package's batch for the same arguments (numpy makes
@@ -106,11 +107,30 @@ class SyntheticLM(SyntheticDataset):
                 toks[:, 1:].astype(np.int32))
 
 
+class SyntheticMLM(SyntheticLM):
+    """Masked-LM view of the synthetic token stream (BERT pretraining): 15%
+    of positions replaced by the [MASK] token (vocab_size - 1); labels hold
+    the original token at masked positions and -1 elsewhere (ignored by
+    ``train.losses.masked_lm_xent``)."""
+
+    mask_frac = 0.15
+
+    def batch(self, step: int) -> tuple[np.ndarray, np.ndarray]:
+        tokens, _ = super().batch(step)
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, 0xA5C]))
+        mask = rng.random(tokens.shape) < self.mask_frac
+        labels = np.where(mask, tokens, -1).astype(np.int32)
+        inputs = np.where(mask, self.spec.num_classes - 1,
+                          tokens).astype(np.int32)
+        return inputs, labels
+
+
 # (example shape, classes) of the vision stand-ins
 _IMAGES = {"mnist": ((28, 28), 10), "cifar10": ((32, 32, 3), 10),
            "imagenet_synthetic": ((224, 224, 3), 1000)}
-_NOT_PORTED = ("mlm_synthetic", "token_file", "array_file", "mnist_idx",
-               "cifar10_bin", "image_folder")
+_NOT_PORTED = ("token_file", "array_file", "mnist_idx", "cifar10_bin",
+               "image_folder")
 
 
 def get_dataset(name: str, *, seed: int, batch_size: int,
@@ -122,9 +142,12 @@ def get_dataset(name: str, *, seed: int, batch_size: int,
     if name == "lm_synthetic":
         return SyntheticLM(seed, batch_size, seq_len=seq_len,
                            vocab_size=vocab_size)
+    if name == "mlm_synthetic":
+        return SyntheticMLM(seed, batch_size, seq_len=seq_len,
+                            vocab_size=vocab_size)
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"dataset {name!r} is not ported yet (ROADMAP.md: the file "
-            "readers, and BERT's masked-LM stream); have "
-            f"{sorted(_IMAGES) + ['lm_synthetic']}")
+            "readers); have "
+            f"{sorted(_IMAGES) + ['lm_synthetic', 'mlm_synthetic']}")
     raise KeyError(f"unknown dataset {name!r}")

@@ -1,6 +1,7 @@
 """Model registry: ``register`` / ``get_model`` as in the JAX package.
-Ported so far: ``llama3_8b``, ``mlp``, ``lenet`` and ``resnet50``; BERT,
-the transformer LM, ViT and the MoE LM are not (ROADMAP.md)."""
+Ported: ``llama3_8b``, ``mlp``, ``lenet``, ``resnet50``, ``bert_base``,
+``transformer_lm`` and ``vit``. The MoE LM is not: it needs the expert
+axis (ROADMAP.md, the rest of slice 4)."""
 
 from __future__ import annotations
 
@@ -28,12 +29,19 @@ def get_model(cfg: ModelConfig, device="cuda", input_shape=None, seq=None):
     the Llama model takes. Parameters start as zeros; fill them by loading
     a ``state_dict`` or with the model's own seeded ``init_params(seed)``."""
     from pytorch_distributed_nn_tpu_torch.models import (  # noqa: F401
+        bert,
         lenet,
         llama,
         mlp,
         resnet,
+        transformer_lm,
+        vit,
     )
 
+    if cfg.name == "moe_lm":
+        raise NotImplementedError(
+            "model 'moe_lm' is not ported yet: it needs the expert axis "
+            "(ROADMAP.md, the rest of slice 4)")
     if cfg.name not in _REGISTRY:
         raise KeyError(
             f"unknown model {cfg.name!r}; have {sorted(_REGISTRY)}")

@@ -17,8 +17,9 @@ from torch import nn
 
 from pytorch_distributed_nn_tpu_torch.config import ModelConfig
 from pytorch_distributed_nn_tpu_torch.models import register
-from pytorch_distributed_nn_tpu_torch.models.mlp import Dense, init_normal_
+from pytorch_distributed_nn_tpu_torch.models.mlp import init_normal_
 from pytorch_distributed_nn_tpu_torch.nn.dtypes import get_policy
+from pytorch_distributed_nn_tpu_torch.nn.layers import Dense
 from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
 
 

@@ -32,6 +32,7 @@ from pytorch_distributed_nn_tpu_torch.config import ModelConfig
 from pytorch_distributed_nn_tpu_torch.models import register
 from pytorch_distributed_nn_tpu_torch.nn.attention import MultiHeadAttention
 from pytorch_distributed_nn_tpu_torch.nn.dtypes import get_policy
+from pytorch_distributed_nn_tpu_torch.nn.layers import Dense
 from pytorch_distributed_nn_tpu_torch.nn.quantized import Int8Dense, Int8Embed
 from pytorch_distributed_nn_tpu_torch.runtime.mesh import SeqGroup
 from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
@@ -53,20 +54,6 @@ class RMSNorm(nn.Module):
         normed = x32 * torch.rsqrt(
             torch.mean(x32 * x32, dim=-1, keepdim=True) + self.eps)
         return (normed * self.scale).to(self.dtype)
-
-
-class _Dense(nn.Module):
-    """Float ``nn.Dense`` (no bias), flax kernel layout (in, out)."""
-
-    def __init__(self, in_features: int, features: int, *, dtype,
-                 param_dtype, device=None) -> None:
-        super().__init__()
-        self.dtype = dtype
-        self.kernel = nn.Parameter(torch.zeros(
-            (in_features, features), dtype=param_dtype, device=device))
-
-    def forward(self, x):
-        return x.to(self.dtype) @ self.kernel.to(self.dtype)
 
 
 class LlamaBlock(nn.Module):
@@ -97,8 +84,8 @@ class LlamaBlock(nn.Module):
                 return Int8Dense(i, o, dtype=dtype, device=device)
         else:
             def dense(i, o):
-                return _Dense(i, o, dtype=dtype, param_dtype=param_dtype,
-                              device=device)
+                return Dense(i, o, dtype=dtype, param_dtype=param_dtype,
+                             use_bias=False, device=device)
         if self.fused:
             self.gate_up = dense(d_model, 2 * mlp_dim)
         else:
@@ -175,8 +162,9 @@ class Llama(nn.Module):
             self.lm_head = Int8Dense(d_model, vocab_size,
                                      dtype=torch.float32, device=device)
         else:
-            self.lm_head = _Dense(d_model, vocab_size, dtype=torch.float32,
-                                  param_dtype=param_dtype, device=device)
+            self.lm_head = Dense(d_model, vocab_size, dtype=torch.float32,
+                                 param_dtype=param_dtype, use_bias=False,
+                                 device=device)
 
     @property
     def device(self) -> torch.device:

@@ -14,25 +14,8 @@ from torch import nn
 from pytorch_distributed_nn_tpu_torch.config import ModelConfig
 from pytorch_distributed_nn_tpu_torch.models import register
 from pytorch_distributed_nn_tpu_torch.nn.dtypes import get_policy
+from pytorch_distributed_nn_tpu_torch.nn.layers import Dense
 from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
-
-
-class Dense(nn.Module):
-    """flax ``nn.Dense``: kernel (in, out), bias; input, kernel and bias
-    cast to the compute dtype."""
-
-    def __init__(self, in_features: int, features: int, *, dtype,
-                 param_dtype=torch.float32, device=None) -> None:
-        super().__init__()
-        self.dtype = dtype
-        self.kernel = nn.Parameter(torch.zeros(
-            (in_features, features), dtype=param_dtype, device=device))
-        self.bias = nn.Parameter(torch.zeros((features,), dtype=param_dtype,
-                                             device=device))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (x.to(self.dtype) @ self.kernel.to(self.dtype)
-                + self.bias.to(self.dtype))
 
 
 @torch.no_grad()

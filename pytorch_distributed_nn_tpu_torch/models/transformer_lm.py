@@ -1,0 +1,152 @@
+"""Decoder-only transformer LM: BASELINE.json config 4's model (the JAX
+package's ``models/transformer_lm.py``). GPT-style pre-LN blocks with
+learned positions, a final LayerNorm ``ln_f`` and an f32 ``lm_head``.
+
+Submodules keep the flax names (``tok_embed``, ``pos_embed``,
+``block{i}.{ln1,attn,ln2,mlp_in,mlp_out}``, ``ln_f``, ``lm_head``).
+``remat`` reruns each block's forward in the backward
+(``torch.utils.checkpoint``, the JAX model's ``nn.remat`` per block).
+Attention's ``attn_impl="auto"`` takes the flash kernels on the card in
+bf16 from T = 128 at head_dim 64 or 128 (``nn/attention.py``), and the
+plain path elsewhere. The decode cache is not ported yet (ROADMAP.md,
+slice 5: the serving features); the pipeline schedule that config 4 runs
+this model under is ROADMAP.md's rest of slice 4.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from pytorch_distributed_nn_tpu_torch.config import ModelConfig
+from pytorch_distributed_nn_tpu_torch.models import register
+from pytorch_distributed_nn_tpu_torch.nn.attention import MultiHeadAttention
+from pytorch_distributed_nn_tpu_torch.nn.dtypes import get_policy
+from pytorch_distributed_nn_tpu_torch.nn.layers import (
+    Dense,
+    Dropout,
+    Embed,
+    LayerNorm,
+    gelu,
+    init_params_,
+)
+from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, d_model: int, num_heads: int, mlp_dim: int, *,
+                 dropout: float = 0.0, ln_eps: float = 1e-5,
+                 attn_impl: str = "auto", dtype=torch.float32,
+                 param_dtype=torch.float32, salt: int = 0,
+                 device=None) -> None:
+        super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.ln1 = LayerNorm(d_model, eps=ln_eps, **kw)
+        self.attn = MultiHeadAttention(
+            d_model, num_heads, d_model // num_heads, causal=True,
+            rotary=False, use_bias=True, impl=attn_impl, **kw)
+        self.drop_attn = Dropout(dropout, salt)
+        self.ln2 = LayerNorm(d_model, eps=ln_eps, **kw)
+        self.mlp_in = Dense(d_model, mlp_dim, **kw)
+        self.mlp_out = Dense(mlp_dim, d_model, **kw)
+        self.drop_mlp = Dropout(dropout, salt + 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.drop_attn(self.attn(self.ln1(x)))
+        y = self.mlp_out(gelu(self.mlp_in(self.ln2(x))))
+        return x + self.drop_mlp(y)
+
+
+class TransformerLM(nn.Module):
+    """``forward(tokens, positions=None, last_only=False,
+    return_hidden=False)`` returns f32 logits (B, T, V), or (B, 1, V) with
+    ``last_only``; ``return_hidden`` skips the LM head and returns the
+    ``ln_f``'d (B, T, D) trunk output (the chunked loss applies the head
+    blockwise). Built on ``device`` (default ``cuda``, which raises
+    without CUDA)."""
+
+    def __init__(self, *, vocab_size: int = 32000, num_layers: int = 12,
+                 d_model: int = 768, num_heads: int = 12, mlp_dim: int = 3072,
+                 max_len: int = 2048, dropout: float = 0.0,
+                 ln_eps: float = 1e-5, remat: bool = False,
+                 attn_impl: str = "auto", dtype=torch.float32,
+                 param_dtype=torch.float32, device="cuda") -> None:
+        super().__init__()
+        device = resolve_device(device)
+        self.num_layers = num_layers
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.max_len = max_len
+        self.remat = remat
+        self.dtype = dtype
+        emb = dict(param_dtype=param_dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.tok_embed = Embed(vocab_size, d_model, **emb)
+        self.pos_embed = Embed(max_len, d_model, **emb)
+        for i in range(num_layers):
+            self.add_module(f"block{i}", DecoderBlock(
+                d_model, num_heads, mlp_dim, dropout=dropout, ln_eps=ln_eps,
+                attn_impl=attn_impl, salt=2 * i, **kw))
+        self.ln_f = LayerNorm(d_model, eps=ln_eps, **kw)
+        self.lm_head = Dense(d_model, vocab_size, dtype=torch.float32,
+                             param_dtype=param_dtype, use_bias=False,
+                             device=device)
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.num_heads
+
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                last_only: bool = False, return_hidden: bool = False,
+                cache: Optional[dict] = None) -> torch.Tensor:
+        if cache is not None:
+            raise NotImplementedError(
+                "the transformer LM's decode cache is not ported yet "
+                "(ROADMAP.md, slice 5: the serving features)")
+        T = tokens.shape[1]
+        if T > self.max_len:
+            raise ValueError(
+                f"sequence length {T} exceeds max_len {self.max_len}")
+        if positions is None:
+            positions = torch.arange(T, device=tokens.device)[None]
+        x = (self.tok_embed(tokens) + self.pos_embed(positions)).to(
+            self.dtype)
+        remat = self.remat and torch.is_grad_enabled()
+        for i in range(self.num_layers):
+            block = getattr(self, f"block{i}")
+            x = (checkpoint(block, x, use_reentrant=False) if remat
+                 else block(x))
+        if last_only:
+            x = x[:, -1:]
+        x = self.ln_f(x)
+        return x if return_hidden else self.lm_head(x)
+
+    def init_params(self, seed: int = 0) -> "TransformerLM":
+        return init_params_(self, seed)
+
+
+@register("transformer_lm")
+def build_transformer_lm(cfg: ModelConfig, device="cuda",
+                         input_shape=None) -> TransformerLM:
+    """``input_shape`` (a (T,) token row) does not size the model."""
+    policy = get_policy(cfg.dtype, cfg.compute_dtype)
+    e = cfg.extra
+    return TransformerLM(
+        vocab_size=e.get("vocab_size", 32000),
+        num_layers=e.get("num_layers", 12),
+        d_model=e.get("d_model", 768),
+        num_heads=e.get("num_heads", 12),
+        mlp_dim=e.get("mlp_dim", 3072),
+        max_len=e.get("max_len", 2048),
+        dropout=e.get("dropout", 0.0),
+        ln_eps=e.get("ln_eps", 1e-5),
+        remat=cfg.remat,
+        attn_impl=e.get("attn_impl", "auto"),
+        dtype=policy.compute_dtype,
+        param_dtype=policy.param_dtype,
+        device=device,
+    )

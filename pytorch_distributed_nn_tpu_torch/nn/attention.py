@@ -11,11 +11,13 @@ Ported: ``impl="xla"`` (plain PyTorch), ``impl="flash"`` (the hand-written
 CUDA kernels of ``ops/flash_attention.py`` in both directions, their plain
 versions on the CPU), ``impl="auto"`` (:func:`_auto_impl`), the decode
 cache with a shared ``cache_index`` or per-row ``cache_positions``,
-grouped-query attention that never repeats the cached K/V, and
+grouped-query attention that never repeats the cached K/V,
 :class:`MultiHeadAttention`'s sequence-parallel ``"ring"`` and
 ``"ulysses"`` (``parallel/sequence.py``) over the ``SeqGroup`` its model
-hands it. Not yet: ``cache_dtype="int8"`` and LoRA deltas (ROADMAP.md,
-serving features).
+hands it, and the JAX module's ``causal``, ``rotary`` and ``use_bias``
+fields with a (B, S) padding ``mask`` (BERT, the transformer LM, ViT). Not
+yet: ``cache_dtype="int8"`` and LoRA deltas (ROADMAP.md, serving
+features).
 """
 
 from __future__ import annotations
@@ -161,30 +163,40 @@ def _cache_attention(q, k, v, pos_mask, dtype):
 
 
 class _DenseGeneral(nn.Module):
-    """Float ``nn.DenseGeneral`` (no bias) with the flax kernel layout
-    (in..., features...); computes in ``dtype``."""
+    """Float ``nn.DenseGeneral`` with the flax kernel layout (in...,
+    features...) and, with ``use_bias``, a bias of shape ``features``
+    added in ``dtype`` after the product; computes in ``dtype``."""
 
     def __init__(self, in_shape, features, *, dtype, param_dtype,
-                 device=None) -> None:
+                 use_bias: bool = False, device=None) -> None:
         super().__init__()
         self.in_shape = tuple(in_shape)
         self.features = tuple(features)
         self.dtype = dtype
+        self.fan_in = math.prod(self.in_shape)
         self.kernel = nn.Parameter(torch.zeros(
             self.in_shape + self.features, dtype=param_dtype,
             device=device))
+        self.bias = (nn.Parameter(torch.zeros(
+            self.features, dtype=param_dtype, device=device))
+            if use_bias else None)
 
     def forward(self, x):
         nin = len(self.in_shape)
         lead = x.shape[:x.dim() - nin]
         k = self.kernel.to(self.dtype).reshape(-1, math.prod(self.features))
-        y = x.to(self.dtype).reshape(*lead, -1) @ k
-        return y.reshape(*lead, *self.features)
+        y = (x.to(self.dtype).reshape(*lead, -1) @ k).reshape(
+            *lead, *self.features)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class MultiHeadAttention(nn.Module):
-    """Causal GQA attention with rotary positions: the Llama block's (the
-    JAX module's ``causal=True, rotary=True, use_bias=False``).
+    """The JAX module's attention. Its defaults are the Llama block's
+    (``causal=True, rotary=True, use_bias=False``: causal GQA with rotary
+    positions); BERT and ViT pass ``causal=False, rotary=False,
+    use_bias=True``, the transformer LM ``causal=True, rotary=False,
+    use_bias=True``. With ``use_bias`` q/k/v carry a (heads, head_dim) bias
+    and ``out`` a (d_model,) one, as ``nn.DenseGeneral`` has them.
 
     ``quantized`` selects int8 projections; with ``fused_qkv`` q, k and v
     come from one int8 matmul over (H + 2*Hkv, head_dim) features, split
@@ -203,10 +215,14 @@ class MultiHeadAttention(nn.Module):
                  rope_theta: float = 10000.0,
                  impl: str = "xla", dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32,
+                 causal: bool = True, rotary: bool = True,
+                 use_bias: bool = False,
                  quantized: bool = False, cache_dtype: str = "compute",
                  fused_qkv: bool = False, seq: Optional[SeqGroup] = None,
                  device=None) -> None:
         super().__init__()
+        if quantized and use_bias:
+            raise ValueError("quantized attention is bias-free")
         if cache_dtype == "int8":
             raise NotImplementedError(
                 "cache_dtype='int8' is not ported yet (ROADMAP.md, serving "
@@ -217,6 +233,8 @@ class MultiHeadAttention(nn.Module):
         self.head_dim = head_dim
         self.num_kv_heads = num_kv_heads or num_heads
         self.rope_theta = rope_theta
+        self.causal = causal
+        self.rotary = rotary
         self.impl = impl
         self.seq = seq or SeqGroup()
         self.dtype = dtype
@@ -228,7 +246,8 @@ class MultiHeadAttention(nn.Module):
         else:
             def dense(in_shape, feats):
                 return _DenseGeneral(in_shape, feats, dtype=dtype,
-                                     param_dtype=param_dtype, device=device)
+                                     param_dtype=param_dtype,
+                                     use_bias=use_bias, device=device)
         h, hkv = num_heads, self.num_kv_heads
         if self.fused:
             self.qkv = dense((d_model,), (h + 2 * hkv, head_dim))
@@ -239,14 +258,15 @@ class MultiHeadAttention(nn.Module):
         self.out = dense((h, head_dim), (d_model,))
 
     def forward(self, x: torch.Tensor, cache: Optional[dict] = None,
-                cache_positions: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                cache_positions: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``cache`` (this layer's dict) turns on decode: the fed (B, T)
         tokens' K/V are written into it in place, at the shared
         ``cache_index`` (which then advances by T) or, with
         ``cache_positions`` (B,) int, at each row's own depth (the shared
         index is neither read nor advanced). Queries attend to the cache
-        slots at or before their own position."""
+        slots at or before their own position. ``mask`` (B, S) bool keeps
+        the keys where it is True (padding; ``impl='xla'`` only)."""
         h, hkv = self.num_heads, self.num_kv_heads
         if self.fused:
             qkv = self.qkv(x)
@@ -254,6 +274,11 @@ class MultiHeadAttention(nn.Module):
                 qkv[..., h + hkv:, :]
         else:
             q, k, v = self.query(x), self.key(x), self.value(x)
+        if cache is not None and not self.causal:
+            raise ValueError("decode cache requires causal attention")
+        if cache is not None and mask is not None:
+            raise ValueError("decode mode ignores padding masks; strip "
+                             "padding (or left-trim) before prefill")
         if cache_positions is not None and cache is None:
             raise ValueError("cache_positions is a decode-cache feature "
                              "(per-row cache indices); it needs a cache")
@@ -261,6 +286,9 @@ class MultiHeadAttention(nn.Module):
             if cache is not None:
                 raise ValueError(f"{self.impl} attention has no decode "
                                  "cache; generate with impl='auto'")
+            if not self.causal or mask is not None:
+                raise ValueError(f"{self.impl} attention is causal-only and "
+                                 "takes no mask")
             out = self._sequence_parallel(q, k, v)
         elif cache is not None:
             B, T = x.shape[0], x.shape[1]
@@ -275,18 +303,21 @@ class MultiHeadAttention(nn.Module):
             else:
                 starts = cache_positions.to(torch.int32)
                 positions = starts[:, None] + ar[None]  # (B, T)
-            q, k = rotary_embedding(q, k, theta=self.rope_theta,
-                                    positions=positions)
-            q, k = q.to(self.dtype), k.to(self.dtype)
+            if self.rotary:
+                q, k = rotary_embedding(q, k, theta=self.rope_theta,
+                                        positions=positions)
+                q, k = q.to(self.dtype), k.to(self.dtype)
             pos_mask = (torch.arange(S, device=x.device)[None, None, :]
                         <= positions[:, :, None])  # (B|1, T, S)
             _row_update(ck, k, starts)
             _row_update(cv, v, starts)
             out = _cache_attention(q, ck, cv, pos_mask, self.dtype)
         else:
-            q, k = rotary_embedding(q, k, theta=self.rope_theta)
-            q, k = q.to(self.dtype), k.to(self.dtype)
-            out = dot_product_attention(q, k, v, causal=True, impl=self.impl)
+            if self.rotary:
+                q, k = rotary_embedding(q, k, theta=self.rope_theta)
+                q, k = q.to(self.dtype), k.to(self.dtype)
+            out = dot_product_attention(q, k, v, causal=self.causal,
+                                        impl=self.impl, mask=mask)
         return self.out(out)
 
     def _sequence_parallel(self, q, k, v):
@@ -295,11 +326,13 @@ class MultiHeadAttention(nn.Module):
             ulysses_attention,
         )
 
-        Tl = q.shape[1]
-        positions = self.seq.index * Tl + torch.arange(Tl, device=q.device)
-        q, k = rotary_embedding(q, k, theta=self.rope_theta,
-                                positions=positions[None])
-        q, k = q.to(self.dtype), k.to(self.dtype)
+        if self.rotary:
+            Tl = q.shape[1]
+            positions = self.seq.index * Tl + torch.arange(Tl,
+                                                           device=q.device)
+            q, k = rotary_embedding(q, k, theta=self.rope_theta,
+                                    positions=positions[None])
+            q, k = q.to(self.dtype), k.to(self.dtype)
         attend = ulysses_attention if self.impl == "ulysses" else \
             ring_attention
         return attend(q, k, v, seq=self.seq, causal=True)

@@ -1,0 +1,173 @@
+"""The flax layers the transformer families are built of, with flax's
+numerics: ``Dense``, ``Embed``, ``LayerNorm``, ``gelu`` and ``Dropout``
+(the JAX package takes them from ``flax.linen``).
+
+- :class:`Dense`: kernel (in, out) and bias, input and kernel cast to the
+  compute dtype, the bias added in that dtype after the product.
+- :class:`Embed`: the ``embedding`` table in the param dtype; a lookup,
+  no cast (flax's ``Embed`` without a ``dtype``).
+- :class:`LayerNorm`: statistics in f32 in flax 0.12's
+  ``use_fast_variance`` form, var = max(E[x^2] - E[x]^2, 0) (not
+  ``F.layer_norm``'s), then ``(x - mean) * (rsqrt(var + eps) * scale) +
+  bias`` in f32, cast to the compute dtype.
+- :func:`gelu`: tanh-approximate (``flax.linen.gelu`` defaults to
+  ``approximate=True``; ``F.gelu`` defaults to exact erf).
+- :class:`Dropout`: flax's ``select(keep, x / keep_prob, 0)``. Its mask
+  comes from an explicit ``torch.Generator`` seeded from (the run's seed,
+  the step, the rank, the layer's own salt), set by :func:`dropout_stream`
+  around a training step, so a rematerialized block redraws the same
+  mask. It is the identity in eval mode and at rate 0; threefry's masks
+  cannot be reproduced, so parity with the JAX package runs at rate 0.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_MASK64 = (1 << 64) - 1
+_stream: Optional[tuple[int, int, int]] = None  # (seed, step, rank)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``kernel`` (in, out), ``bias`` (out,) unless
+    ``use_bias`` is False."""
+
+    def __init__(self, in_features: int, features: int, *, dtype,
+                 param_dtype=torch.float32, use_bias: bool = True,
+                 device=None) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.fan_in = in_features
+        self.kernel = nn.Parameter(torch.zeros(
+            (in_features, features), dtype=param_dtype, device=device))
+        self.bias = (nn.Parameter(torch.zeros((features,), dtype=param_dtype,
+                                              device=device))
+                     if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: ``embedding`` (num, features); returns rows in
+    the param dtype."""
+
+    def __init__(self, num: int, features: int, *, param_dtype=torch.float32,
+                 device=None) -> None:
+        super().__init__()
+        self.embedding = nn.Parameter(torch.zeros(
+            (num, features), dtype=param_dtype, device=device))
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return F.embedding(idx, self.embedding)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last dim: ``scale`` and ``bias``."""
+
+    def __init__(self, dim: int, *, eps: float, dtype,
+                 param_dtype=torch.float32, device=None) -> None:
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(dim, dtype=param_dtype,
+                                             device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=param_dtype,
+                                             device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(-1, keepdim=True)
+        var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale.float()
+        return ((x32 - mean) * mul + self.bias.float()).to(self.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``flax.linen.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def _mix(*words: int) -> int:
+    """A 63-bit seed from integers (splitmix64 steps)."""
+    h = 0x9E3779B97F4A7C15
+    for w in words:
+        h = (h ^ (w & _MASK64)) * 0xBF58476D1CE4E5B9 & _MASK64
+        h = (h ^ (h >> 31)) * 0x94D049BB133111EB & _MASK64
+        h ^= h >> 29
+    return h >> 1
+
+
+@contextlib.contextmanager
+def dropout_stream(seed: int, step: int, rank: int = 0):
+    """Every :class:`Dropout` in training mode inside the block draws its
+    mask from a generator seeded by (``seed``, ``step``, ``rank``, its
+    salt). Wrap the forward AND the backward of a step, so a block that
+    remat reruns in the backward draws its masks again, identically."""
+    global _stream
+    prev, _stream = _stream, (seed, step, rank)
+    try:
+        yield
+    finally:
+        _stream = prev
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate)``; ``salt`` tells the layers of one model
+    apart (each draws its own mask)."""
+
+    def __init__(self, rate: float, salt: int) -> None:
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+        self.rate = rate
+        self.salt = salt
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if _stream is None:
+            raise RuntimeError("dropout in training mode needs a "
+                               "dropout_stream(seed, step) around the step")
+        g = torch.Generator(x.device)
+        g.manual_seed(_mix(*_stream, self.salt))
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=g, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+@torch.no_grad()
+def init_params_(model: nn.Module, seed: int) -> nn.Module:
+    """Seeded random weights in place, in ``named_parameters`` order:
+    kernels normal with std fan_in^-1/2 (the module's ``fan_in``),
+    embeddings normal with std 1, biases zero, LayerNorm scales one;
+    parameters a model names itself (ViT's ``cls`` and ``pos_embed``)
+    follow its ``extra_init``."""
+    first = next(model.parameters())
+    g = torch.Generator(first.device)
+    g.manual_seed(seed)
+    owners = {f"{name}.kernel": m.fan_in for name, m in model.named_modules()
+              if hasattr(m, "fan_in")}
+    extra = getattr(model, "extra_init", {})
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if name in extra:
+            extra[name](p, g)
+        elif name in owners:
+            p.normal_(0.0, owners[name] ** -0.5, generator=g)
+        elif leaf == "embedding":
+            p.normal_(0.0, 1.0, generator=g)
+        elif leaf == "bias":
+            p.zero_()
+        elif leaf == "scale":
+            p.fill_(1.0)
+        else:
+            raise ValueError(f"no initializer for parameter {name!r}")
+    return model

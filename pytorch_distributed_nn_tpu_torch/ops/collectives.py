@@ -112,11 +112,15 @@ def _record(op: str, x: torch.Tensor | Sequence[torch.Tensor], group,
                                 bytes_wire=ring_wire_bytes(op, payload, n)))
 
 
-def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
-    """``dist.all_reduce(SUM)`` in place; returns ``x``."""
+def all_reduce_sum(x: torch.Tensor, group=None, *, async_op: bool = False):
+    """``dist.all_reduce(SUM)`` in place; returns ``x``, or with
+    ``async_op`` the work handle (``x`` holds the sum once ``wait()`` has
+    returned; on NCCL that wait orders the current stream after the
+    collective and blocks no host thread)."""
     _record("all_reduce", x, group)
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
-    return x
+    work = dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group,
+                           async_op=async_op)
+    return work if async_op else x
 
 
 def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -126,10 +130,13 @@ def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
     return x.div_(dist.get_world_size(group))
 
 
-def all_reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
+def all_reduce_max(x: torch.Tensor, group=None, *, async_op: bool = False):
+    """``dist.all_reduce(MAX)`` in place; returns ``x`` or, with
+    ``async_op``, the work handle."""
     _record("all_reduce", x, group)
-    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
-    return x
+    work = dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group,
+                           async_op=async_op)
+    return work if async_op else x
 
 
 def broadcast(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:

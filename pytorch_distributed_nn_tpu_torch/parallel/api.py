@@ -3,9 +3,11 @@
 
     step(state, x, y) -> (state, metrics)
 
-Ported: ``single``, ``dp`` and ``dp_explicit`` over a process group, and
+Ported: ``single``, ``dp`` and ``dp_explicit`` over a process group, with
+``parallel.overlap`` (the reduction issued from the backward), and
 sequence parallelism (``mesh.seq > 1``) under ``single``/``dp``. The
-sharded strategies raise, naming the ROADMAP slice that ports them.
+sharded strategies (``zero``, ``pipeline``, ``ps``) raise, naming the
+ROADMAP slice that ports them.
 """
 
 from __future__ import annotations
@@ -105,7 +107,8 @@ def make_train_step(cfg: TrainConfig, loss_fn: Callable,
         if cfg.parallel.quantized_allreduce:
             log.warning("quantized_allreduce requires strategy='dp_explicit' "
                         "(the 'dp' step reduces exactly) -- ignoring")
-        return dp.make_dp_train_step(loss_fn, accum=accum)
+        return dp.make_dp_train_step(loss_fn, accum=accum,
+                                     overlap=cfg.parallel.overlap)
     if accum != 1:
         raise ValueError(f"grad_accum needs the 'dp' step, got strategy "
                          f"{strategy!r}")
@@ -126,5 +129,6 @@ def make_train_step(cfg: TrainConfig, loss_fn: Callable,
         bucket_reduce = make_bucket_reduce(bucket_mb=bucket_mb,
                                            quantized=quant or False)
     step = dp.make_dp_train_step_explicit(loss_fn,
-                                          bucket_reduce=bucket_reduce)
+                                          bucket_reduce=bucket_reduce,
+                                          overlap=cfg.parallel.overlap)
     return step, dp.replicate_state

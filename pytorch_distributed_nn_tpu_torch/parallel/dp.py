@@ -12,6 +12,12 @@ implementations of the same math.
   or a per-tensor mean; the BatchNorm running statistics averaged across
   ranks after the step.
 
+With ``overlap`` (``parallel.overlap``) either step issues its reduction
+from the backward (``ops.buckets.OverlapReducer``) instead of after it,
+with the same result bit for bit. Dropout draws from
+``nn.layers.dropout_stream`` keyed by the run's seed, the step and the
+rank, around the forward and the backward.
+
 ``torch.nn.parallel.DistributedDataParallel`` is not used: it broadcasts
 rank 0's buffers where the JAX package averages them, and it owns the
 bucket order the int8 wire depends on.
@@ -25,7 +31,9 @@ import torch
 import torch.distributed as dist
 
 from pytorch_distributed_nn_tpu_torch.nn.batchnorm import TpuBatchNorm
+from pytorch_distributed_nn_tpu_torch.nn.layers import dropout_stream
 from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+from pytorch_distributed_nn_tpu_torch.ops.buckets import OverlapReducer
 from pytorch_distributed_nn_tpu_torch.train.state import TrainState
 
 
@@ -45,13 +53,34 @@ def _loss_and_grads(state: TrainState, x: torch.Tensor, y: torch.Tensor,
     (``loss_fn.apply_kwargs``) and the live parameters by name
     (``loss_fn.needs_params``)."""
     apply_kwargs = getattr(loss_fn, "apply_kwargs", None)
-    out = forward(state, x, apply_kwargs=apply_kwargs)
-    if getattr(loss_fn, "needs_params", False):
-        loss = loss_fn(out, y, dict(state.model.named_parameters()))
-    else:
-        loss = loss_fn(out, y)
-    loss.backward()
+    with dropout_stream(state.generator.initial_seed(), state.step,
+                        cc.rank()):
+        out = forward(state, x, apply_kwargs=apply_kwargs)
+        if getattr(loss_fn, "needs_params", False):
+            loss = loss_fn(out, y, dict(state.model.named_parameters()))
+        else:
+            loss = loss_fn(out, y)
+        loss.backward()
     return loss.detach()
+
+
+def overlap_reducer(reduce=None) -> Callable[[TrainState], OverlapReducer]:
+    """``reducer(state)``: the :class:`OverlapReducer` of ``state.model``
+    for ``reduce``, kept on the model. It is made (its hooks registered) at
+    the first call; a step built with another ``reduce`` (a different
+    wire) replaces it and removes its hooks, so a model carries one set."""
+
+    def reducer(state: TrainState) -> OverlapReducer:
+        model = state.model
+        current = getattr(model, "overlap_reducer", None)
+        if current is None or current.reduce is not reduce:
+            if current is not None:
+                current.remove()
+            current = OverlapReducer(model, reduce)
+            model.overlap_reducer = current
+        return current
+
+    return reducer
 
 
 def grads_of(state: TrainState) -> dict[str, torch.Tensor]:
@@ -60,7 +89,8 @@ def grads_of(state: TrainState) -> dict[str, torch.Tensor]:
             if p.requires_grad}
 
 
-def make_dp_train_step(loss_fn: Callable, *, accum: int = 1):
+def make_dp_train_step(loss_fn: Callable, *, accum: int = 1,
+                       overlap: bool = False):
     """The ``dp`` step and its place function: ``(step, place_state)``.
     Across ranks ``place_state`` broadcasts rank 0's state and makes every
     BatchNorm's statistics span the global batch."""
@@ -74,22 +104,29 @@ def make_dp_train_step(loss_fn: Callable, *, accum: int = 1):
                 m.sync_group = dist.group.WORLD
         return replicate_state(state)
 
-    return zero.make_zero_train_step(loss_fn, stage=0, accum=accum), \
-        place_state
+    return zero.make_zero_train_step(loss_fn, stage=0, accum=accum,
+                                     overlap=overlap), place_state
 
 
 def make_dp_train_step_explicit(loss_fn: Callable, *,
-                                bucket_reduce: Callable | None = None
-                                ) -> Callable:
+                                bucket_reduce: Callable | None = None,
+                                overlap: bool = False) -> Callable:
     """The ``dp_explicit`` step: ``step(state, x, y) -> (state,
     {"loss": loss})``. ``bucket_reduce(grads, seed=step) -> grads`` (by
-    name) replaces the per-tensor mean when given."""
+    name, an ``ops.buckets.BucketReduce``) replaces the per-tensor mean
+    when given; with ``overlap`` its buckets (or the per-tensor means) are
+    issued from the backward, at every world size."""
+    reducer = overlap_reducer(bucket_reduce) if overlap else None
 
     def step(state: TrainState, x, y):
+        if reducer is not None:
+            reducer(state).arm(seed=state.step)
         loss = _loss_and_grads(state, x, y, loss_fn)
         params = dict(state.model.named_parameters())
         grads = grads_of(state)
-        if bucket_reduce is None:
+        if reducer is not None:
+            reducer(state).finish()
+        elif bucket_reduce is None:
             cc.tree_all_reduce_mean(grads.values())
         else:
             for name, g in bucket_reduce(grads, seed=state.step).items():
@@ -101,6 +138,7 @@ def make_dp_train_step_explicit(loss_fn: Callable, *,
         state.apply_gradients()
         return state, {"loss": loss}
 
+    step.reducer = reducer  # the overlap hooks' owner (None without)
     return step
 
 

@@ -9,6 +9,12 @@ Usage:
     torchrun --standalone --nproc_per_node N \\
         -m pytorch_distributed_nn_tpu_torch.train --preset mlp_mnist ...
 
+    # config 3 (BERT-base, overlapped 100 MB buckets) and config 4's
+    # transformer LM on one card (its pipeline is not ported yet)
+    python -m pytorch_distributed_nn_tpu_torch.train --preset bert_base_buckets
+    python -m pytorch_distributed_nn_tpu_torch.train \\
+        --preset transformer_lm_pp --mesh.pipe 1 --parallel.strategy dp
+
 Runs on ``cuda`` unless ``--device cpu`` is given, and raises where CUDA
 is missing. Under ``torchrun`` (or with ``WORLD_SIZE``/``RANK`` set) each
 process is one rank of the process group: NCCL on the card, one card a

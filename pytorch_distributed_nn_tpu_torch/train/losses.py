@@ -1,6 +1,8 @@
 """Losses: the JAX package's ``train/losses.py`` for classification (the
-vision datasets) and the causal LM (``lm_synthetic``). f32 logits, mean
-over the batch; the chunked LM forms never build the (B, T, V) logits.
+vision datasets), the causal LM (``lm_synthetic``) and BERT's masked LM
+(``mlm_synthetic``). f32 logits, mean over the batch (over the valid
+positions for the masked LM); the chunked LM forms never build the
+(B, T, V) logits.
 """
 
 from __future__ import annotations
@@ -12,6 +14,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 log = logging.getLogger(__name__)
+
+
+def valid_mask(labels: torch.Tensor) -> torch.Tensor:
+    """The ignore-index convention in one place: targets >= 0 are valid;
+    negative targets (-1) count neither in the loss nor in its
+    denominator, nor in the accuracy."""
+    return labels >= 0
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -26,8 +35,36 @@ def lm_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
                            targets.reshape(-1).long())
 
 
+def masked_lm_xent(logits: torch.Tensor, labels: torch.Tensor, *,
+                   denom: torch.Tensor | None = None) -> torch.Tensor:
+    """BERT MLM: logits (B, T, V), labels (B, T) with -1 = ignore; f32 mean
+    over the valid positions (0 when there are none). The denominator is
+    the LOCAL valid count, clamped at 1: under ``dp_explicit`` each rank
+    divides by its own rows' count before the mean across ranks, torch
+    DDP's per-rank behaviour for ignore-index losses, as in the JAX
+    package. The ``dp`` step passes ``denom`` (``token_weighted``) to get
+    the global token mean the JAX ``dp`` step computes."""
+    V = logits.shape[-1]
+    valid = valid_mask(labels).reshape(-1)
+    per_tok = F.cross_entropy(logits.float().reshape(-1, V),
+                              labels.clamp(min=0).reshape(-1).long(),
+                              reduction="none")
+    per_tok = torch.where(valid, per_tok, torch.zeros_like(per_tok))
+    if denom is None:
+        denom = valid.sum().clamp(min=1)
+    return per_tok.sum() / denom
+
+
+masked_lm_xent.token_weighted = True
+
+
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    return (logits.argmax(-1) == labels).float().mean()
+    """Masked accuracy: hits among the valid labels over their count
+    (clamped at 1); labels < 0 count neither as hits nor in the
+    denominator (the JAX trainer's eval)."""
+    valid = valid_mask(labels)
+    hits = (logits.argmax(-1) == labels) & valid
+    return hits.sum() / valid.sum().clamp(min=1)
 
 
 def _chunk_xent_sum(h: torch.Tensor, kernel: torch.Tensor,
@@ -97,9 +134,10 @@ _CLASSIFICATION = ("mnist", "cifar10", "imagenet_synthetic")
 def get_loss_fn(dataset_name: str):
     if dataset_name == "lm_synthetic":
         return lm_xent
+    if dataset_name == "mlm_synthetic":
+        return masked_lm_xent
     if dataset_name in _CLASSIFICATION:
         return softmax_xent
     raise NotImplementedError(
         f"loss for dataset {dataset_name!r} is not ported yet (ROADMAP.md: "
-        "the masked-LM loss comes with BERT, label smoothing with the "
-        "trainer features)")
+        "the file readers)")

@@ -1,7 +1,8 @@
 """Optimizer and learning-rate schedule with optax's semantics: the JAX
-package's ``train/optim.py`` for ``sgd``, ``momentum`` and ``adamw``, with
-global-norm clipping, and the ``constant``, ``cosine``, ``linear`` and
-``step`` schedules.
+package's ``train/optim.py`` for ``sgd``, ``momentum``, ``adam``,
+``adamw``, ``lamb``, ``lion`` and ``adafactor``, with global-norm clipping,
+``decay_mask_norms`` and ``mu_dtype``, and the ``constant``, ``cosine``,
+``linear`` and ``step`` schedules.
 
 Places where a plain torch setup differs from optax, each written out
 here:
@@ -12,17 +13,34 @@ here:
 - ``clip_by_global_norm`` scales by ``max_norm / norm`` only when
   ``norm >= max_norm`` (torch's ``clip_grad_norm_`` divides by
   ``norm + 1e-6`` always);
-- weight decay applies to every parameter, norm scales included
-  (``decay_mask_norms`` is not ported, and its default is off);
-- ``sgd`` and ``momentum`` take weight decay as optax's
+- weight decay applies to every parameter unless ``decay_mask_norms``
+  masks the 1-D ones (norm scales, biases) off;
+- ``sgd``, ``momentum`` and ``adam`` take weight decay as optax's
   ``add_decayed_weights`` before the update: L2 added into the gradient
-  (the order of torch ``SGD``'s ``weight_decay``); ``momentum`` is optax's
-  ``trace`` (no Nesterov), ``t = g + momentum * t``, update ``-lr * t``.
-  Both are written out with ``torch._foreach`` ops in that order.
+  (torch ``SGD``'s and ``Adam``'s ``weight_decay``); ``momentum`` is optax's
+  ``trace`` (no Nesterov), ``t = g + momentum * t``, update ``-lr * t``;
+- ``adam``/``adamw``/``lamb`` are optax's ``scale_by_adam``: the moments as
+  ``(1 - b) * g + b * m``, bias corrections ``1 - b ** (count + 1)`` in f32,
+  eps outside the square root; ``adamw`` adds ``wd * p`` to that update
+  (decoupled, scaled by the lr with it), ``lamb`` adds it and then scales
+  each tensor's update by the trust ratio ``|p| / |u|`` (1 where either is
+  0);
+- ``lion``: ``sign((1 - b1) g + b1 m)`` plus ``wd * p``, then
+  ``m = (1 - b2) g + b2 m``;
+- ``adafactor``: optax's factored second moments (``min_dim_size_to_factor``
+  128 on the two largest dims, ``decay_rate`` 0.8 as ``1 - (count + 1) **
+  -0.8``, eps 1e-30), block-RMS clipping at 1, the lr, the parameter's RMS
+  (at least 1e-3), then ``wd * p`` (not scaled by the lr);
+- ``mu_dtype`` keeps the first moment (momentum's trace) in that dtype
+  between steps: as in optax, ``b * m`` is taken in that dtype (``b``
+  rounded to it), the rest of the step in f32, and the new moment is
+  stored cast.
 
-``torch.optim.AdamW`` computes optax's ``adamw`` update: bias corrections
-with count + 1, eps outside the square root, the decay scaled by the
-scheduled lr and taken on the parameters before the update.
+Each is written out with ``torch._foreach`` ops (per tensor where a norm
+or a factored moment is per tensor), in optax's order of operations, in
+place on the moments and on the step's own temporaries: an adam step holds
+three parameter-sized temporaries at most (the update, its denominator and
+the decay).
 """
 
 from __future__ import annotations
@@ -30,6 +48,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 
 from pytorch_distributed_nn_tpu_torch.config import OptimConfig
@@ -115,32 +134,59 @@ def clip_by_global_norm_(grads: list[torch.Tensor],
     return norm
 
 
-_PORTED = ("sgd", "momentum", "adamw")
+_NAMES = ("sgd", "momentum", "adam", "adamw", "lamb", "lion", "adafactor")
+_MU_DTYPES = ("momentum", "adam", "adamw", "lion")
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def _f32_bias_correction(decay: float, count: int) -> float:
+    """optax's ``1 - decay ** count``, computed in float32."""
+    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
+
+
+def _factored_dims(shape) -> tuple[int, int] | None:
+    """optax's ``_factored_dims``: the second-largest and largest dims when
+    both are at least 128, else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < 128:
+        return None
+    return int(order[-2]), int(order[-1])
 
 
 class Optimizer:
     """optax's ``chain(clip_by_global_norm?, add_decayed_weights?,
-    sgd | momentum | adamw (schedule))`` over ``params``: :meth:`step`
-    applies the ``.grad`` of each parameter with the lr of update
-    ``count``, then counts one update."""
+    <optimizer> (schedule))`` over ``params``: :meth:`step` applies the
+    ``.grad`` of each parameter with the lr of update ``count``, then
+    counts one update."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  cfg: OptimConfig, total_steps: int) -> None:
-        if cfg.name not in _PORTED:
-            raise NotImplementedError(
-                f"optimizer {cfg.name!r} is not ported yet (ROADMAP.md: adam, "
-                f"adafactor, lamb and lion); have {_PORTED}")
+        if cfg.name not in _NAMES:
+            raise ValueError(f"unknown optimizer {cfg.name!r}; have {_NAMES}")
+        if cfg.mu_dtype and cfg.name not in _MU_DTYPES:
+            raise ValueError(
+                f"mu_dtype is not supported for optimizer {cfg.name!r} "
+                "(momentum/adam/adamw/lion only)")
+        if cfg.mu_dtype and cfg.mu_dtype not in _DTYPES:
+            raise ValueError(f"unknown mu_dtype {cfg.mu_dtype!r}")
+        self.cfg = cfg
         self.name = cfg.name
         self.params = [p for p in params if p.requires_grad]
         self.schedule = make_schedule(cfg, total_steps)
         self.grad_clip_norm = cfg.grad_clip_norm
         self.weight_decay = cfg.weight_decay
         self.momentum = cfg.momentum
-        self.trace: list[torch.Tensor] | None = None  # momentum's state
+        self.mu_dtype = _DTYPES.get(cfg.mu_dtype)
+        # the parameters weight decay applies to (optax's mask)
+        self.decayed = [p for p in self.params
+                        if p.dim() > 1 or not cfg.decay_mask_norms]
+        self.mu: list[torch.Tensor] | None = None  # first moment / trace
+        self.nu: list[torch.Tensor] | None = None  # adam's second moment
+        self.factored: list[tuple] | None = None  # adafactor's moments
         self.count = 0
-        self.inner = (torch.optim.AdamW(
-            self.params, lr=0.0, betas=(cfg.b1, cfg.b2), eps=cfg.eps,
-            weight_decay=cfg.weight_decay) if cfg.name == "adamw" else None)
 
     def step(self) -> None:
         grads = [p.grad for p in self.params]
@@ -149,26 +195,168 @@ class Optimizer:
         if self.grad_clip_norm > 0:
             clip_by_global_norm_(grads, self.grad_clip_norm)
         lr = self.schedule(self.count)
-        if self.inner is not None:
-            for group in self.inner.param_groups:
-                group["lr"] = lr
-            self.inner.step()
-        else:
-            self._sgd_step(grads, lr)
+        with torch.no_grad():
+            getattr(self, f"_{self.name}")(grads, lr)
         self.count += 1
 
-    @torch.no_grad()
-    def _sgd_step(self, grads: list[torch.Tensor], lr: float) -> None:
-        if self.weight_decay > 0:  # add_decayed_weights: g + wd * p
-            grads = torch._foreach_add(
-                grads, torch._foreach_mul(self.params, self.weight_decay))
-        if self.name == "momentum":
-            if self.trace is None:
-                self.trace = [torch.zeros_like(p) for p in self.params]
-            torch._foreach_mul_(self.trace, self.momentum)
-            torch._foreach_add_(self.trace, grads)
-            grads = self.trace
-        torch._foreach_add_(self.params, torch._foreach_mul(grads, -lr))
+    def _zeros(self, dtype=None) -> list[torch.Tensor]:
+        return [torch.zeros_like(p, dtype=dtype or p.dtype)
+                for p in self.params]
+
+    def _decay(self, updates: list[torch.Tensor], *,
+               own: bool = False) -> list[torch.Tensor]:
+        """add_decayed_weights: ``u + wd * p`` on the decayed parameters,
+        in place when ``updates`` are the step's own temporaries (``own``),
+        else in a new list (the tensors of the others passed through)."""
+        keep = {id(p) for p in self.decayed}
+        at = [i for i, p in enumerate(self.params) if id(p) in keep]
+        if self.weight_decay <= 0 or not at:
+            return updates
+        decay = torch._foreach_mul([self.params[i] for i in at],
+                                   self.weight_decay)
+        picked = [updates[i] for i in at]
+        if own:
+            torch._foreach_add_(picked, decay)
+            return updates
+        out = list(updates)
+        for i, u in zip(at, torch._foreach_add(picked, decay)):
+            out[i] = u
+        return out
+
+    def _apply(self, updates: list[torch.Tensor], scale: float, *,
+               own: bool = False) -> None:
+        """``p += scale * u``; ``own`` as in :meth:`_decay`."""
+        if own:
+            torch._foreach_mul_(updates, scale)
+        else:
+            updates = torch._foreach_mul(updates, scale)
+        torch._foreach_add_(self.params, updates)
+
+    def _sgd(self, grads, lr: float) -> None:
+        self._apply(self._decay(grads), -lr)
+
+    def _momentum(self, grads, lr: float) -> None:
+        grads = self._decay(grads)
+        if self.mu is None:
+            self.mu = self._zeros(self.mu_dtype)
+        m = self._mu_scalar(self.momentum)
+        if self.mu_dtype is None:
+            torch._foreach_mul_(self.mu, m)
+            torch._foreach_add_(self.mu, grads)
+            trace = self.mu
+        else:  # the update is the f32 trace, the stored moment its cast
+            trace = torch._foreach_add(grads, torch._foreach_mul(self.mu, m))
+            self._store_mu(trace)
+        self._apply(trace, -lr)
+
+    def _mu_scalar(self, x: float) -> float:
+        """A decay that multiplies the stored first moment: JAX takes a
+        Python float times a bf16 array in bf16, the float rounded to it
+        (0.9 -> 0.8984375)."""
+        if self.mu_dtype is None:
+            return x
+        return float(torch.tensor(x, dtype=self.mu_dtype))
+
+    def _store_mu(self, mu: list[torch.Tensor]) -> None:
+        if self.mu_dtype is None:
+            self.mu = mu
+        else:
+            self.mu = [m.to(self.mu_dtype) for m in mu]
+
+    def _adam_direction(self, grads) -> list[torch.Tensor]:
+        """scale_by_adam: mu_hat / (sqrt(nu_hat) + eps)."""
+        b1, b2, eps = self.cfg.b1, self.cfg.b2, self.cfg.eps
+        if self.mu is None:
+            self.mu = self._zeros(self.mu_dtype)
+            self.nu = self._zeros()
+        step = torch._foreach_mul(grads, 1.0 - b1)
+        if self.mu_dtype is None:
+            torch._foreach_mul_(self.mu, b1)
+            torch._foreach_add_(self.mu, step)
+            mu = self.mu
+        else:
+            mu = torch._foreach_add(step, torch._foreach_mul(
+                self.mu, self._mu_scalar(b1)))
+        step = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(step, 1.0 - b2)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_add_(self.nu, step)
+        del step
+        n = self.count + 1
+        direction = torch._foreach_div(mu, _f32_bias_correction(b1, n))
+        denom = torch._foreach_div(self.nu, _f32_bias_correction(b2, n))
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        torch._foreach_div_(direction, denom)
+        self._store_mu(mu)
+        return direction
+
+    def _adam(self, grads, lr: float) -> None:
+        self._apply(self._adam_direction(self._decay(grads)), -lr, own=True)
+
+    def _adamw(self, grads, lr: float) -> None:
+        self._apply(self._decay(self._adam_direction(grads), own=True), -lr,
+                    own=True)
+
+    def _lamb(self, grads, lr: float) -> None:
+        updates = self._decay(self._adam_direction(grads), own=True)
+        for u, p in zip(updates, self.params):
+            pn = torch.linalg.vector_norm(p)
+            un = torch.linalg.vector_norm(u)
+            u.mul_(torch.where((pn == 0) | (un == 0), torch.ones_like(pn),
+                               pn / un))
+        self._apply(updates, -lr, own=True)
+
+    def _lion(self, grads, lr: float) -> None:
+        b1, b2 = self.cfg.b1, self.cfg.b2
+        if self.mu is None:
+            self.mu = self._zeros(self.mu_dtype)
+        b1m, b2m = self._mu_scalar(b1), self._mu_scalar(b2)
+        direction = [torch.sign((1.0 - b1) * g + b1m * m)
+                     for g, m in zip(grads, self.mu)]
+        self._store_mu([(1.0 - b2) * g + b2m * m
+                        for g, m in zip(grads, self.mu)])
+        self._apply(self._decay(direction, own=True), -lr, own=True)
+
+    def _adafactor(self, grads, lr: float) -> None:
+        eps = 1e-30
+        t = np.float32(self.count + 1)
+        rate = float(np.float32(1.0) - t ** np.float32(-0.8))
+        if self.factored is None:
+            self.factored = []
+            for p in self.params:
+                dims = _factored_dims(p.shape)
+                if dims is None:
+                    self.factored.append((None, torch.zeros_like(p)))
+                else:
+                    d1, d0 = dims
+                    self.factored.append((dims, (
+                        p.new_zeros(np.delete(p.shape, d0).tolist()),
+                        p.new_zeros(np.delete(p.shape, d1).tolist()))))
+        updates = []
+        for i, (g, p) in enumerate(zip(grads, self.params)):
+            dims, state = self.factored[i]
+            g2 = g * g + eps
+            if dims is None:
+                v = rate * state + (1.0 - rate) * g2
+                self.factored[i] = (None, v)
+                u = g * v ** -0.5
+            else:
+                d1, d0 = dims
+                v_row = rate * state[0] + (1.0 - rate) * g2.mean(d0)
+                v_col = rate * state[1] + (1.0 - rate) * g2.mean(d1)
+                self.factored[i] = (dims, (v_row, v_col))
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_col_mean = v_row.mean(reduced_d1, keepdim=True)
+                row_factor = (v_row / row_col_mean) ** -0.5
+                col_factor = v_col ** -0.5
+                u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+            # clip_by_block_rms(1.0), the lr, scale_by_param_block_rms
+            u = u / torch.clamp(u.square().mean().sqrt(), min=1.0)
+            u = u * lr
+            rms = p.square().mean().sqrt()
+            updates.append(u * torch.clamp(rms, min=1e-3))
+        self._apply(self._decay(updates, own=True), -1.0, own=True)
 
     def zero_grad(self) -> None:
         for p in self.params:

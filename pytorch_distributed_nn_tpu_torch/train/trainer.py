@@ -39,6 +39,7 @@ from pytorch_distributed_nn_tpu_torch.train.losses import (
     accuracy,
     chunked_lm_eval,
     get_loss_fn,
+    valid_mask,
 )
 from pytorch_distributed_nn_tpu_torch.train.optim import make_optimizer
 from pytorch_distributed_nn_tpu_torch.train.state import (
@@ -180,7 +181,10 @@ class Trainer:
         """Forward-only pass over the held-out stream (steps from
         ``EVAL_STEP_OFFSET`` on), BatchNorm on its running statistics;
         returns and records the mean loss and accuracy over every rank's
-        rows (and sequence shards: the mean of equal shards' means).
+        rows (and sequence shards: the mean of equal shards' means); for
+        the masked LM, over the valid labels of every rank's rows, the
+        accuracy masked (labels < 0 count neither as hits nor in the
+        denominator).
         ``step`` is 0-based as in ``StepRecord`` (-1 = before any
         training)."""
         n = self.cfg.eval_batches if num_batches is None else num_batches
@@ -193,8 +197,17 @@ class Trainer:
                 if i not in self._eval_batches:
                     self._eval_batches[i] = self.loader.batch_at(
                         EVAL_STEP_OFFSET + i)
-                loss, acc = self._eval_step(*self._eval_batches[i])
-                if cc.world_size() > 1:
+                x, y = self._eval_batches[i]
+                loss, acc = self._eval_step(x, y)
+                if cc.world_size() > 1 and getattr(self.loss_fn,
+                                                   "token_weighted", False):
+                    # the masked LM: each rank's means weighted by its
+                    # count of valid labels (the JAX eval's global means)
+                    c = valid_mask(y).sum().float()
+                    sums = cc.all_reduce_sum(
+                        torch.stack([loss * c, acc * c, c]))
+                    loss, acc = sums[:2] / sums[2].clamp(min=1)
+                elif cc.world_size() > 1:
                     both = cc.all_reduce_mean(torch.stack([loss, acc]))
                     loss, acc = both[0], both[1]
                 losses.append(loss.item())

@@ -1,8 +1,12 @@
-"""Analytic FLOP counts, for MFU reports on the card: the JAX package's
-``utils/flops.py`` closed form for the transformer LM, and ResNet's from
-its geometry (the JAX package asks XLA's cost analysis for that one)."""
+"""Analytic FLOP counts, for MFU reports on the card (MFU = model FLOPs /
+step time / 989 TFLOP/s, the H100 SXM's dense bf16 rate): the JAX
+package's ``utils/flops.py`` closed form for the transformer families
+(Llama, the transformer LM, BERT, ViT), and ResNet's from its geometry
+(the JAX package asks XLA's cost analysis for that one)."""
 
 from __future__ import annotations
+
+import torch
 
 
 def lm_train_flops_per_token(n_params: int, n_layers: int, seq_len: int,
@@ -15,6 +19,27 @@ def lm_train_flops_per_token(n_params: int, n_layers: int, seq_len: int,
     work, the numerator of MFU."""
     attn = 12.0 * n_layers * seq_len * d_model
     return 6.0 * n_params + (attn / 2 if causal else attn)
+
+
+def matmul_param_count(model: torch.nn.Module) -> int:
+    """N of :func:`lm_train_flops_per_token`: the parameters that take part
+    in a matmul, every ``kernel`` (dense, attention projections, heads,
+    ViT's patch convolution, which is a matmul per patch). Embedding tables
+    (lookups), biases and norm scales are not counted. BERT-base: 108.97M
+    (109.12M with its biases and LayerNorm parameters)."""
+    return sum(p.numel() for n, p in model.named_parameters()
+               if n.rsplit(".", 1)[-1] == "kernel")
+
+
+def transformer_train_flops_per_token(model: torch.nn.Module, seq_len: int,
+                                      *, causal: bool) -> float:
+    """6N + 12 L T d (bidirectional: BERT, ViT) or 6N + 6 L T d (causal:
+    the transformer LM, Llama) for a model with ``num_layers`` and
+    ``d_model``. BERT-base at T = 128: 6 x 108.96M + 12 x 12 x 128 x 768
+    = 0.668 GFLOP a token."""
+    return lm_train_flops_per_token(matmul_param_count(model),
+                                    model.num_layers, seq_len, model.d_model,
+                                    causal=causal)
 
 
 def lm_tokens_per_card(batch_size: int, seq_len: int, data_degree: int,

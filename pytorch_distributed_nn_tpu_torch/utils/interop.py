@@ -12,8 +12,12 @@ and the int8 layouts alike.
 for the MLP, LeNet and ResNet, whose flax variables come in two
 collections: ``params`` and ``batch_stats`` (the BatchNorm running
 ``mean`` and ``var``, buffers here). Flax convolution kernels are HWIO and
-the port's are OIHW: they are transposed here, once. Nothing here imports
-JAX.
+the port's are OIHW: they are transposed here, once.
+
+:func:`params_from_jax` and :func:`params_to_jax` carry the single-
+collection models (BERT, the transformer LM, ViT, and the float Llama):
+flatten or nest at the dots, conv kernels (ViT's ``patch_embed``) HWIO <->
+OIHW. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -101,3 +105,19 @@ def vision_params_to_jax(state_dict: Mapping[str, torch.Tensor]
             params[key] = (t.permute(2, 3, 1, 0) if _is_conv_kernel(key, t)
                            else t)
     return _nest(params), _nest(stats)
+
+
+def params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A flax ``params`` tree (BERT, the transformer LM, ViT) as this
+    package's ``state_dict``: dotted paths, conv kernels HWIO -> OIHW."""
+    return vision_params_from_jax(params)
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """The inverse of :func:`params_from_jax`: the nested flax ``params``
+    tree, numpy leaves."""
+    params, stats = vision_params_to_jax(state_dict)
+    if stats:
+        raise ValueError(f"{sorted(stats)} are BatchNorm statistics; use "
+                         "vision_params_to_jax")
+    return params

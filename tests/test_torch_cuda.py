@@ -572,3 +572,107 @@ def test_ring_attention_on_the_card_matches_flash(cuda):
     assert outs["ring"][4] == (1, 0, 1, 1)
     for a, b in zip(outs["ring"][:4], outs["flash"][:4]):
         assert _rel(a, b) <= FLASH_TOL
+
+
+# --------------------------------------------------------------------------
+# config 4's transformer LM on the flash kernels at head_dim 64, and the
+# overlapped bucket reduce on NCCL at world 1
+# --------------------------------------------------------------------------
+def _tiny_lm_trainer(cuda, impl):
+    import json
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    extra = dict(num_layers=2, d_model=128, num_heads=2, mlp_dim=256,
+                 vocab_size=512, max_len=256, attn_impl=impl)
+    cfg = get_config("transformer_lm_pp", **{
+        "model.extra": json.dumps(extra), "data.vocab_size": "512",
+        "data.seq_len": "192", "data.batch_size": "4", "log_every": "1",
+        "mesh.pipe": "1", "parallel.strategy": "dp"})
+    return Trainer(cfg, device=cuda)
+
+
+def test_tiny_transformer_lm_step_on_flash_at_head_dim_64(cuda):
+    """Loss and every gradient with the flash kernels (D = 64) against the
+    plain attention from the same seeded weights (limits as the Llama
+    step's above; the key biases, whose exact gradient is zero, to the key
+    kernel's gradient); two steps launch 2 forwards a layer (remat), one
+    dq and one dk/dv."""
+    from pytorch_distributed_nn_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_nn_tpu_torch.parallel import dp
+
+    runs = {}
+    for impl in ("flash", "xla"):
+        t = _tiny_lm_trainer(cuda, impl)
+        assert t.model.head_dim == 64
+        x, y = t.loader.batch_at(0)
+        loss = dp._loss_and_grads(t.state, x, y, t.loss_fn).item()
+        runs[impl] = (loss, {n: p.grad.clone()
+                             for n, p in t.model.named_parameters()}, t)
+        t.state.optimizer.zero_grad()
+    (loss_f, grads_f, flash), (loss_x, grads_x, _) = runs["flash"], \
+        runs["xla"]
+    assert abs(loss_f - loss_x) <= 1e-3 * abs(loss_x)
+    for name, gx in grads_x.items():
+        if name.endswith("attn.key.bias"):
+            # exactly zero (softmax is shift-invariant): rounding noise in
+            # both runs, held to the key kernel's gradient
+            kernel = grads_x[name[:-4] + "kernel"].abs().max()
+            for g in (grads_f[name], gx):
+                assert (g.abs().max() / kernel).item() <= TRAIN_GRAD_TOL
+            continue
+        err = (grads_f[name] - gx).abs().max() / gx.abs().max()
+        assert err.item() <= TRAIN_GRAD_TOL, name
+    n = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+         fa.flash_bwd_dkv.launches)
+    flash.train(steps=2)
+    got = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+           fa.flash_bwd_dkv.launches)
+    assert tuple(a - b for a, b in zip(got, n)) == (8, 4, 4)
+    assert all(np.isfinite(flash.losses()))
+
+
+@pytest.mark.parametrize("wire", ["", "int8"])
+def test_overlap_on_nccl_world_one_is_bitwise(cuda, wire):
+    """Tiny bert_base_buckets on dp_explicit with 2 KB buckets, two steps
+    with and without overlap from the same seeded weights: parameters
+    equal bit for bit; under int8 one quantize launch a f32 bucket a
+    step, issued from the backward's hooks, the buckets' chains on the
+    reducer's side stream."""
+    import json
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.ops import quantize as tq
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    extra = dict(num_layers=2, d_model=64, num_heads=4, mlp_dim=128,
+                 vocab_size=512, max_len=64)
+    out = {}
+    for overlap in (False, True):
+        cfg = get_config("bert_base_buckets", **{
+            "model.extra": json.dumps(extra), "data.vocab_size": "512",
+            "data.seq_len": "64", "data.batch_size": "8", "log_every": "1",
+            "parallel.bucket_mb": "0.01", "parallel.overlap": str(overlap),
+            "parallel.quantized_allreduce": wire})
+        t = Trainer(cfg, device=cuda)
+        assert t.process.backend == "nccl" and t.process.world_size == 1
+        before = tq.quantize_int8.launches
+        t.train(steps=2)
+        torch.cuda.synchronize()
+        out[overlap] = ({k: v.clone() for k, v in
+                         t.model.state_dict().items()},
+                        tq.quantize_int8.launches - before)
+        if overlap:
+            reducer = t.step_fn.reducer(t.state)
+            assert reducer.stream is not None
+            assert reducer.stream != torch.cuda.current_stream()
+            last = reducer.last
+            assert last["buckets"] > 2
+            assert last["bytes_before_last_hook"] > 0
+    for k, v in out[False][0].items():
+        assert torch.equal(out[True][0][k], v), k
+    if wire == "int8":
+        assert out[True][1] == out[False][1] == 2 * last["buckets"]
+    else:
+        assert out[True][1] == out[False][1] == 0

@@ -180,7 +180,7 @@ def test_config_overrides_match_jax():
         assert got.seed == ref.seed == 4
         assert vars(got.model) == vars(ref.model)
     with pytest.raises(AttributeError, match="unknown config field"):
-        tconfig.get_config("llama3_8b_zero", **{"parallel.overlap": "1"})
+        tconfig.get_config("llama3_8b_zero", **{"parallel.zero_stage": "1"})
     with pytest.raises(ValueError):
         tconfig.parse_overrides(["positional"])
 
