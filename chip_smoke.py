@@ -137,12 +137,40 @@ Config 4's transformer LM and config 3's BERT (phase 17 runs after phase
               count reset just before and read just after (one launch a
               f32 bucket a step).
 
+The trainer features (run after phase 19):
+
+20. ckpt     -- llama3_longcontext as it is (T 32768): 4 straight steps
+              against 2 steps with an asynchronous save every 2 steps, a
+              fresh Trainer that resumes and 2 more steps (losses and
+              state within CKPT_TOL, bit for bit expected); the
+              checkpoint's bytes, the save's added seconds on its step, the
+              drain and restore seconds; the newest step torn (the restore
+              falls back to step 2); the train entry point in a subprocess
+              with TPUNN_PREEMPT=1 sent SIGTERM: exit 83 and a checkpoint
+              that resumes.
+21. accum    -- transformer_lm_pp (--mesh.pipe 1 --parallel.strategy dp)
+              with grad_accum 4 and label_smoothing 0.1: one step's loss and
+              gradients against accum 1 on the same batch, then 3 timed
+              steps (flash launches counted), step time and peak memory;
+              resnet50_dp (dp, overlap) with bn_impl pallas, batch 256,
+              grad_accum 2: bn_stats launched on each microbatch.
+22. multistep -- mlp_mnist as it is, multistep_k 20 with fresh batches and
+              with multistep_pool 4, and ResNet-50 at batch 256 with k 4 and
+              pool 4: the graph's losses bit for bit the eager steps'
+              (ResNet-50 under cuDNN's deterministic algorithms), then
+              samples/s both ways (the pool: the device alone; ResNet-50
+              on a graph captured anew under the default cuDNN setting),
+              and bn_stats counted by name in three profiled replays.
+23. offload  -- llama3_longcontext_96k, 2 steps with remat_offload against
+              2 without: losses bit for bit, peak memory and step time.
+
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit from nvidia-smi, and the result JSON line.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -1986,10 +2014,38 @@ def _family(name):
     return "other"
 
 
-def profile_step(trainer):
-    """Device time of one training step by torch.profiler, by kernel family
-    (:func:`_family`) and the top kernels; None where the profiler records
-    no device activity. Measurement only."""
+# spin kernels (``torch.cuda._sleep``, which nothing else launches) set
+# before and after the profiled work: torch.profiler can lose the first
+# records of a session, and then loses these rather than the work's
+MARGIN_KERNELS = 32
+
+
+def _margin():
+    import torch
+
+    for _ in range(MARGIN_KERNELS):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def _without_margin(kern):
+    """The device events ``kern`` less the spin kernels of :func:`_margin`,
+    and how many of those the trace holds before and after the work."""
+    spins = [e.time_range.start for e in kern if "spin_kernel" in e.name]
+    kern = [e for e in kern if "spin_kernel" not in e.name]
+    first = min((e.time_range.start for e in kern), default=0)
+    return kern, dict(before=sum(1 for t in spins if t < first),
+                      after=sum(1 for t in spins if t >= first))
+
+
+def profile_step(trainer, steps=1, count=None):
+    """Device time of ``steps`` training steps (one dispatch of a multistep
+    trainer: ``steps`` = its k) by torch.profiler, by kernel family
+    (:func:`_family`) and the top kernels; with ``count`` ({label: regex}),
+    the number of device kernels whose name matches each regex. The steps
+    are set between :func:`_margin`'s spin kernels, which are left out of
+    every figure but their own count. None where the profiler records no
+    device activity. Measurement only."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2002,14 +2058,17 @@ def profile_step(trainer):
         log(f"[profile] profiler did not start: {e}")
         return None
     try:
-        trainer.train(steps=1)
+        _margin()
+        trainer.train(steps=steps)
         torch.cuda.synchronize()
+        _margin()
     finally:
         stopped = _profiler_stop(prof)
     if not stopped:
         return None
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern, margin = _without_margin(
+        [e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA])
     if not kern:
         return None
     fams, names = {}, {}
@@ -2020,10 +2079,15 @@ def profile_step(trainer):
         n, t = names.get(e.name[:96], (0, 0.0))
         names[e.name[:96]] = (n + 1, t + ms)
     top = sorted(names.items(), key=lambda kv: -kv[1][1])[:15]
-    return dict(kernels=len(kern), device_ms=sum(fams.values()),
-                by_family_ms=fams,
-                top_kernels=[dict(name=k, calls=n, ms=t)
-                             for k, (n, t) in top])
+    out = dict(kernels=len(kern), device_ms=sum(fams.values()),
+               margin_kernels_seen=margin, by_family_ms=fams,
+               top_kernels=[dict(name=k, calls=n, ms=t)
+                            for k, (n, t) in top])
+    if count:
+        out["counted"] = {label: sum(1 for e in kern
+                                     if re.search(rx, e.name))
+                          for label, rx in count.items()}
+    return out
 
 
 def lm_trainer(**overrides):
@@ -2362,7 +2426,8 @@ def run_forwards(model, tokens, steps):
 def profile_decode_step(model, tokens):
     """Device time of one B=8 decode step by torch.profiler: the sum of the
     CUDA kernels' own durations, and the W8A16 kernels' share and count
-    (one a call: 129 a forward). None
+    (one a call: 129 a forward), the step set between :func:`_margin`'s
+    spin kernels. None
     where the profiler cannot start or records no device activity. Only
     the profiler's own errors are caught: the step itself runs outside any
     ``except``. Measurement only."""
@@ -2388,22 +2453,26 @@ def profile_decode_step(model, tokens):
             log(f"[forward] profiler did not start: {e}")
             return None
         try:
+            _margin()
             model(tokens[:, P:], cache=cache, cache_positions=pos,
                   last_only=True)
             torch.cuda.synchronize()
+            _margin()
         finally:
             stopped = _profiler_stop(prof)
     if not stopped:
         return None
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern, margin = _without_margin(
+        [e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA])
     if not kern:
         return None
     dev_us = sum(e.time_range.elapsed_us() for e in kern)
     w8 = [e for e in kern if "w8a16" in e.name]
     w8_us = sum(e.time_range.elapsed_us() for e in w8)
     return dict(kernels=len(kern), device_ms=dev_us / 1e3,
-                w8a16_ms=w8_us / 1e3, w8a16_kernels=len(w8))
+                w8a16_ms=w8_us / 1e3, w8a16_kernels=len(w8),
+                margin_kernels_seen=margin)
 
 
 def kernel_device_ms(fn, reps, name):
@@ -2632,7 +2701,533 @@ def phase_serve(model):
     return summary, launches
 
 
+# ---------------------------------------------------------------------------
+# rule 3: the trainer features (checkpoints, accumulation, label smoothing,
+# multistep as CUDA graphs, remat offload)
+# ---------------------------------------------------------------------------
+CKPT_TOL = 1e-6  # resume against the straight run: max|d| / max|ref|
+PREEMPT_TIMEOUT = 300  # seconds for the SIGTERM'd subprocess
+
+
+def state_copy(trainer):
+    import torch
+
+    return {k: v.detach().clone() for k, v in
+            trainer.state.state_dict().items()}
+
+
+def state_diff(got, want):
+    """max|got - want| / max|want| over the float tensors of two state
+    dicts, and whether every tensor is bit for bit equal."""
+    import torch
+
+    worst, bitwise = 0.0, True
+    for k, w in want.items():
+        g = got[k]
+        if not torch.equal(g.cpu(), w.cpu()):
+            bitwise = False
+        if w.is_floating_point() and w.numel():
+            scale = max(w.float().abs().max().item(), 1e-30)
+            worst = max(worst, (g.float() - w.float()).abs().max().item()
+                        / scale)
+    return worst, bitwise
+
+
+def phase_ckpt():
+    """llama3_longcontext as it is (T 32768, flash at D 128): 4 straight
+    steps against 2 steps with an asynchronous save every 2 steps, a fresh
+    Trainer that resumes, and 2 more steps; then the newest step torn (the
+    restore falls back to the one before), then the train entry point in
+    a subprocess with TPUNN_PREEMPT=1 sent SIGTERM: exit 83 and a
+    checkpoint that resumes."""
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.runtime import failure
+    from pytorch_distributed_nn_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        straight = longcontext()
+        straight.train(steps=2)
+        at2 = state_copy(straight)
+        straight.train(steps=2)
+        want_losses, want = straight.losses(), state_copy(straight)
+        straight_s = [r.seconds for r in straight.history]
+        del straight
+        torch.cuda.empty_cache()
+
+        ckdir = os.path.join(root, "run")
+        ov = {"checkpoint_dir": ckdir, "checkpoint_every": "2"}
+        first = longcontext(**ov)
+        L = first.model.num_layers
+        reset_flash_counts()
+        first.train(steps=2)  # queues the save of step 2
+        t0 = time.perf_counter()
+        first.close()  # drains the writer
+        drain_s = time.perf_counter() - t0
+        save1 = dict(first.ckpt.last_save)
+        first_s = [r.seconds for r in first.history]
+        first_losses = first.losses()
+        del first
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed = longcontext(**ov)  # restores step 2 in its constructor
+        torch.cuda.synchronize()
+        construct_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed.ckpt.restore(resumed.state)  # once more, timed alone
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if resumed.data_step != 2 or resumed.state.step != 2:
+            raise AssertionError(f"resumed at {resumed.data_step}")
+        resumed.train(steps=2)  # queues the save of step 4
+        resumed_s = [r.seconds for r in resumed.history]
+        t0 = time.perf_counter()
+        resumed.ckpt.wait()
+        drain2_s = time.perf_counter() - t0
+        launches = flash_counts()
+        want_l = {"flash_fwd": 2 * L * 4, "flash_bwd_dq": L * 4,
+                  "flash_bwd_dkv": L * 4}
+        if launches != want_l:
+            raise AssertionError(f"flash launches {launches} in 2 + 2 "
+                                 f"steps, expected {want_l}")
+        got_losses = first_losses + resumed.losses()
+        got = state_copy(resumed)
+        resumed.close()
+        del resumed
+        torch.cuda.empty_cache()
+        loss_d = max(abs(a - b) / abs(b) for a, b in zip(got_losses,
+                                                          want_losses))
+        param_d, bitwise = state_diff(got, want)
+        log(f"[ckpt] losses straight {want_losses} resumed {got_losses}; "
+            f"max rel {loss_d:.3e}; state max|d|/max|ref| {param_d:.3e}, "
+            f"bitwise {bitwise}")
+        if not (loss_d <= CKPT_TOL and param_d <= CKPT_TOL):
+            raise AssertionError(f"resume disagrees with the straight run "
+                                 f"(limit {CKPT_TOL})")
+        # the newest step torn: the restore falls back to step 2
+        mgr = CheckpointManager(ckdir)
+        if mgr.all_steps() != [2, 4]:
+            raise AssertionError(f"steps on disk {mgr.all_steps()}")
+        torn = os.path.join(ckdir, "4", "optim.pt")
+        with open(torn, "r+b") as f:
+            f.truncate(os.path.getsize(torn) // 2)
+        fallback = longcontext(**ov)
+        fb_step = fallback.data_step
+        fb_d, fb_bitwise = state_diff(state_copy(fallback), at2)
+        fallback.close()
+        del fallback
+        torch.cuda.empty_cache()
+        if fb_step != 2 or fb_d > CKPT_TOL:
+            raise AssertionError(f"torn step 4: restored {fb_step}, "
+                                 f"max|d| {fb_d:.3e}")
+        # SIGTERM to the train entry point with TPUNN_PREEMPT=1
+        pdir = os.path.join(root, "preempt")
+        cmd = [sys.executable, "-m", "pytorch_distributed_nn_tpu_torch.train",
+               "--preset", "llama3_longcontext", "--steps", "1000",
+               "--log_every", "1", "--checkpoint_dir", pdir]
+        env = dict(os.environ, TPUNN_PREEMPT="1",
+                   PYTHONPATH=HERE + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=HERE, env=env,
+                                stdout=subprocess.DEVNULL,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            for line in proc.stderr:
+                if "step 1 loss" in line:
+                    break
+                if time.perf_counter() - t0 > PREEMPT_TIMEOUT:
+                    raise AssertionError("the subprocess logged no step 1")
+            t_term = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            _, err = proc.communicate(timeout=PREEMPT_TIMEOUT)
+            exit_s = time.perf_counter() - t_term
+        finally:
+            proc.kill()
+            proc.wait()
+        if proc.returncode != failure.GRACEFUL_EXIT_CODE:
+            raise AssertionError(f"SIGTERM: exit {proc.returncode}, want "
+                                 f"{failure.GRACEFUL_EXIT_CODE}: "
+                                 f"{err[-2000:]}")
+        saved = CheckpointManager(pdir).latest_step()
+        after = longcontext(checkpoint_dir=pdir)
+        if saved is None or after.data_step != saved:
+            raise AssertionError(f"preempted run saved {saved}, resumed at "
+                                 f"{after.data_step}")
+        after.train(steps=1)
+        if not math.isfinite(after.losses()[-1]):
+            raise AssertionError("the resumed run's loss")
+        after.close()
+        del after
+        torch.cuda.empty_cache()
+        result = dict(
+            card=card_line(), losses=got_losses, straight=want_losses,
+            loss_max_rel_diff=loss_d, state_max_rel_diff=param_d,
+            bitwise=bitwise, tolerance=CKPT_TOL,
+            checkpoint_bytes=save1["bytes"], write_s=save1["seconds"],
+            drain_s=drain_s, drain_step4_s=drain2_s,
+            restore_s=restore_s, resume_construct_s=construct_s,
+            step_s_with_save=first_s, step_s_straight=straight_s[:2],
+            save_step_added_s=first_s[1] - straight_s[1],
+            # the second save in the process reuses freed pinned blocks
+            step_s_with_second_save=resumed_s,
+            step_s_straight_3_4=straight_s[2:],
+            second_save_step_added_s=resumed_s[1] - straight_s[3],
+            launches=launches, fallback_step=fb_step,
+            fallback_bitwise=fb_bitwise, preempt_exit=proc.returncode,
+            preempt_saved_step=saved, preempt_exit_s=exit_s)
+        log(f"[ckpt] {json.dumps(result)}")
+        return result
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+ACCUM_GRAD_TOL = 5e-2  # max|err| / max|ref| a gradient, bf16 compute
+ACCUM_LOSS_TOL = 1e-3  # relative
+# the accum-1 step of this model on the same card (PERF.md §6)
+LM_ACCUM1_REF = dict(step_s=0.5044, peak_gb=37.92)
+
+
+def phase_accum():
+    """transformer_lm_pp (--mesh.pipe 1 --parallel.strategy dp) with
+    grad_accum 4 and label_smoothing 0.1: B 64 as 4 x 16, T 1024, the
+    dense loss, flash at D 64. One step's loss and gradients against
+    accum 1 on the same batch; 1 warm-up and 3 timed steps, flash counts
+    reset before and read after. Then resnet50_dp as the preset sets it
+    (dp, overlap) with bn_impl=pallas, batch 256, grad_accum 2: bn_stats
+    on each microbatch."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.parallel import dp, zero
+
+    ov = {"parallel.grad_accum": "4", "label_smoothing": "0.1"}
+    gc.collect()  # earlier phases' reference cycles (the overlap hooks)
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    trainer = lm_trainer(**ov)
+    model, L = trainer.model, trainer.model.num_layers
+    x, y = trainer.loader.batch_at(0)
+    out = {}
+    for accum in (4, 1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if accum == 1:
+            loss = dp._loss_and_grads(trainer.state, x, y, trainer.loss_fn)
+        else:
+            loss = zero._accumulate(trainer.state, x, y, trainer.loss_fn,
+                                    accum, None, 1)
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        trainer.state.optimizer.zero_grad()
+        out[accum] = (loss.item(), grads,
+                      torch.cuda.max_memory_allocated() / 1e9)
+        del grads
+    loss_err = abs(out[4][0] - out[1][0]) / abs(out[1][0])
+    grad_err = lm_grad_errors(out[4][1], out[1][1])
+    worst_g = max(grad_err, key=grad_err.get)
+    check = dict(loss_accum4=out[4][0], loss_accum1=out[1][0],
+                 loss_rel_err=loss_err, worst_grad=worst_g,
+                 worst_grad_rel_err=grad_err[worst_g],
+                 peak_gb_one_grad_accum4=out[4][2],
+                 peak_gb_one_grad_accum1=out[1][2])
+    log(f"[accum] transformer_lm_pp one step, accum 4 vs 1: "
+        f"{json.dumps(check)}")
+    if not (loss_err <= ACCUM_LOSS_TOL
+            and grad_err[worst_g] <= ACCUM_GRAD_TOL):
+        raise AssertionError(f"accum 4 disagrees with accum 1 (limits "
+                             f"{ACCUM_LOSS_TOL}, {ACCUM_GRAD_TOL})")
+    del out
+    torch.cuda.empty_cache()
+    trainer.train(steps=1)  # warm-up
+    steps = 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()  # the path's count starts here
+    trainer.train(steps=steps)
+    lm_launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_fwd": 4 * 2 * L * steps, "flash_bwd_dq": 4 * L * steps,
+            "flash_bwd_dkv": 4 * L * steps}
+    if lm_launches != want:
+        raise AssertionError(f"flash launches {lm_launches}, want {want}")
+    losses = trainer.losses()[-steps:]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses {losses}")
+    step_s, _ = step_stats(trainer, steps)
+    prof = profile_step(trainer)  # one more step, profiled
+    if prof is not None:
+        prof["idle_share_vs_unprofiled_step"] = (
+            1 - prof["device_ms"] / (step_s * 1e3))
+    lm = dict(card=card_line(), check=check, losses=losses, profile=prof,
+              median_step_s=step_s, tokens_per_s=LM_B * LM_T / step_s,
+              peak_mem_gb=peak / 1e9, resident_before_gb=resident / 1e9,
+              accum1_reference=LM_ACCUM1_REF,
+              launches=lm_launches)
+    log(f"[accum] transformer_lm_pp accum 4: {json.dumps(lm)}")
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    rn = resnet_trainer(**{"data.batch_size": str(DP_BATCH),
+                           "log_every": "1", "parallel.grad_accum": "2",
+                           "model.extra": json.dumps({"bn_impl": "pallas"})})
+    if not (rn.cfg.parallel.strategy == "dp" and rn.cfg.parallel.overlap):
+        raise AssertionError("resnet50_dp's preset strategy")
+    rn.train(steps=1)  # warm-up: cuDNN picks its algorithms
+    steps = 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_dp_counts()
+    rn.train(steps=steps)
+    bn_launches = bn_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"sum_and_sumsq": 2 * RESNET_BN_PER_STEP * steps,
+            "sum_and_dot": 2 * RESNET_BN_PER_STEP * steps}
+    if bn_launches != want:
+        raise AssertionError(f"bn_stats launches {bn_launches}, want {want}")
+    losses = rn.losses()[-steps:]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses {losses}")
+    step_s, wait_s = step_stats(rn, steps)
+    resnet = dict(card=card_line(), losses=losses, median_step_s=step_s,
+                  images_per_s=DP_BATCH / step_s,
+                  loader_wait_s_per_step=wait_s, peak_mem_gb=peak / 1e9,
+                  launches=bn_launches)
+    log(f"[accum] resnet50_dp accum 2: {json.dumps(resnet)}")
+    del rn
+    torch.cuda.empty_cache()
+    return dict(transformer_lm_pp=lm, resnet50_dp=resnet), lm_launches, \
+        bn_launches
+
+
+def timed_s(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def eager_on_pool(trainer, steps, pool):
+    """``steps`` eager steps cycling the device-resident ``pool`` (the
+    multistep pool mode's batches, without a graph); the losses."""
+    xs, ys = pool
+    out = []
+    for i in range(steps):
+        trainer.state, m = trainer.step_fn(trainer.state, xs[i % len(xs)],
+                                           ys[i % len(ys)])
+        out.append(m["loss"])
+    return [v.item() for v in out]
+
+
+# the bn_stats kernels by name in a device trace, demangled or not:
+# bn_partial<T, kDot> (csrc/bn_stats.cu) is launched once by each wrapper
+# call
+BN_KERNELS = {
+    "sum_and_sumsq": r"bn_partial<[^<>]*,\s*false>|bn_partialI\w*?Lb0E",
+    "sum_and_dot": r"bn_partial<[^<>]*,\s*true>|bn_partialI\w*?Lb1E"}
+
+
+def graph_vs_eager(preset, k, pool, steps, timed_steps, profile=0,
+                   deterministic=False, **ov):
+    """The preset with ``multistep_k k`` (and the pool) against eager
+    steps on the same batches from the same seed: losses bit for bit over
+    ``steps`` (with ``deterministic``, under cuDNN's deterministic
+    algorithms); then ``timed_steps`` more of each, timed (synchronised),
+    under the caller's cuDNN setting (with ``deterministic``, on a graph
+    captured anew); then ``profile`` more replays, each under
+    torch.profiler, in which the bn_stats kernels are counted by name.
+    The profiler can lose kernel records (:data:`MARGIN_KERNELS`), never
+    adds any, and every replay runs the same graph: so the count taken is
+    each kernel's most over the profiled replays, and each replay's
+    counts are reported."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    def make(**extra):
+        cfg = get_config(preset, log_every="1", **ov, **extra)
+        return Trainer(cfg, device="cuda")
+
+    mov = {"multistep_k": str(k)}
+    if pool:
+        mov["multistep_pool"] = str(pool)
+
+    pools = {}  # each eager trainer's device-resident pool, made once
+
+    def run_eager(trainer, n):
+        if pool:
+            if id(trainer) not in pools:
+                pools[id(trainer)] = trainer.loader.stacked_batch_at(0, pool)
+            return eager_on_pool(trainer, n, pools[id(trainer)])
+        trainer.train(steps=n)
+        return trainer.losses()[-n:]
+
+    setting = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = setting or deterministic
+    try:
+        graph = make(**mov)
+        n0 = bn_counts()
+        graph.train(steps=steps)
+        n1 = bn_counts()
+        eager = make()
+        eager_losses = run_eager(eager, steps)
+        graph_losses = graph.losses()
+        if graph_losses != eager_losses:
+            raise AssertionError(f"{preset}: graph losses {graph_losses} "
+                                 f"vs eager {eager_losses}")
+        replays_checked = graph._multisteps[k].replays
+    finally:
+        torch.backends.cudnn.deterministic = setting
+    if deterministic:  # time the caller's setting: capture anew
+        del graph, eager
+        pools.clear()
+        torch.cuda.empty_cache()
+        graph, eager = make(**mov), make()
+        graph.train(steps=k)
+        run_eager(eager, k)
+    graph.cfg.log_every = eager.cfg.log_every = 0
+    t_graph = timed_s(lambda: graph.train(steps=timed_steps))
+    t_eager = timed_s(lambda: run_eager(eager, timed_steps))
+    profs = [p for p in (profile_step(graph, steps=k, count=BN_KERNELS)
+                         for _ in range(profile)) if p is not None]
+    prof = counted = None
+    if profs:
+        counted = {m: max(p["counted"][m] for p in profs) for m in BN_KERNELS}
+        prof = max(profs, key=lambda p: p["kernels"])
+        prof["idle_share_vs_unprofiled_replay"] = (
+            1 - prof["device_ms"] / (t_graph * k / timed_steps * 1e3))
+        prof["each_replay"] = [
+            dict(kernels=p["kernels"], counted=p["counted"],
+                 margin_kernels_seen=p["margin_kernels_seen"])
+            for p in profs]
+    out = dict(k=k, pool=pool, steps=steps, losses_bitwise=True,
+               losses_cudnn_deterministic=deterministic or setting,
+               timed_cudnn_deterministic=setting, graph_profile=prof,
+               replays_checked=replays_checked,
+               replays=graph._multisteps[k].replays,
+               timed_steps=timed_steps, graph_s=t_graph, eager_s=t_eager,
+               # wrapper calls while the first dispatch warmed up (1 step)
+               # and captured (k steps); a replay calls no wrapper
+               bn_stats_warmup_and_capture={m: n1[m] - n0[m] for m in n1},
+               bn_stats_in_profiled_replay=counted)
+    del graph, eager
+    return out
+
+
+def phase_multistep():
+    """mlp_mnist as it is (batch 128): multistep_k 20 fresh and with
+    multistep_pool 4, 40 steps (two replays) against 40 eager steps, bit
+    for bit, then 200 timed steps each way; resnet50_dp at batch 256 with
+    bn_impl=pallas, multistep_k 4 and multistep_pool 4: 8 steps against
+    eager, bit for bit under cuDNN's deterministic algorithms, then, on a
+    graph captured anew under the default setting, 12 timed steps each
+    way (the device's images/s apart from the host's loader) and three
+    profiled replays, whose traces must show 4 x 53 launches of each
+    bn_stats kernel."""
+    import torch
+
+    result = {}
+    for pool in (0, 4):
+        r = graph_vs_eager("mlp_mnist", 20, pool, 40, 200)
+        b = 128
+        r.update(card=card_line(), graph_samples_per_s=b * 200 / r["graph_s"],
+                 eager_samples_per_s=b * 200 / r["eager_s"])
+        result[f"mlp_mnist_pool{pool}"] = r
+        log(f"[multistep] mlp_mnist k 20 pool {pool}: {json.dumps(r)}")
+    torch.cuda.empty_cache()
+    reset_dp_counts()
+    r = graph_vs_eager("resnet50_dp", 4, 4, 8, 12, profile=3,
+                       deterministic=True, **{
+                           "data.batch_size": str(DP_BATCH),
+                           "model.extra": json.dumps({"bn_impl": "pallas"})})
+    r.update(card=card_line(),
+             graph_images_per_s=DP_BATCH * 12 / r["graph_s"],
+             eager_images_per_s=DP_BATCH * 12 / r["eager_s"])
+    log(f"[multistep] resnet50_dp k 4 pool 4: {json.dumps(r)}")
+    want = RESNET_BN_PER_STEP * 4
+    if r["bn_stats_in_profiled_replay"] != {"sum_and_sumsq": want,
+                                            "sum_and_dot": want}:
+        raise AssertionError("bn_stats kernels in the profiled replay "
+                             f"{r['bn_stats_in_profiled_replay']}, want "
+                             f"{want} of each")
+    if r["bn_stats_warmup_and_capture"] != {
+            "sum_and_sumsq": 5 * RESNET_BN_PER_STEP,
+            "sum_and_dot": 5 * RESNET_BN_PER_STEP}:
+        raise AssertionError("bn_stats wrapper calls in warm-up and capture "
+                             f"{r['bn_stats_warmup_and_capture']}")
+    result["resnet50_dp"] = r
+    torch.cuda.empty_cache()
+    return result
+
+
+# the 96k step without offload on the same card (PERF.md §6)
+OFFLOAD_REF = dict(step_s=3.39, peak_gb=11.30)
+
+
+def phase_offload():
+    """llama3_longcontext_96k (T 98304, flash at D 128), 2 steps with
+    model.remat_offload against the same 2 steps without: losses bit for
+    bit; peak memory and step time of each."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    for offload in (True, False):
+        # earlier phases' trainers hold reference cycles (the overlap
+        # hooks): collected here, so the peak is this run's
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        cfg = get_config("llama3_longcontext_96k", log_every="1",
+                         **{"model.remat_offload": str(offload)})
+        trainer = Trainer(cfg, device="cuda")
+        L = trainer.model.num_layers
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()
+        trainer.train(steps=2)
+        launches = flash_counts()
+        want = {"flash_fwd": 2 * L * 2, "flash_bwd_dq": L * 2,
+                "flash_bwd_dkv": L * 2}
+        if launches != want:
+            raise AssertionError(f"flash launches {launches}, want {want}")
+        out[offload] = dict(
+            losses=trainer.losses(),
+            step_s=[r.seconds for r in trainer.history],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            resident_before_gb=resident / 1e9,
+            launches=launches, offloaded=dict(trainer.model.offloaded),
+            layers=L)
+        del trainer
+        torch.cuda.empty_cache()
+    on, off = out[True], out[False]
+    if on["losses"] != off["losses"] or not all(
+            math.isfinite(v) for v in on["losses"]):
+        raise AssertionError(f"offload losses {on['losses']} vs "
+                             f"{off['losses']}")
+    if not (on["offloaded"]["pinned"]
+            and on["offloaded"]["tensors"] == on["layers"]):
+        raise AssertionError(f"offloaded {on['offloaded']}")
+    result = dict(card=card_line(), offload=on, no_offload=off,
+                  reference=OFFLOAD_REF)
+    log(f"[offload] {json.dumps(result)}")
+    return result, on["launches"]
+
+
 def main() -> int:
+    started = time.monotonic()
     import torch
 
     if not torch.cuda.is_available():
@@ -2680,6 +3275,10 @@ def main() -> int:
     dp_preset = phase_dp_preset()
     lm_d64, lm_launches = phase_lm_d64()
     bert, bert_q_launches = phase_bert()
+    ckpt = phase_ckpt()
+    accum, accum_flash, accum_bn = phase_accum()
+    multistep = phase_multistep()
+    offload, offload_flash = phase_offload()
 
     model = build_model(seed=0)
     forward = phase_forward(model)
@@ -2722,11 +3321,29 @@ def main() -> int:
                 launches=lm_launches[name], **flash64[name],
                 resources=resources.get(f"{name}_kernel<64>"),
                 per="one call at B 64, T 1024, H = Hkv = 12, D 64, causal "
-                    "(transformer_lm_pp); launches: its 4 timed steps")))
+                    "(transformer_lm_pp); launches: its 4 timed steps",
+                launches_accum=accum_flash[name],
+                accum="transformer_lm_pp with grad_accum 4 (4 x B 16), "
+                      "3 timed steps"),
+            launches_resume=ckpt["launches"][name],
+            launches_offload=offload_flash[name],
+            resume="llama3_longcontext, 2 steps + save + a resumed "
+                   "Trainer's 2 steps",
+            offload="llama3_longcontext_96k with remat_offload, 2 steps"))
     bn_step = bn["step"]
     kernels.append(dict(
         name="bn_stats", route="cuda", source=BN_SOURCE, replaces=BN_TPU,
         launches=sum(bn_launches.values()), launches_by_mode=bn_launches,
+        launches_accum=sum(accum_bn.values()),
+        accum="resnet50_dp (dp, overlap) at batch 256, grad_accum 2, 3 "
+              "timed steps: 2 x (53 + 53) a step",
+        launches_in_graph=sum(multistep["resnet50_dp"][
+            "bn_stats_in_profiled_replay"].values()),
+        in_graph="resnet50_dp at batch 256, multistep_k 4, pool 4: the "
+                 "bn_stats kernels (bn_partial) counted by name in the "
+                 "torch.profiler traces of three replays of the captured "
+                 "graph, each kernel's most (53 + 53 a step, 4 steps a "
+                 "replay)",
         max_abs_err=bn["max_abs_err"], ms=bn_step["ms"],
         plain_ms=bn_step["plain_ms"], bound_ms=bn_step["bound_ms"],
         bound_by=bn_step["bound_by"], library_ms=bn_step["library_ms"],
@@ -2773,10 +3390,14 @@ def main() -> int:
                         flash_lse_err=lse_err, bn_stats=bn,
                         quantize=quant, dp_check=dp_check,
                         dp_train=dp_train, dp_preset=dp_preset,
-                        flash64=flash64, lm_d64=lm_d64, bert=bert)))
+                        flash64=flash64, lm_d64=lm_d64, bert=bert,
+                        ckpt=ckpt, accum=accum, multistep=multistep,
+                        offload=offload)))
     from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
 
     bootstrap.shutdown()  # the NCCL group of the data-parallel phases
+    log(f"[total] chip_smoke.py wall time {time.monotonic() - started:.1f} "
+        "s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

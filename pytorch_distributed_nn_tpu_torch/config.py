@@ -4,7 +4,7 @@ the ported slices read.
 Typed dataclasses with dotted CLI overrides (``--optim.lr=0.1``,
 ``--model.extra '{"quantized": true}'``) and the named presets the port
 runs. A field the port does not read yet is not declared, so an override
-naming it (``--checkpoint_dir``, ``--multistep_k``, ``--parallel.zero_stage``)
+naming it (``--metrics_path``, ``--profile_dir``, ``--parallel.zero_stage``)
 fails as an unknown field instead of being ignored.
 """
 
@@ -60,7 +60,9 @@ class ModelConfig:
     dtype: str = "float32"  # param dtype
     compute_dtype: str = "bfloat16"
     remat: bool = False  # torch.utils.checkpoint on every block
-    remat_offload: bool = False  # not ported: raises when set
+    # keep the remat-saved block boundaries in pinned host memory instead
+    # of on the device (needs remat=True; Llama only)
+    remat_offload: bool = False
     extra: dict[str, Any] = field(default_factory=dict)
 
 
@@ -76,7 +78,9 @@ class ParallelConfig:
     # OverlapReducer); the result is bit for bit the one after the backward
     overlap: bool = True
     quantized_allreduce: str = ""  # "" | "bf16" | "int8" (dp_explicit)
-    grad_accum: int = 1  # > 1 is not ported: raises
+    # gradient accumulation (single/dp): the global batch runs as this
+    # many microbatches, their gradients summed in f32, one update
+    grad_accum: int = 1
 
 
 @dataclass
@@ -84,12 +88,26 @@ class TrainConfig:
     preset: str = ""
     seed: int = 0
     steps: int = 100
+    # k optimizer steps a dispatch (train/multistep.py): one captured CUDA
+    # graph on the card, a loop of k steps on the CPU; the same math as k
+    # steps. Checkpoint and eval cadences round up to a dispatch boundary
+    multistep_k: int = 1
+    # 0: every step trains on a fresh batch. N > 0: step i of a dispatch
+    # trains on batch i % N of a pool of N device-resident batches
+    # (a device-rate benchmark's setting: it repeats data)
+    multistep_pool: int = 0
     log_every: int = 10
     eval_every: int = 0  # 0 = no eval; else eval every N steps
     eval_batches: int = 8  # batches per eval pass (held-out stream)
     # chunk the LM softmax-xent over T (tokens per chunk; 0 = dense
     # logits): one (B, chunk, V) logits block is live instead of (B, T, V)
     xent_chunk: int = 0
+    # torch CrossEntropyLoss(label_smoothing=...) semantics; not with the
+    # chunked loss
+    label_smoothing: float = 0.0
+    checkpoint_dir: str = ""  # "" = no checkpoints
+    checkpoint_every: int = 0  # 0 = only on request and on preemption
+    resume: bool = True  # restore the newest checkpoint at construction
     mesh: MeshSpec = field(default_factory=MeshSpec)
     optim: OptimConfig = field(default_factory=OptimConfig)
     data: DataConfig = field(default_factory=DataConfig)
@@ -148,7 +166,8 @@ def parse_overrides(argv: list[str]) -> dict[str, str]:
 
 def _llama3_8b_zero() -> TrainConfig:
     # Config 5: Llama-3-8B sharded data-parallel. Its ZeRO training is
-    # multi-card work (ROADMAP slice 4); the serve entry uses its model.
+    # multi-card work (ROADMAP.md §1 item 3, the sharded strategies); the
+    # serve entry uses its model.
     return TrainConfig(
         preset="llama3_8b_zero",
         steps=20,

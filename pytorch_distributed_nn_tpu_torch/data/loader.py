@@ -10,7 +10,9 @@ token array also keeps only the columns of its seq coordinate
 generates the batches and copies them to the device through pinned host
 memory (``non_blocking``), keeping ``prefetch`` batches ready, so host
 generation overlaps device compute. On the CPU the arrays are wrapped as
-they are.
+they are. A multistep dispatch takes its k batches stacked
+(:meth:`DataLoader.iter_stacked`), a pool its P once
+(:meth:`DataLoader.stacked_batch_at`).
 """
 
 from __future__ import annotations
@@ -63,15 +65,42 @@ class DataLoader:
         return tuple(self._to_device(a[index])
                      for a in self.dataset.batch(step))
 
+    def stacked_batch_at(self, start: int, n: int
+                         ) -> tuple[torch.Tensor, ...]:
+        """Steps ``start`` ... ``start + n - 1`` stacked on a leading axis
+        (n, ...) on the device: one multistep dispatch's batches, or its
+        pool."""
+        index = self.rows if self.cols is None else (self.rows, self.cols)
+        batches = [self.dataset.batch(start + i) for i in range(n)]
+        return tuple(self._to_device(np.stack([b[j][index] for b in batches]))
+                     for j in range(len(batches[0])))
+
     def __iter__(self) -> Iterator[tuple[torch.Tensor, ...]]:
         """Batches from ``start_step`` on. With ``prefetch > 0`` a producer
         thread runs ahead; :meth:`close` (or closing the iterator) stops
         and joins it."""
+        start = self.start_step
+        return self._run(lambda i: self.batch_at(start + i))
+
+    def iter_stacked(self, window_sizes: list[int], start_step: int
+                     ) -> Iterator[tuple[torch.Tensor, ...]]:
+        """One :meth:`stacked_batch_at` a window of ``window_sizes``, the
+        windows back to back from ``start_step``, prefetched as
+        :meth:`__iter__` does."""
+        firsts = np.cumsum([start_step, *window_sizes[:-1]]).tolist()
+        return self._run(lambda i: self.stacked_batch_at(
+            firsts[i], window_sizes[i]), count=len(window_sizes))
+
+    def _run(self, make, count: int | None = None
+             ) -> Iterator[tuple[torch.Tensor, ...]]:
+        """``make(0)``, ``make(1)``, ... (``count`` of them, or without
+        end), made ahead by a producer thread when ``prefetch > 0``."""
         if self.prefetch <= 0:
-            step = self.start_step
-            while True:
-                yield self.batch_at(step)
-                step += 1
+            i = 0
+            while count is None or i < count:
+                yield make(i)
+                i += 1
+            return
         self.close()  # one producer at a time
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = self._stop = threading.Event()
@@ -86,10 +115,10 @@ class DataLoader:
             return False
 
         def producer() -> None:
-            step = self.start_step
+            i = 0
             try:
-                while put(self.batch_at(step)):
-                    step += 1
+                while (count is None or i < count) and put(make(i)):
+                    i += 1
             except Exception as e:  # surface the error to the consumer
                 put(e)
 
@@ -97,7 +126,8 @@ class DataLoader:
             target=producer, daemon=True, name="data-prefetch")
         thread.start()
         try:
-            while True:
+            got = 0
+            while count is None or got < count:
                 try:
                     item = q.get(timeout=1.0)
                 except queue.Empty:
@@ -107,6 +137,7 @@ class DataLoader:
                     continue
                 if isinstance(item, Exception):
                     raise item
+                got += 1
                 yield item
         finally:
             self.close()

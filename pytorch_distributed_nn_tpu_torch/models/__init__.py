@@ -1,7 +1,7 @@
 """Model registry: ``register`` / ``get_model`` as in the JAX package.
 Ported: ``llama3_8b``, ``mlp``, ``lenet``, ``resnet50``, ``bert_base``,
 ``transformer_lm`` and ``vit``. The MoE LM is not: it needs the expert
-axis (ROADMAP.md, the rest of slice 4)."""
+axis (ROADMAP.md §1 item 3, the sharded strategies)."""
 
 from __future__ import annotations
 
@@ -41,10 +41,16 @@ def get_model(cfg: ModelConfig, device="cuda", input_shape=None, seq=None):
     if cfg.name == "moe_lm":
         raise NotImplementedError(
             "model 'moe_lm' is not ported yet: it needs the expert axis "
-            "(ROADMAP.md, the rest of slice 4)")
+            "(ROADMAP.md §1 item 3, the sharded strategies)")
     if cfg.name not in _REGISTRY:
         raise KeyError(
             f"unknown model {cfg.name!r}; have {sorted(_REGISTRY)}")
+    if cfg.remat_offload and cfg.name != "llama3_8b":
+        # only build_llama3_8b takes the flag; dropping it silently would
+        # let a run expected to fit through host offload run out of memory
+        raise ValueError(
+            f"remat_offload is implemented for llama3_8b only; model "
+            f"{cfg.name!r} would silently ignore it")
     kw = {} if input_shape is None else {"input_shape": tuple(input_shape)}
     if seq is not None:
         kw["seq"] = seq

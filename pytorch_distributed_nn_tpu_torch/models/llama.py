@@ -7,8 +7,12 @@ dims. Submodules and parameters keep the flax names and layout, so a
 Float parameters are trainable (f32 by default; every dense layer casts
 input and kernel to the compute dtype, so gradients flow back through the
 cast). ``remat`` reruns each block's forward in the backward
-(``torch.utils.checkpoint``, the counterpart of ``nn.remat``); serving
-runs under ``torch.inference_mode()``, where none of this applies.
+(``torch.utils.checkpoint``, the counterpart of ``nn.remat``);
+``remat_offload`` keeps the block inputs that remat saves (the JAX model's
+``block_in`` names) in pinned host memory between the forward and the
+backward, instead of on the card; the result is the same bit for bit.
+Serving runs under ``torch.inference_mode()``, where none of this
+applies.
 
 Sequence parallelism (``attn_impl`` ``"ring"`` or ``"ulysses"``): the
 model is built with the rank's ``SeqGroup`` (``runtime/mesh.py``) and takes
@@ -128,13 +132,19 @@ class Llama(nn.Module):
                  remat_offload: bool = False, seq: Optional[SeqGroup] = None,
                  device="cuda") -> None:
         super().__init__()
-        if remat_offload:
-            raise NotImplementedError(
-                "remat_offload (XLA host offload of the remat boundaries) is "
-                "not ported yet (ROADMAP.md, trainer features still to port: "
-                "remat offload)")
+        if remat_offload and not remat:
+            raise ValueError(
+                "remat_offload moves remat-saved block boundaries to host "
+                "RAM -- it needs model.remat=True (without remat there are "
+                "no saved boundaries to offload, and silently ignoring the "
+                "flag would let a run expected to fit via offload run out "
+                "of memory instead)")
         device = resolve_device(device)
         self.remat = remat
+        self.remat_offload = remat_offload
+        # what the last forward moved to host memory: boundaries, bytes,
+        # and whether every host copy was pinned
+        self.offloaded = dict(tensors=0, bytes=0, pinned=True)
         self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.d_model = d_model
@@ -184,10 +194,20 @@ class Llama(nn.Module):
             # int32 tokens index as they are (values unchanged)
             x = F.embedding(tokens, self.tok_embed.embedding).to(self.dtype)
         remat = self.remat and cache is None and torch.is_grad_enabled()
+        if remat and self.remat_offload:
+            self.offloaded = dict(tensors=0, bytes=0, pinned=True)
         for i in range(self.num_layers):
             block = getattr(self, f"layer{i}")
             layer_cache = None if cache is None else cache[f"layer{i}"]
-            if remat:
+            if remat and self.remat_offload:
+                # the block's input, which checkpoint saves for the
+                # recompute, goes to host memory; the tensors inside the
+                # block are not saved at all (checkpoint's own hooks)
+                with torch.autograd.graph.saved_tensors_hooks(
+                        self._to_host, _to_device):
+                    x = checkpoint(block, x, layer_cache, cache_positions,
+                                   use_reentrant=False)
+            elif remat:
                 x = checkpoint(block, x, layer_cache, cache_positions,
                                use_reentrant=False)
             else:
@@ -200,6 +220,32 @@ class Llama(nn.Module):
 
     def init_params(self, seed: int = 0) -> "Llama":
         return init_float_params(self, seed=seed)
+
+    def _to_host(self, t: torch.Tensor):
+        """Pack hook of ``remat_offload``: a copy of ``t`` in host memory
+        (pinned when ``t`` is on the card, copied without a host wait: the
+        unpack's copy back is queued behind it on the same stream, and the
+        caching allocator reuses ``t``'s block only for work queued
+        later). An empty tensor (checkpoint's own placeholder, in some
+        torch versions) stays as it is."""
+        if t.numel() == 0:
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, device="cpu",
+                           pin_memory=t.is_cuda)
+        host.copy_(t, non_blocking=t.is_cuda)
+        self.offloaded["tensors"] += 1
+        self.offloaded["bytes"] += t.numel() * t.element_size()
+        self.offloaded["pinned"] &= host.is_pinned() or not t.is_cuda
+        return t.device, host
+
+
+def _to_device(packed) -> torch.Tensor:
+    """Unpack hook of ``remat_offload``: the saved block input back on its
+    device, for the backward's recompute."""
+    if isinstance(packed, torch.Tensor):
+        return packed
+    device, host = packed
+    return host.to(device, non_blocking=host.is_pinned())
 
 
 @register("llama3_8b")

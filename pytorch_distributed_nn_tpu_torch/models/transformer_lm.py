@@ -10,7 +10,7 @@ Attention's ``attn_impl="auto"`` takes the flash kernels on the card in
 bf16 from T = 128 at head_dim 64 or 128 (``nn/attention.py``), and the
 plain path elsewhere. The decode cache is not ported yet (ROADMAP.md,
 slice 5: the serving features); the pipeline schedule that config 4 runs
-this model under is ROADMAP.md's rest of slice 4.
+this model under is ROADMAP.md §1 item 3, the sharded strategies.
 """
 
 from __future__ import annotations

@@ -105,6 +105,11 @@ def _mix(*words: int) -> int:
     return h >> 1
 
 
+def fold_in(seed: int, index: int) -> int:
+    """A seed of its own for ``index`` under ``seed`` (a microbatch's)."""
+    return _mix(seed, index)
+
+
 @contextlib.contextmanager
 def dropout_stream(seed: int, step: int, rank: int = 0):
     """Every :class:`Dropout` in training mode inside the block draws its

@@ -212,6 +212,8 @@ class OverlapReducer:
     on every handle and leaves each parameter's ``.grad`` the mean. The
     hooks stay registered and do nothing while the reducer is not armed
     (a backward outside the step, such as a check's, issues nothing).
+    Under gradient accumulation the step arms it for the last microbatch's
+    backward only, with the ``prepare`` that completes each gradient.
 
     ``last`` describes the last step: the buckets in the order they were
     issued with the count of hooks fired by then, the hooks' order, and
@@ -242,6 +244,7 @@ class OverlapReducer:
                 next(iter(self.params.values())).device)
         self._armed = False
         self._seed = 0
+        self._prepare: Callable | None = None
         self._missing: list[int] = []
         self._pending: dict[int, Callable] = {}
         self.issued: list[tuple[int, int]] = []  # (bucket, hooks fired)
@@ -259,9 +262,14 @@ class OverlapReducer:
             handle.remove()
         self._handles = []
 
-    def arm(self, seed: int = 0) -> None:
-        """Start a step: ``seed`` is the int8 wire's step seed."""
+    def arm(self, seed: int = 0,
+            prepare: Callable[[torch.Tensor], None] | None = None) -> None:
+        """Start a step: ``seed`` is the int8 wire's step seed; ``prepare``
+        (gradient accumulation's) is called on each parameter as its hook
+        fires, before its gradient is counted in, and turns the summed
+        ``.grad`` into the one to reduce."""
         self._seed = seed
+        self._prepare = prepare
         self._missing = [len(names) for _, names in self.buckets]
         self._pending = {}
         self.issued = []
@@ -271,6 +279,8 @@ class OverlapReducer:
     def _ready(self, name: str, param: torch.Tensor) -> None:
         if not self._armed:
             return
+        if self._prepare is not None:
+            self._prepare(param)
         self.hook_order.append(name)
         b = self.bucket_of[name]
         self._missing[b] -= 1
@@ -309,6 +319,7 @@ class OverlapReducer:
     def finish(self) -> None:
         """Wait for every bucket; each ``.grad`` becomes its mean."""
         self._armed = False
+        self._prepare = None
         for b in range(len(self.buckets)):
             if b not in self._pending:
                 self._issue(b)

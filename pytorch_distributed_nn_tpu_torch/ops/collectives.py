@@ -112,6 +112,16 @@ def _record(op: str, x: torch.Tensor | Sequence[torch.Tensor], group,
                                 bytes_wire=ring_wire_bytes(op, payload, n)))
 
 
+def barrier(group=None) -> None:
+    """Every rank of the group reaches this point (nothing at world 1)."""
+    if world_size(group) == 1:
+        return
+    if dist.get_backend(group) == "nccl":
+        dist.barrier(group=group, device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier(group=group)
+
+
 def all_reduce_sum(x: torch.Tensor, group=None, *, async_op: bool = False):
     """``dist.all_reduce(SUM)`` in place; returns ``x``, or with
     ``async_op`` the work handle (``x`` holds the sum once ``wait()`` has

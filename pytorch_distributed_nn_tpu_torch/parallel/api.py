@@ -4,10 +4,11 @@
     step(state, x, y) -> (state, metrics)
 
 Ported: ``single``, ``dp`` and ``dp_explicit`` over a process group, with
-``parallel.overlap`` (the reduction issued from the backward), and
-sequence parallelism (``mesh.seq > 1``) under ``single``/``dp``. The
+``parallel.overlap`` (the reduction issued from the backward), sequence
+parallelism (``mesh.seq > 1``) and gradient accumulation
+(``parallel.grad_accum``) under ``single``/``dp``. The
 sharded strategies (``zero``, ``pipeline``, ``ps``) raise, naming the
-ROADMAP slice that ports them.
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from pytorch_distributed_nn_tpu_torch.train.state import TrainState
 
 log = logging.getLogger(__name__)
 
-_LATER = {"zero": "slice 4", "pipeline": "slice 4", "ps": "slice 4"}
+_LATER = ("zero", "pipeline", "ps")
+_SHARDED = "ROADMAP.md §1 item 3, the sharded strategies"
 
 
 def make_chunked_loss(chunk: int) -> Callable:
@@ -80,10 +82,24 @@ def make_train_step(cfg: TrainConfig, loss_fn: Callable,
     seq = (mesh or cfg.mesh).seq
     if seq > 1:
         _check_seq(cfg, seq)
+    accum = cfg.parallel.grad_accum
+    if accum < 1:
+        raise ValueError(f"parallel.grad_accum must be >= 1, got {accum}")
+    if accum > 1:
+        # the JAX package's rule: the compiler-sharded steps (zero is not
+        # ported yet and raises below)
+        if strategy not in ("single", "dp", "zero"):
+            raise ValueError(
+                f"grad_accum needs the replicated step (single/dp/zero), "
+                f"got strategy {strategy!r}")
+        if cfg.data.batch_size % accum:
+            raise ValueError(
+                f"batch_size {cfg.data.batch_size} not divisible by "
+                f"grad_accum {accum}")
     if strategy in _LATER:
         raise NotImplementedError(
-            f"strategy {strategy!r} is not ported yet (ROADMAP.md, "
-            f"{_LATER[strategy]}); have 'single', 'dp' and 'dp_explicit'")
+            f"strategy {strategy!r} is not ported yet ({_SHARDED}); have "
+            "'single', 'dp' and 'dp_explicit'")
     if strategy not in ("single", "dp", "dp_explicit"):
         raise ValueError(f"unknown strategy {strategy!r}")
     if cfg.xent_chunk:
@@ -99,19 +115,20 @@ def make_train_step(cfg: TrainConfig, loss_fn: Callable,
                     f"{cfg.data.seq_len} / mesh.seq {seq}) not divisible "
                     f"by xent_chunk {cfg.xent_chunk} -- the dense fallback "
                     "would defeat the memory bound")
+            if cfg.label_smoothing:
+                raise ValueError(
+                    "label_smoothing is not supported with xent_chunk (the "
+                    "chunked loss computes plain nll blockwise)")
             loss_fn = make_chunked_loss(cfg.xent_chunk)
         # else: the rank's sequence fits in one chunk, and the dense loss
-        # is already within the chunked memory bound
-    accum = cfg.parallel.grad_accum
+        # (which does support label_smoothing) is already within the
+        # chunked memory bound
     if strategy in ("single", "dp"):
         if cfg.parallel.quantized_allreduce:
             log.warning("quantized_allreduce requires strategy='dp_explicit' "
                         "(the 'dp' step reduces exactly) -- ignoring")
         return dp.make_dp_train_step(loss_fn, accum=accum,
                                      overlap=cfg.parallel.overlap)
-    if accum != 1:
-        raise ValueError(f"grad_accum needs the 'dp' step, got strategy "
-                         f"{strategy!r}")
     quant = cfg.parallel.quantized_allreduce
     if quant.lower() in ("true", "1", "yes", "on"):  # legacy boolean flag
         quant = "bf16"

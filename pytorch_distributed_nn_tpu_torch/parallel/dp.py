@@ -31,7 +31,7 @@ import torch
 import torch.distributed as dist
 
 from pytorch_distributed_nn_tpu_torch.nn.batchnorm import TpuBatchNorm
-from pytorch_distributed_nn_tpu_torch.nn.layers import dropout_stream
+from pytorch_distributed_nn_tpu_torch.nn.layers import dropout_stream, fold_in
 from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
 from pytorch_distributed_nn_tpu_torch.ops.buckets import OverlapReducer
 from pytorch_distributed_nn_tpu_torch.train.state import TrainState
@@ -46,15 +46,20 @@ def forward(state: TrainState, x: torch.Tensor, *,
 
 
 def _loss_and_grads(state: TrainState, x: torch.Tensor, y: torch.Tensor,
-                    loss_fn: Callable) -> torch.Tensor:
+                    loss_fn: Callable,
+                    microbatch: int | None = None) -> torch.Tensor:
     """``loss_fn(out, y)``, backpropagated into the parameters' ``.grad``;
     returns the detached loss. A loss_fn marked by
     ``api.make_chunked_loss`` gets the model output it asks for
     (``loss_fn.apply_kwargs``) and the live parameters by name
-    (``loss_fn.needs_params``)."""
+    (``loss_fn.needs_params``). ``microbatch`` (under gradient
+    accumulation) folds its index into the dropout seed, as the JAX step
+    folds it into the step's key."""
     apply_kwargs = getattr(loss_fn, "apply_kwargs", None)
-    with dropout_stream(state.generator.initial_seed(), state.step,
-                        cc.rank()):
+    seed = state.generator.initial_seed()
+    if microbatch is not None:
+        seed = fold_in(seed, microbatch)
+    with dropout_stream(seed, state.step, cc.rank()):
         out = forward(state, x, apply_kwargs=apply_kwargs)
         if getattr(loss_fn, "needs_params", False):
             loss = loss_fn(out, y, dict(state.model.named_parameters()))

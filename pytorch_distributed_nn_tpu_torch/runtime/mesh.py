@@ -5,7 +5,7 @@ The port runs data and sequence parallelism: one process a device, the
 global batch split over the ``data`` and ``fsdp`` axes
 (:func:`data_parallel`, :func:`batch_slice`) and each row's tokens over
 ``seq`` (:func:`seq_slice`). The axes that shard the model (``pipe``,
-``expert``, ``tensor``) are ROADMAP slice 4 and raise.
+``expert``, ``tensor``) are ROADMAP.md §1 item 3 and raise.
 
 Rank r sits at the row-major coordinates of r over ``AXES`` in the
 resolved shape (:func:`coords`), the order in which the JAX package lays
@@ -85,8 +85,9 @@ def data_parallel(spec: MeshSpec, world_size: int) -> MeshSpec:
     if model_axes:
         raise NotImplementedError(
             f"mesh axes {model_axes} shard the model: not ported yet "
-            "(ROADMAP.md, slice 4); the port runs the data, fsdp "
-            "(data-parallel) and seq (sequence-parallel) degrees")
+            "(ROADMAP.md §1 item 3, the sharded strategies); the port runs "
+            "the data, fsdp (data-parallel) and seq (sequence-parallel) "
+            "degrees")
     return spec.resolve(world_size)
 
 

@@ -9,6 +9,12 @@ Usage:
     torchrun --standalone --nproc_per_node N \\
         -m pytorch_distributed_nn_tpu_torch.train --preset mlp_mnist ...
 
+    # checkpoints every 100 steps, resumed from the newest on a rerun;
+    # 4 microbatches a step, label smoothing, 20 steps a CUDA graph
+    python -m pytorch_distributed_nn_tpu_torch.train --preset mlp_mnist \
+        --checkpoint_dir /path/to/ckpt --checkpoint_every 100 \
+        --parallel.grad_accum 4 --label_smoothing 0.1 --multistep_k 20
+
     # config 3 (BERT-base, overlapped 100 MB buckets) and config 4's
     # transformer LM on one card (its pipeline is not ported yet)
     python -m pytorch_distributed_nn_tpu_torch.train --preset bert_base_buckets
@@ -21,7 +27,9 @@ process is one rank of the process group: NCCL on the card, one card a
 rank (``LOCAL_RANK``), gloo on the CPU. Weights are seeded (``--seed``),
 data is the preset's synthetic stream. Rank 0 prints the per-step losses
 as a JSON line (``{"losses": [...]}``, each the mean over every rank's
-rows, exact) and ``final: step=... loss=...`` at the end.
+rows, exact) and ``final: step=... loss=...`` at the end. With
+``TPUNN_PREEMPT=1`` a SIGTERM ends the run at the next step boundary after
+a synchronous checkpoint save, with exit code 83 and no ``final:`` line.
 """
 
 from __future__ import annotations
@@ -43,9 +51,11 @@ def main(argv: list[str] | None = None) -> int:
     preset = overrides.pop("preset", "llama3_longcontext")
     device = overrides.pop("device", "cuda")
     cfg = get_config(preset, **overrides)
-    trainer = Trainer(cfg, device=device)
     try:
-        history = trainer.train()
+        # a preemption notice ends train() with SystemExit(83) after a
+        # synchronous checkpoint save; the context drains the writer
+        with Trainer(cfg, device=device) as trainer:
+            history = trainer.train()
         if trainer.is_coordinator and history:
             print(json.dumps({"losses": trainer.losses()}))
             final = history[-1]

@@ -1,0 +1,276 @@
+"""Checkpoint / resume: the JAX package's ``train/checkpoint.py`` contract
+in a format of its own (orbax is JAX's).
+
+Layout: ``<dir>/<step>/`` holds ``model.pt`` (parameters and buffers under
+their flax names), ``optim.pt`` (the optimizer's moments and update count),
+``train.pt`` (the generator's state and the step), each written by
+``torch.save`` and read back by ``torch.load(weights_only=True)``,
+``meta.json`` (``data_step``, ``step``) and ``manifest.json`` (each file's
+size and SHA-256). A step is written into a temporary directory beside the
+others and renamed into place, so a kill mid-write leaves no step
+directory; the newest ``max_to_keep`` steps are kept.
+
+Saves are asynchronous. :meth:`CheckpointManager.save` takes a snapshot
+and queues it for a writer thread; :meth:`wait` and :meth:`close` drain the
+thread (and re-raise what it failed on). As orbax's async save does, a save
+first waits for the previous one to finish, so at most one snapshot (a
+full copy of the state in host memory) is alive at a time. On the card the snapshot is taken
+without holding the host: the step's stream records an event, a side
+stream waits for it and copies every tensor into pinned host memory, and
+the next optimizer update (the state is updated in place) waits for that
+copy (``Optimizer.hold``). Buffers that the next forward writes in place
+(BatchNorm's running statistics) are first cloned on the step's stream.
+
+:meth:`restore` verifies the manifest and falls back past a torn or
+corrupt newest step to the next-newest kept one; an explicit ``step`` is
+restored as asked or raises; no checkpoint at all raises
+``FileNotFoundError``.
+
+The state is replicated (stage 0): the coordinator writes, every rank
+passes a barrier in :meth:`wait`, and every rank restores from the files,
+whatever the world size was when they were written.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+import pickle
+import queue
+import shutil
+import threading
+import time
+from pathlib import Path
+from typing import Any
+
+import torch
+
+from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+from pytorch_distributed_nn_tpu_torch.train.state import TrainState
+
+log = logging.getLogger(__name__)
+
+_FILES = ("model.pt", "optim.pt", "train.pt")
+_META = "meta.json"
+_MANIFEST = "manifest.json"
+
+
+def _file_of(name: str) -> str:
+    if name.startswith("model."):
+        return "model.pt"
+    if name.startswith("opt."):
+        return "optim.pt"
+    return "train.pt"
+
+
+def _sha256(path: Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+class CheckpointManager:
+    """``save`` is asynchronous; ``wait`` and ``close`` drain the writer.
+    The newest ``max_to_keep`` steps are kept."""
+
+    def __init__(self, directory: str | Path, *,
+                 max_to_keep: int = 3) -> None:
+        self.directory = Path(directory).absolute()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.max_to_keep = max_to_keep
+        self.is_writer = cc.rank() == 0
+        self._queue: queue.Queue = queue.Queue()
+        self._error: BaseException | None = None
+        self._queued: set[int] = set()
+        self._thread: threading.Thread | None = None
+        self.last_save: dict = {}  # bytes and seconds of the newest write
+
+    # -- save ------------------------------------------------------------
+
+    def save(self, state: TrainState, *, data_step: int,
+             force: bool = False) -> bool:
+        """Queue a save of ``state`` at its current step, after the
+        previous save has been written. A step already saved (or queued)
+        is not saved again unless ``force``. Returns whether a save was
+        queued (on every rank alike)."""
+        self._raise_failure()
+        step = int(state.step)
+        if not force and (step in self._queued or step in self.all_steps()):
+            return False
+        meta = {"data_step": int(data_step), "step": step}
+        self._queued.add(step)
+        if not self.is_writer:
+            return True
+        if self._thread is not None:
+            self._queue.join()  # at most one save in flight
+            self._raise_failure()
+        snapshot, ready = _snapshot(state)
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._writer, daemon=True,
+                                            name="checkpoint-writer")
+            self._thread.start()
+        self._queue.put((step, snapshot, ready, meta))
+        log.info("queued checkpoint save at step %d -> %s", step,
+                 self.directory)
+        return True
+
+    def _writer(self) -> None:
+        while True:
+            item = self._queue.get()
+            try:
+                if item is None:
+                    return
+                if self._error is None:
+                    self._write(*item)
+            except BaseException as e:  # re-raised by wait()/close()/save()
+                self._error = e
+            finally:
+                self._queue.task_done()
+
+    def _write(self, step: int, snapshot: dict[str, torch.Tensor], ready,
+               meta: dict) -> None:
+        t0 = time.perf_counter()
+        if ready is not None:
+            ready.synchronize()  # the side stream's copy to host memory
+        tmp = self.directory / f".tmp-{step}-{os.getpid()}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir()
+        manifest = {}
+        for fname in _FILES:
+            part = {k: v for k, v in snapshot.items() if _file_of(k) == fname}
+            torch.save(part, tmp / fname)
+        (tmp / _META).write_text(json.dumps(meta))
+        for fname in (*_FILES, _META):
+            path = tmp / fname
+            manifest[fname] = {"bytes": path.stat().st_size,
+                               "sha256": _sha256(path)}
+        (tmp / _MANIFEST).write_text(json.dumps(manifest))
+        final = self.directory / str(step)
+        if final.exists():  # a forced rewrite of a saved step
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        self.last_save = dict(
+            step=step, seconds=time.perf_counter() - t0,
+            bytes=sum(m["bytes"] for m in manifest.values()))
+        self._prune()
+
+    def _prune(self) -> None:
+        for old in self.all_steps()[:-self.max_to_keep or None]:
+            shutil.rmtree(self.directory / str(old), ignore_errors=True)
+
+    # -- restore ---------------------------------------------------------
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def all_steps(self) -> list[int]:
+        return sorted(int(p.name) for p in self.directory.iterdir()
+                      if p.name.isdigit() and p.is_dir())
+
+    def restore(self, template: TrainState,
+                step: int | None = None) -> tuple[TrainState, dict]:
+        """Copy a checkpoint into ``template`` (in place) and return
+        ``(template, meta)``. With no ``step``: the newest step that reads
+        back whole, falling back past torn or corrupt ones."""
+        if step is not None:
+            return self._restore_step(template, step)
+        steps = sorted(self.all_steps(), reverse=True)
+        if not steps:
+            raise FileNotFoundError(
+                f"no checkpoint found under {self.directory}")
+        last_err: Exception | None = None
+        for i, s in enumerate(steps):
+            try:
+                return self._restore_step(template, s)
+            except (OSError, ValueError, KeyError, RuntimeError,
+                    pickle.UnpicklingError) as e:
+                last_err = e
+                log.warning(
+                    "checkpoint step %d is torn/corrupt (%s: %s); falling "
+                    "back to %s", s, type(e).__name__, e,
+                    steps[i + 1] if i + 1 < len(steps) else "nothing")
+        raise RuntimeError(
+            f"every kept checkpoint step {steps} under {self.directory} "
+            "failed to restore") from last_err
+
+    def _restore_step(self, template: TrainState,
+                      step: int) -> tuple[TrainState, dict]:
+        path = self.directory / str(step)
+        manifest = json.loads((path / _MANIFEST).read_text())
+        for fname, want in manifest.items():
+            f = path / fname
+            if f.stat().st_size != want["bytes"] or _sha256(f) != \
+                    want["sha256"]:
+                raise ValueError(f"{f} does not match its manifest")
+        if set(manifest) != {*_FILES, _META}:
+            raise ValueError(f"{path}: manifest lists {sorted(manifest)}")
+        tensors: dict[str, torch.Tensor] = {}
+        for fname in _FILES:
+            tensors.update(torch.load(path / fname, map_location="cpu",
+                                      weights_only=True))
+        meta = json.loads((path / _META).read_text())
+        template.load_state_dict(tensors)
+        log.info("restored checkpoint step %d from %s", step, path)
+        return template, meta
+
+    # -- lifecycle -------------------------------------------------------
+
+    def _raise_failure(self) -> None:
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("a checkpoint write failed") from err
+
+    def wait(self) -> None:
+        """Drain the writer (every queued save is on disk), then every
+        rank passes a barrier."""
+        if self._thread is not None:
+            self._queue.join()
+        self._raise_failure()
+        cc.barrier()
+
+    def close(self) -> None:
+        try:
+            self.wait()
+        finally:
+            if self._thread is not None:
+                self._queue.put(None)
+                self._thread.join(timeout=60.0)
+                self._thread = None
+
+
+def _snapshot(state: TrainState) -> tuple[dict[str, torch.Tensor], Any]:
+    """Host copies of ``state.state_dict()`` and the event that says they
+    are complete (None when they already are: a CPU state)."""
+    live = state.state_dict()
+    cuda = [t for t in live.values() if t.is_cuda]
+    if not cuda:
+        return {k: v.clone() for k, v in live.items()}, None
+    device = cuda[0].device
+    main = torch.cuda.current_stream(device)
+    # what the next forward writes in place: cloned on the step's stream
+    buffers = {f"model.{k}" for k, _ in state.model.named_buffers()}
+    live = {k: (v.clone() if k in buffers and v.is_cuda else v)
+            for k, v in live.items()}
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    out = {}
+    with torch.cuda.stream(side):
+        for k, v in live.items():
+            if v.is_cuda:
+                host = torch.empty(v.shape, dtype=v.dtype, device="cpu",
+                                   pin_memory=True)
+                host.copy_(v, non_blocking=True)
+                v.record_stream(side)
+                out[k] = host
+            else:
+                out[k] = v.clone()
+        done = torch.cuda.Event()
+        done.record(side)
+    state.optimizer.hold(done)
+    return out, done

@@ -2,7 +2,8 @@
 vision datasets), the causal LM (``lm_synthetic``) and BERT's masked LM
 (``mlm_synthetic``). f32 logits, mean over the batch (over the valid
 positions for the masked LM); the chunked LM forms never build the
-(B, T, V) logits.
+(B, T, V) logits. ``get_loss_fn(label_smoothing=)`` smooths the dense
+forms as torch's ``CrossEntropyLoss(label_smoothing=)`` does.
 """
 
 from __future__ import annotations
@@ -131,13 +132,48 @@ def chunked_lm_eval(hidden: torch.Tensor, kernel: torch.Tensor,
 _CLASSIFICATION = ("mnist", "cifar10", "imagenet_synthetic")
 
 
-def get_loss_fn(dataset_name: str):
+def _smoothed(base, eps: float):
+    """torch ``CrossEntropyLoss(label_smoothing=eps)`` semantics: per
+    element ``(1 - eps) * nll + eps * (the uniform cross-entropy over the
+    classes)``, f32; the masked LM keeps its ignore mask and denominator
+    (``denom``, as :func:`masked_lm_xent`)."""
+    masked = base is masked_lm_xent
+
+    def loss_fn(logits: torch.Tensor, labels: torch.Tensor, *,
+                denom: torch.Tensor | None = None) -> torch.Tensor:
+        logp = F.log_softmax(logits.float(), dim=-1)
+        uniform = -logp.mean(-1)
+        nll = -logp.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+        per = (1.0 - eps) * nll + eps * uniform
+        if not masked:
+            return per.mean()
+        valid = valid_mask(labels)
+        per = torch.where(valid, per, torch.zeros_like(per))
+        if denom is None:
+            denom = valid.sum().clamp(min=1)
+        return per.sum() / denom
+
+    if masked:
+        loss_fn.token_weighted = True
+    return loss_fn
+
+
+def get_loss_fn(dataset_name: str, *, label_smoothing: float = 0.0):
+    """The dataset's loss; with ``label_smoothing`` in (0, 1) its smoothed
+    form (:func:`_smoothed`)."""
     if dataset_name == "lm_synthetic":
-        return lm_xent
-    if dataset_name == "mlm_synthetic":
-        return masked_lm_xent
-    if dataset_name in _CLASSIFICATION:
-        return softmax_xent
-    raise NotImplementedError(
-        f"loss for dataset {dataset_name!r} is not ported yet (ROADMAP.md: "
-        "the file readers)")
+        base = lm_xent
+    elif dataset_name == "mlm_synthetic":
+        base = masked_lm_xent
+    elif dataset_name in _CLASSIFICATION:
+        base = softmax_xent
+    else:
+        raise NotImplementedError(
+            f"loss for dataset {dataset_name!r} is not ported yet "
+            "(ROADMAP.md: the file readers)")
+    if label_smoothing == 0.0:
+        return base
+    if not 0.0 <= label_smoothing < 1.0:
+        raise ValueError(
+            f"label_smoothing must be in [0, 1), got {label_smoothing}")
+    return _smoothed(base, label_smoothing)

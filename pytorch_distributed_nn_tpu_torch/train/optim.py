@@ -41,10 +41,22 @@ or a factored moment is per tensor), in optax's order of operations, in
 place on the moments and on the step's own temporaries: an adam step holds
 three parameter-sized temporaries at most (the update, its denominator and
 the decay).
+
+The update is safe to capture in a CUDA graph (``train/multistep.py``): the
+moments are allocated at construction and only ever written in place, and
+what changes from one update to the next (the learning rate, adam's bias
+corrections, adafactor's decay rate) is read from a device tensor, never
+frozen into the launches as a Python float. The host computes those values
+as floats from the update count, as optax does in f32, and writes them
+once into a table on the device (:meth:`Optimizer.hyper`); an eager update
+reads its row of the table, a captured one the row the caller copies into
+place before each replay (:meth:`Optimizer.reading`), so both read the
+same f32 values.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Iterable
 
@@ -145,6 +157,17 @@ def _f32_bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
 
 
+def _factored_zeros(p: torch.Tensor) -> tuple:
+    """adafactor's zero moments of ``p``: ``(None, v)`` whole, or
+    ``((d1, d0), (v_row, v_col))`` factored over its two largest dims."""
+    dims = _factored_dims(p.shape)
+    if dims is None:
+        return None, torch.zeros_like(p)
+    d1, d0 = dims
+    return dims, (p.new_zeros(np.delete(p.shape, d0).tolist()),
+                  p.new_zeros(np.delete(p.shape, d1).tolist()))
+
+
 def _factored_dims(shape) -> tuple[int, int] | None:
     """optax's ``_factored_dims``: the second-largest and largest dims when
     both are at least 128, else None."""
@@ -156,11 +179,18 @@ def _factored_dims(shape) -> tuple[int, int] | None:
     return int(order[-2]), int(order[-1])
 
 
+# the per-update values of the table: the lr and its negation, adam's
+# bias corrections 1 - b1 ** n and 1 - b2 ** n, adafactor's decay rate
+# 1 - n ** -0.8 and 1 - rate, for update n = count + 1
+_LR, _NEG_LR, _BC1, _BC2, _RATE, _KEEP = range(6)
+
+
 class Optimizer:
     """optax's ``chain(clip_by_global_norm?, add_decayed_weights?,
     <optimizer> (schedule))`` over ``params``: :meth:`step` applies the
     ``.grad`` of each parameter with the lr of update ``count``, then
-    counts one update."""
+    counts one update. The moments (``mu``, ``nu``, ``factored``) exist
+    from construction, zeros, as optax's ``init`` makes them."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  cfg: OptimConfig, total_steps: int) -> None:
@@ -176,6 +206,7 @@ class Optimizer:
         self.name = cfg.name
         self.params = [p for p in params if p.requires_grad]
         self.schedule = make_schedule(cfg, total_steps)
+        self.total_steps = total_steps
         self.grad_clip_norm = cfg.grad_clip_norm
         self.weight_decay = cfg.weight_decay
         self.momentum = cfg.momentum
@@ -186,17 +217,70 @@ class Optimizer:
         self.mu: list[torch.Tensor] | None = None  # first moment / trace
         self.nu: list[torch.Tensor] | None = None  # adam's second moment
         self.factored: list[tuple] | None = None  # adafactor's moments
+        if cfg.name in ("momentum", "adam", "adamw", "lamb", "lion"):
+            self.mu = self._zeros(self.mu_dtype)
+        if cfg.name in ("adam", "adamw", "lamb"):
+            self.nu = self._zeros()
+        if cfg.name == "adafactor":
+            self.factored = [_factored_zeros(p) for p in self.params]
         self.count = 0
+        self._table: torch.Tensor | None = None  # per-update values
+        self._row: torch.Tensor | None = None  # set by reading()
+        self._holds: list = []  # events the next update waits for
+
+    def _hyper_row(self, count: int) -> list[float]:
+        lr = self.schedule(count)
+        n = count + 1
+        rate = float(np.float32(1.0) - np.float32(n) ** np.float32(-0.8))
+        return [lr, -lr, _f32_bias_correction(self.cfg.b1, n),
+                _f32_bias_correction(self.cfg.b2, n), rate, 1.0 - rate]
+
+    def hyper(self, start: int, k: int = 1) -> torch.Tensor:
+        """The (k, 6) float32 rows of updates ``start`` ... ``start + k - 1``
+        on the parameters' device: a view of the table, which is built (or
+        grown) here, with one copy to the device."""
+        end = start + k
+        if self._table is None or end > self._table.shape[0]:
+            have = 0 if self._table is None else self._table.shape[0]
+            n = max(end, 2 * have, self.total_steps + 1)
+            rows = [self._hyper_row(c) for c in range(n)]
+            dev = self.params[0].device if self.params else "cpu"
+            self._table = torch.tensor(rows, dtype=torch.float32).to(dev)
+        return self._table[start:end]
+
+    @contextlib.contextmanager
+    def reading(self, row: torch.Tensor):
+        """Updates inside read their per-update values from ``row`` (a (6,)
+        float32 device tensor that the caller fills before each replay of a
+        captured graph) instead of the table's row of ``count``."""
+        prev, self._row = self._row, row
+        try:
+            yield
+        finally:
+            self._row = prev
+
+    def hold(self, event) -> None:
+        """The next update (or :meth:`release`) makes the current stream
+        wait for ``event``: a checkpoint's copy of the state that reads the
+        parameters and moments this update writes in place."""
+        self._holds.append(event)
+
+    def release(self) -> None:
+        for event in self._holds:
+            torch.cuda.current_stream(event.device).wait_event(event)
+        self._holds = []
 
     def step(self) -> None:
         grads = [p.grad for p in self.params]
         if any(g is None for g in grads):
             raise RuntimeError("a trainable parameter got no gradient")
+        self.release()
         if self.grad_clip_norm > 0:
             clip_by_global_norm_(grads, self.grad_clip_norm)
-        lr = self.schedule(self.count)
+        row = self._row if self._row is not None else self.hyper(
+            self.count)[0]
         with torch.no_grad():
-            getattr(self, f"_{self.name}")(grads, lr)
+            getattr(self, f"_{self.name}")(grads, row)
         self.count += 1
 
     def _zeros(self, dtype=None) -> list[torch.Tensor]:
@@ -223,22 +307,21 @@ class Optimizer:
             out[i] = u
         return out
 
-    def _apply(self, updates: list[torch.Tensor], scale: float, *,
-               own: bool = False) -> None:
-        """``p += scale * u``; ``own`` as in :meth:`_decay`."""
+    def _apply(self, updates: list[torch.Tensor],
+               scale: torch.Tensor | float, *, own: bool = False) -> None:
+        """``p += scale * u`` (``scale`` a 0-d device tensor, or a constant);
+        ``own`` as in :meth:`_decay`."""
         if own:
             torch._foreach_mul_(updates, scale)
         else:
             updates = torch._foreach_mul(updates, scale)
         torch._foreach_add_(self.params, updates)
 
-    def _sgd(self, grads, lr: float) -> None:
-        self._apply(self._decay(grads), -lr)
+    def _sgd(self, grads, row: torch.Tensor) -> None:
+        self._apply(self._decay(grads), row[_NEG_LR])
 
-    def _momentum(self, grads, lr: float) -> None:
+    def _momentum(self, grads, row: torch.Tensor) -> None:
         grads = self._decay(grads)
-        if self.mu is None:
-            self.mu = self._zeros(self.mu_dtype)
         m = self._mu_scalar(self.momentum)
         if self.mu_dtype is None:
             torch._foreach_mul_(self.mu, m)
@@ -247,7 +330,7 @@ class Optimizer:
         else:  # the update is the f32 trace, the stored moment its cast
             trace = torch._foreach_add(grads, torch._foreach_mul(self.mu, m))
             self._store_mu(trace)
-        self._apply(trace, -lr)
+        self._apply(trace, row[_NEG_LR])
 
     def _mu_scalar(self, x: float) -> float:
         """A decay that multiplies the stored first moment: JAX takes a
@@ -258,17 +341,15 @@ class Optimizer:
         return float(torch.tensor(x, dtype=self.mu_dtype))
 
     def _store_mu(self, mu: list[torch.Tensor]) -> None:
-        if self.mu_dtype is None:
-            self.mu = mu
-        else:
-            self.mu = [m.to(self.mu_dtype) for m in mu]
+        """The new first moment into the stored one, in place (cast to
+        ``mu_dtype``)."""
+        if mu is not self.mu:
+            torch._foreach_copy_(self.mu, mu)
 
-    def _adam_direction(self, grads) -> list[torch.Tensor]:
+    def _adam_direction(self, grads, row: torch.Tensor
+                        ) -> list[torch.Tensor]:
         """scale_by_adam: mu_hat / (sqrt(nu_hat) + eps)."""
         b1, b2, eps = self.cfg.b1, self.cfg.b2, self.cfg.eps
-        if self.mu is None:
-            self.mu = self._zeros(self.mu_dtype)
-            self.nu = self._zeros()
         step = torch._foreach_mul(grads, 1.0 - b1)
         if self.mu_dtype is None:
             torch._foreach_mul_(self.mu, b1)
@@ -282,70 +363,54 @@ class Optimizer:
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_add_(self.nu, step)
         del step
-        n = self.count + 1
-        direction = torch._foreach_div(mu, _f32_bias_correction(b1, n))
-        denom = torch._foreach_div(self.nu, _f32_bias_correction(b2, n))
+        direction = torch._foreach_div(mu, row[_BC1])
+        denom = torch._foreach_div(self.nu, row[_BC2])
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, eps)
         torch._foreach_div_(direction, denom)
         self._store_mu(mu)
         return direction
 
-    def _adam(self, grads, lr: float) -> None:
-        self._apply(self._adam_direction(self._decay(grads)), -lr, own=True)
+    def _adam(self, grads, row: torch.Tensor) -> None:
+        self._apply(self._adam_direction(self._decay(grads), row),
+                    row[_NEG_LR], own=True)
 
-    def _adamw(self, grads, lr: float) -> None:
-        self._apply(self._decay(self._adam_direction(grads), own=True), -lr,
-                    own=True)
+    def _adamw(self, grads, row: torch.Tensor) -> None:
+        self._apply(self._decay(self._adam_direction(grads, row), own=True),
+                    row[_NEG_LR], own=True)
 
-    def _lamb(self, grads, lr: float) -> None:
-        updates = self._decay(self._adam_direction(grads), own=True)
+    def _lamb(self, grads, row: torch.Tensor) -> None:
+        updates = self._decay(self._adam_direction(grads, row), own=True)
         for u, p in zip(updates, self.params):
             pn = torch.linalg.vector_norm(p)
             un = torch.linalg.vector_norm(u)
             u.mul_(torch.where((pn == 0) | (un == 0), torch.ones_like(pn),
                                pn / un))
-        self._apply(updates, -lr, own=True)
+        self._apply(updates, row[_NEG_LR], own=True)
 
-    def _lion(self, grads, lr: float) -> None:
+    def _lion(self, grads, row: torch.Tensor) -> None:
         b1, b2 = self.cfg.b1, self.cfg.b2
-        if self.mu is None:
-            self.mu = self._zeros(self.mu_dtype)
         b1m, b2m = self._mu_scalar(b1), self._mu_scalar(b2)
         direction = [torch.sign((1.0 - b1) * g + b1m * m)
                      for g, m in zip(grads, self.mu)]
         self._store_mu([(1.0 - b2) * g + b2m * m
                         for g, m in zip(grads, self.mu)])
-        self._apply(self._decay(direction, own=True), -lr, own=True)
+        self._apply(self._decay(direction, own=True), row[_NEG_LR], own=True)
 
-    def _adafactor(self, grads, lr: float) -> None:
+    def _adafactor(self, grads, row: torch.Tensor) -> None:
         eps = 1e-30
-        t = np.float32(self.count + 1)
-        rate = float(np.float32(1.0) - t ** np.float32(-0.8))
-        if self.factored is None:
-            self.factored = []
-            for p in self.params:
-                dims = _factored_dims(p.shape)
-                if dims is None:
-                    self.factored.append((None, torch.zeros_like(p)))
-                else:
-                    d1, d0 = dims
-                    self.factored.append((dims, (
-                        p.new_zeros(np.delete(p.shape, d0).tolist()),
-                        p.new_zeros(np.delete(p.shape, d1).tolist()))))
+        rate, keep = row[_RATE], row[_KEEP]
         updates = []
         for i, (g, p) in enumerate(zip(grads, self.params)):
             dims, state = self.factored[i]
             g2 = g * g + eps
             if dims is None:
-                v = rate * state + (1.0 - rate) * g2
-                self.factored[i] = (None, v)
+                v = state.copy_(rate * state + keep * g2)
                 u = g * v ** -0.5
             else:
                 d1, d0 = dims
-                v_row = rate * state[0] + (1.0 - rate) * g2.mean(d0)
-                v_col = rate * state[1] + (1.0 - rate) * g2.mean(d1)
-                self.factored[i] = (dims, (v_row, v_col))
+                v_row = state[0].copy_(rate * state[0] + keep * g2.mean(d0))
+                v_col = state[1].copy_(rate * state[1] + keep * g2.mean(d1))
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
                 row_col_mean = v_row.mean(reduced_d1, keepdim=True)
                 row_factor = (v_row / row_col_mean) ** -0.5
@@ -353,7 +418,7 @@ class Optimizer:
                 u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
             # clip_by_block_rms(1.0), the lr, scale_by_param_block_rms
             u = u / torch.clamp(u.square().mean().sqrt(), min=1.0)
-            u = u * lr
+            u = u * row[_LR]
             rms = p.square().mean().sqrt()
             updates.append(u * torch.clamp(rms, min=1e-3))
         self._apply(self._decay(updates, own=True), -1.0, own=True)

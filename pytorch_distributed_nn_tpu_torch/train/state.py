@@ -4,6 +4,12 @@ immutable pytree replaced every step, this one is mutated by
 :meth:`TrainState.apply_gradients`. The model state (the BatchNorm running
 statistics, flax's ``batch_stats``) lives in the model's buffers, beside
 the parameters: :attr:`TrainState.model_state`.
+
+:meth:`TrainState.state_dict` names every tensor a checkpoint must carry
+(the JAX ``_array_tree``: step, params, model state, optimizer state, rng),
+and :meth:`TrainState.load_state_dict` copies such a dict back in place, so
+every tensor keeps its storage (the optimizer and a captured CUDA graph
+hold them).
 """
 
 from __future__ import annotations
@@ -37,6 +43,64 @@ class TrainState:
         self.optimizer.step()
         self.optimizer.zero_grad()
         self.step += 1
+
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        """Every tensor of the state by name, live (not copies):
+        ``model.<name>`` for the parameters and buffers under their flax
+        names (``utils/interop.py``'s), ``opt.<moment>.<param name>`` for
+        the optimizer's moments, ``opt.count``, ``generator`` (its
+        ``get_state()``) and ``step``."""
+        out = {f"model.{k}": v for k, v in self.model.state_dict().items()}
+        for k, v in _optimizer_tensors(self).items():
+            out[f"opt.{k}"] = v
+        out["opt.count"] = torch.tensor(self.optimizer.count)
+        out["generator"] = self.generator.get_state()
+        out["step"] = torch.tensor(self.step)
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict[str, torch.Tensor]) -> None:
+        """Copy ``state`` (a :meth:`state_dict`, on any device) into this
+        state in place. The names must match exactly."""
+        want = self.state_dict()
+        if set(state) != set(want):
+            missing = sorted(set(want) - set(state))
+            extra = sorted(set(state) - set(want))
+            raise KeyError(f"state names differ: missing {missing[:5]}, "
+                           f"unexpected {extra[:5]}")
+        for name, t in want.items():
+            if name in ("opt.count", "generator", "step"):
+                continue
+            src = state[name]
+            if src.shape != t.shape or src.dtype != t.dtype:
+                raise ValueError(
+                    f"{name}: {tuple(src.shape)} {src.dtype} does not fit "
+                    f"{tuple(t.shape)} {t.dtype}")
+            t.copy_(src)
+        self.optimizer.count = int(state["opt.count"])
+        self.generator.set_state(state["generator"].cpu())
+        self.step = int(state["step"])
+
+
+def _optimizer_tensors(state: TrainState) -> dict[str, torch.Tensor]:
+    """The optimizer's moments by ``<moment>.<param name>``: ``mu``,
+    ``nu``, and adafactor's ``v`` or ``v_row``/``v_col``."""
+    opt = state.optimizer
+    names = [n for n, p in state.model.named_parameters() if p.requires_grad]
+    if len(names) != len(opt.params):
+        raise ValueError("the optimizer's parameters are not the model's "
+                         "trainable ones")
+    out = {}
+    for moment in ("mu", "nu"):
+        values = getattr(opt, moment)
+        if values is not None:
+            out.update({f"{moment}.{n}": v for n, v in zip(names, values)})
+    for n, (dims, v) in zip(names, opt.factored or ()):
+        if dims is None:
+            out[f"v.{n}"] = v
+        else:
+            out[f"v_row.{n}"], out[f"v_col.{n}"] = v
+    return out
 
 
 def param_count(model: torch.nn.Module) -> int:

@@ -676,3 +676,154 @@ def test_overlap_on_nccl_world_one_is_bitwise(cuda, wire):
         assert out[True][1] == out[False][1] == 2 * last["buckets"]
     else:
         assert out[True][1] == out[False][1] == 0
+
+
+# --------------------------------------------------------------------------
+# the trainer features on the card: CUDA graphs, offload, async saves
+# --------------------------------------------------------------------------
+
+def _tiny_resnet_cfg(**ov):
+    import json
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+
+    extra = dict(stage_sizes=[1, 1, 1, 1], width=8, num_classes=10,
+                 bn_impl="pallas")
+    return get_config("resnet50_dp", **{
+        "model.extra": json.dumps(extra), "data.dataset": "cifar10",
+        "data.batch_size": "16", "log_every": "1", "steps": "8",
+        "optim.warmup_steps": "3", **ov})
+
+
+@pytest.mark.parametrize("pool", ["0", "2"])
+def test_graph_captured_steps_are_bitwise_the_eager_steps(cuda, pool):
+    """8 steps of the tiny ResNet (bn_stats kernels, momentum, warmup and
+    cosine lr) as two replays of a captured 4-step graph against 8 eager
+    steps on the same batches: losses and state bit for bit."""
+    from pytorch_distributed_nn_tpu_torch.ops import bn_stats
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    pooled = {"multistep_pool": pool}
+    eager = Trainer(_tiny_resnet_cfg(), device=cuda)
+    if pool != "0":  # the same two batches, cycled
+        xs, ys = eager.loader.stacked_batch_at(0, 2)
+        eager_losses = []
+        for i in range(8):
+            eager.state, m = eager.step_fn(eager.state, xs[i % 2], ys[i % 2])
+            eager_losses.append(m["loss"].item())
+    else:
+        eager.train()
+        eager_losses = eager.losses()
+    n = bn_stats.sum_and_sumsq.launches
+    graph = Trainer(_tiny_resnet_cfg(multistep_k="4", **pooled), device=cuda)
+    graph.train()
+    run = graph._multisteps[4]
+    assert run.replays == 2
+    n_bn = len(graph.model.batch_norms())
+    # one eager warm-up step and one capture of 4 steps
+    assert bn_stats.sum_and_sumsq.launches - n == 5 * n_bn
+    assert graph.losses() == eager_losses
+    for k, v in eager.state.state_dict().items():
+        assert torch.equal(graph.state.state_dict()[k].cpu(), v.cpu()), k
+
+
+@pytest.mark.parametrize("blocker", ["int8 wire", "remat_offload"])
+def test_a_step_that_cannot_be_captured_raises(cuda, blocker):
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    if blocker == "int8 wire":
+        cfg = _tiny_resnet_cfg(**{
+            "multistep_k": "2", "parallel.strategy": "dp_explicit",
+            "parallel.quantized_allreduce": "int8"})
+    else:
+        cfg = _tiny_llama_cfg(**{"multistep_k": "2",
+                                 "model.remat_offload": "true"})
+    t = Trainer(cfg, device=cuda)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        t.train()
+    assert t.data_step == 0 and t.state.step == 0  # nothing ran
+
+
+def _tiny_llama_cfg(**ov):
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+
+    extra = ('{"num_layers": 2, "d_model": 128, "num_heads": 2, '
+             '"num_kv_heads": 1, "mlp_dim": 256, "vocab_size": 512}')
+    return get_config("llama3_longcontext", **{
+        "model.extra": extra, "data.vocab_size": "512",
+        "data.seq_len": "1024", "xent_chunk": "256", "steps": "4",
+        "log_every": "1", **ov})
+
+
+def test_offload_keeps_pinned_boundaries_and_the_remat_result(cuda):
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    runs = {}
+    for offload in (False, True):
+        t = Trainer(_tiny_llama_cfg(**{"model.remat_offload": str(offload)}),
+                    device=cuda)
+        t.train(steps=2)
+        torch.cuda.synchronize()
+        runs[offload] = (t.losses(), {k: v.clone() for k, v in
+                                      t.model.state_dict().items()},
+                         dict(t.model.offloaded))
+    assert runs[True][0] == runs[False][0]
+    for k, v in runs[False][1].items():
+        assert torch.equal(runs[True][1][k], v), k
+    off = runs[True][2]
+    assert off["tensors"] == 2 and off["pinned"]
+    assert off["bytes"] == 2 * 1024 * 128 * 2  # (B, T, D) bf16 a block
+
+
+def test_an_async_save_on_the_card_holds_its_step(cuda, tmp_path):
+    """Save at step 2 and update in place at once: the side stream's copy
+    must hold step 2, and a trainer resumed from it trains on as the
+    straight run does, bit for bit."""
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    straight = Trainer(_tiny_llama_cfg(), device=cuda)
+    straight.train()
+    cfg = _tiny_llama_cfg(checkpoint_dir=str(tmp_path))
+    with Trainer(cfg, device=cuda) as t:
+        t.train(steps=2)
+        assert t.save_checkpoint()
+        t.train(steps=2)
+    with Trainer(cfg, device=cuda) as resumed:
+        assert resumed.data_step == 2
+        resumed.train()
+    assert resumed.losses() == straight.losses()[2:]
+    for k, v in straight.state.state_dict().items():
+        assert torch.equal(resumed.state.state_dict()[k].cpu(), v.cpu()), k
+
+
+@pytest.mark.parametrize("preset", ["llama3_longcontext", "transformer_lm_pp"])
+def test_lm_steps_as_a_graph_are_bitwise_the_eager_steps(cuda, preset):
+    """The LMs' steps (remat's checkpoint, the flash kernels' autograd
+    functions, the chunked loss) capture too: 4 steps as two replays of a
+    2-step graph against 4 eager steps, bit for bit."""
+    import json
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    if preset == "llama3_longcontext":
+        ov = {"model.extra": ('{"num_layers": 2, "d_model": 128, '
+                              '"num_heads": 2, "num_kv_heads": 1, '
+                              '"mlp_dim": 256, "vocab_size": 512}'),
+              "data.vocab_size": "512", "data.seq_len": "1024",
+              "xent_chunk": "256"}
+    else:
+        ov = {"mesh.pipe": "1", "parallel.strategy": "dp",
+              "data.batch_size": "4", "data.seq_len": "256",
+              "data.vocab_size": "512", "model.extra": json.dumps(dict(
+                  num_layers=2, d_model=128, num_heads=2, mlp_dim=256,
+                  vocab_size=512, max_len=256))}
+    losses, states = {}, {}
+    for k in ("1", "2"):
+        t = Trainer(get_config(preset, steps="4", log_every="1",
+                               multistep_k=k, **ov), device=cuda)
+        t.train()
+        losses[k], states[k] = t.losses(), t.state.state_dict()
+    assert losses["2"] == losses["1"]
+    for name, v in states["1"].items():
+        assert torch.equal(states["2"][name].cpu(), v.cpu()), name

@@ -184,8 +184,8 @@ def test_longcontext_preset_matches_jax():
     assert tconfig.get_config("llama3_8b_zero").model.name == "llama3_8b"
 
 
-@pytest.mark.parametrize("field", ["checkpoint_dir", "metrics_path",
-                                   "multistep_k", "label_smoothing",
+@pytest.mark.parametrize("field", ["profile_dir", "metrics_path",
+                                   "prom_path", "data.image_size",
                                    "data.path", "parallel.zero_stage",
                                    "parallel.microbatches",
                                    "parallel.pipeline_schedule"])
@@ -206,7 +206,7 @@ def test_mesh_resolves_as_jax_and_refuses_more_than_one_device():
     four = data_parallel(MeshSpec(data=2, fsdp=-1), 4)
     assert four.data_degree() == 4 and four.sizes()["fsdp"] == 2
     assert data_parallel(MeshSpec(seq=2, data=-1), 4).data_degree() == 2
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="sharded strategies"):
         data_parallel(MeshSpec(pipe=2, data=-1), 4)
     assert [batch_slice(12, r, 3) for r in range(3)] == [
         slice(0, 4), slice(4, 8), slice(8, 12)]
@@ -215,10 +215,11 @@ def test_mesh_resolves_as_jax_and_refuses_more_than_one_device():
 
 
 @pytest.mark.parametrize("override,err,match", [
-    ({"parallel.strategy": "zero"}, NotImplementedError, "slice 4"),
-    ({"parallel.strategy": "pipeline"}, NotImplementedError, "slice 4"),
+    ({"parallel.strategy": "zero"}, NotImplementedError, "sharded strat"),
+    ({"parallel.strategy": "pipeline"}, NotImplementedError,
+     "sharded strat"),
     ({"parallel.strategy": "bogus"}, ValueError, "unknown strategy"),
-    ({"parallel.grad_accum": "2"}, NotImplementedError, "accumulation"),
+    ({"parallel.grad_accum": "2"}, ValueError, "not divisible"),
     ({"parallel.grad_accum": "0"}, ValueError, "accum"),
     ({"data.seq_len": "3000"}, ValueError, "not divisible"),
 ])
@@ -246,11 +247,14 @@ def test_chunked_loss_only_where_seq_exceeds_a_chunk():
 
 
 def test_remat_offload_raises():
+    # offload without remat has no saved boundaries to move: it raises,
+    # as the JAX model does, instead of running a job that may not fit
     from pytorch_distributed_nn_tpu_torch.models import get_model
 
     cfg = tconfig.get_config("llama3_longcontext",
-                             **{"model.remat_offload": "true"})
-    with pytest.raises(NotImplementedError, match="remat offload"):
+                             **{"model.remat_offload": "true",
+                                "model.remat": "false"})
+    with pytest.raises(ValueError, match="needs model.remat=True"):
         get_model(cfg.model, device="meta")
 
 
