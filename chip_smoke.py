@@ -164,6 +164,29 @@ The trainer features (run after phase 19):
 23. offload  -- llama3_longcontext_96k, 2 steps with remat_offload against
               2 without: losses bit for bit, peak memory and step time.
 
+The sharded strategies (phase 24 runs after phase 17, phases 25 and 26
+after phase 23):
+
+24. flash8b -- the three flash kernels at config 5's attention (B 1,
+              T 4096, H 32, Hkv 8: GQA group 4, D 128, causal, bf16), every
+              output in full against the plain versions; times of each
+              kernel, its plain version, its bound and SDPA's forward and
+              backward (the kernels line's ``at_8b``).
+25. zero8b  -- config 5 on one card: llama3_8b_zero at full width (d 4096,
+              32/8 heads of 128, MLP 14336, vocab 128256, T 4096, xent_chunk
+              2048, remat, adamw, clip 1.0, zero_stage 3) cut to 8 layers
+              and batch 1, NCCL at world 1 (nothing split, no collective):
+              a warm-up and 3 steps with the flash counts reset just before
+              and read just after, tokens/s, MFU, peak memory, one profiled
+              step; its losses against the dp step's from the same weights.
+26. pipe    -- config 4 as the preset sets it (mesh.pipe 4, 8 microbatches,
+              B 64, T 1024), every stage in this process: gpipe, 1f1b and
+              interleaved (pipe_chunks 3), 3 steps each with the flash
+              counts reset just before and read just after (2 L M forward,
+              L M dq, L M dk/dv a step); losses against each other and the
+              --mesh.pipe 1 --parallel.strategy dp run; peak memory, step
+              time, the most microbatches a stage held.
+
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit from nvidia-smi, and the result JSON line.
 """
@@ -2094,7 +2117,7 @@ def lm_trainer(**overrides):
     from pytorch_distributed_nn_tpu_torch.config import get_config
     from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
 
-    cfg = get_config("transformer_lm_pp", **LM_OVERRIDES, **overrides)
+    cfg = get_config("transformer_lm_pp", **{**LM_OVERRIDES, **overrides})
     return Trainer(cfg, device="cuda")  # seeded init (cfg.seed)
 
 
@@ -3226,6 +3249,277 @@ def phase_offload():
     return result, on["launches"]
 
 
+# ---------------------------------------------------------------------------
+# the sharded strategies: ZeRO (config 5) and the pipeline (config 4)
+# ---------------------------------------------------------------------------
+# config 5's attention: Llama-3-8B's 32 query and 8 KV heads of 128, T 4096
+Z8_B, Z8_T, Z8_H, Z8_HKV, Z8_D = 1, 4096, 32, 8, 128
+Z8_STEPS = 3  # timed ZeRO steps (after one warm-up step)
+Z8_LOSS_TOL = 1e-6  # relative, zero-3 against dp at world 1 (same step)
+PIPE_STEPS = 3
+PIPE_LOSS_TOL = 1e-3  # relative, bf16: schedules against each other and dp
+PIPE_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("interleaved", 3))
+
+
+def phase_flash8b(flush):
+    """The three flash kernels at config 5's shape (B 1, T 4096, H 32,
+    Hkv 8 (GQA group 4), D 128, causal, bf16), every output in full
+    against the plain versions; times of each kernel, its plain version,
+    its bound and SDPA's forward and backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_nn_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator("cuda").manual_seed(8)
+
+    def r(h):
+        return torch.randn((Z8_B, Z8_T, h, Z8_D), generator=g,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = r(Z8_H), r(Z8_HKV), r(Z8_HKV), r(Z8_H)
+    o, lse = fa.flash_fwd(q, k, v, True)
+    delta = fa.flash_delta(o, do)
+    args = (q, k, v, do, lse, delta, True)
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, True)
+    errs = {"flash_fwd": flash_check("flash_fwd O, config 5", o, o_ref)}
+    lse_err = (lse - lse_ref).abs().max().item()
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"flash_fwd lse, config 5: {lse_err}")
+    errs["flash_bwd_dq"] = flash_check("flash_bwd_dq, config 5", dq,
+                                       fa.flash_bwd_dq_reference(*args))
+    dk_ref, dv_ref = fa.flash_bwd_dkv_reference(*args)
+    errs["flash_bwd_dkv"] = worst(
+        flash_check("flash_bwd_dkv dk, config 5", dk, dk_ref),
+        flash_check("flash_bwd_dkv dv, config 5", dv, dv_ref))
+    del o_ref, lse_ref, dk_ref, dv_ref
+    torch.cuda.empty_cache()
+    kern = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, True),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq(*args),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(*args)}
+    plain = {"flash_fwd": lambda: fa.flash_forward_reference(q, k, v, True),
+             "flash_bwd_dq": lambda: fa.flash_bwd_dq_reference(*args),
+             "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_reference(*args)}
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    with torch.no_grad():
+        lib_fwd = time_ms(sdpa, 10, flush)
+    out_t = sdpa()
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out_t, (qt, kt, vt), dot, retain_graph=True), 10, flush)
+    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
+               "flash_bwd_dkv": lib_bwd}
+    out = {}
+    for name in FLASH_KERNELS:
+        ms = time_ms(kern[name], 10, flush)
+        plain[name]()  # warm-up
+        plain_ms = time_once_ms(plain[name])
+        torch.cuda.empty_cache()
+        bound, by = flash_bound_ms(name, Z8_T, Z8_B, Z8_H, Z8_HKV, Z8_D)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library[name],
+                         bound_ms=bound, bound_by=by, card=card_line(),
+                         share_of_bound=bound / ms, **errs[name],
+                         tflops=FLASH_KERNELS[name][1] * Z8_B * Z8_H * Z8_T
+                         * Z8_T * Z8_D / ms / 1e9)
+        log(f"[flash8b] {name} B={Z8_B} T={Z8_T} H={Z8_H} Hkv={Z8_HKV} "
+            f"D={Z8_D}: {json.dumps(out[name])}")
+    log(f"[flash8b] lse max|err| {lse_err:.3e}; library yardstick: "
+        "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
+        "forward, and its backward (dq, dk and dv in one call)")
+    del qt, kt, vt, out_t, q, k, v, do, o, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero8b_trainer(strategy):
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    cfg = get_config("llama3_8b_zero", log_every="1", **{
+        "model.extra": json.dumps({"num_layers": 8}),
+        "data.batch_size": "1", "parallel.strategy": strategy})
+    return Trainer(cfg, device="cuda")  # seeded init (cfg.seed)
+
+
+def phase_zero8b():
+    """Config 5 on one card: llama3_8b_zero at full width (d 4096, 32/8
+    heads of 128, MLP 14336, vocab 128256, T 4096, xent_chunk 2048, remat,
+    adamw with clip 1.0, zero_stage 3) cut to 8 of 32 layers and batch 1
+    (one card's share of the preset's 16 on a 16-card fsdp mesh), NCCL at
+    world 1: one warm-up step, then 3 steps with the flash counts reset
+    just before and read just after (16 forward, 8 dq, 8 dk/dv a step) and
+    no collective issued; tokens/s, MFU, peak memory; one profiled step;
+    then the dp step from the same weights on the same batches, whose
+    losses the zero-3 losses equal."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+    from pytorch_distributed_nn_tpu_torch.parallel.zero import ZeroShards
+    from pytorch_distributed_nn_tpu_torch.utils.flops import (
+        transformer_train_flops_per_token,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = zero8b_trainer("zero")
+    model, cfg = trainer.model, trainer.cfg
+    zs = trainer.state.sharding
+    if not (isinstance(zs, ZeroShards) and zs.stage == 3
+            and cfg.parallel.zero_stage == 3 and model.num_layers == 8
+            and model.d_model == 4096 and model.num_heads == Z8_H
+            and model.num_kv_heads == Z8_HKV and cfg.data.seq_len == Z8_T
+            and cfg.xent_chunk == 2048 and cfg.model.remat
+            and cfg.optim.grad_clip_norm == 1.0):
+        raise AssertionError("llama3_8b_zero is not config 5 at depth 8")
+    if zs.shards or zs.active:
+        raise AssertionError("at world 1 zero-3 splits nothing")
+    L = model.num_layers
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer.train(steps=1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()  # the main path's count starts here
+    with cc.recording() as records:
+        trainer.train(steps=Z8_STEPS)
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_fwd": 2 * L * Z8_STEPS, "flash_bwd_dq": L * Z8_STEPS,
+            "flash_bwd_dkv": L * Z8_STEPS}
+    if launches != want:
+        raise AssertionError(f"flash launches {launches}, want {want}")
+    if records:
+        raise AssertionError(f"collectives at world 1: {records[:3]}")
+    losses = trainer.losses()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses {losses}")
+    per_token = transformer_train_flops_per_token(model, Z8_T, causal=True)
+    report = train_report(trainer, Z8_STEPS, per_token, Z8_B * Z8_T, peak)
+    zero_losses = trainer.losses()[:1 + Z8_STEPS]
+    del trainer, model, zs
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = zero8b_trainer("dp")
+    ref.train(steps=1 + Z8_STEPS)
+    dp_losses = ref.losses()
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = max(abs(a - b) / abs(b) for a, b in zip(zero_losses, dp_losses))
+    log(f"[zero8b] zero-3 losses {zero_losses} vs dp {dp_losses} "
+        f"(max rel {err:.3e})")
+    if not err <= Z8_LOSS_TOL:
+        raise AssertionError(f"zero-3 against dp: {err} > {Z8_LOSS_TOL}")
+    result = dict(launches=launches, params=n_params, layers=L,
+                  zero_losses=zero_losses, dp_losses=dp_losses,
+                  loss_rel_err_vs_dp=err, collectives=len(records),
+                  **{k: v for k, v in report.items() if k != "losses"})
+    log(f"[zero8b] {json.dumps(result)}")
+    return result, launches
+
+
+def phase_pipe():
+    """Config 4 as the preset sets it: transformer_lm_pp with mesh.pipe 4,
+    8 microbatches, B 64, T 1024, 12 layers, d 768, 12 heads of 64, remat,
+    adam, every stage held by this one process (the local transport).
+    gpipe, then 1f1b, then interleaved with pipe_chunks 3, each 3 steps
+    from the same weights with the flash counts reset just before and
+    read just after (2 L M forward, L M dq, L M dk/dv a step); then the
+    --mesh.pipe 1 --parallel.strategy dp run: losses against each other
+    to PIPE_LOSS_TOL; peak memory, step time and the most microbatches a
+    stage held, for each. The stages run one after another on one card:
+    the step time is no pipeline's and measures no bubble."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.parallel.pipeline import (
+        PipelineStages,
+    )
+    from pytorch_distributed_nn_tpu_torch.utils.flops import (
+        transformer_train_flops_per_token,
+    )
+
+    out, launches = {}, {}
+    for schedule, chunks in PIPE_SCHEDULES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = lm_trainer(**{"mesh.pipe": "4",
+                                "parallel.strategy": "pipeline",
+                                "parallel.pipeline_schedule": schedule,
+                                "parallel.pipe_chunks": str(chunks)})
+        st, cfg = trainer.state.sharding, trainer.cfg
+        L, M = trainer.model.num_layers, cfg.parallel.microbatches
+        if not (isinstance(st, PipelineStages) and st.S == 4
+                and st.devices == [0, 1, 2, 3] and M == 8
+                and (cfg.data.batch_size, cfg.data.seq_len) == (LM_B, LM_T)
+                and cfg.model.remat and trainer.model.head_dim == LM_D):
+            raise AssertionError(f"transformer_lm_pp under {schedule}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()
+        trainer.train(steps=PIPE_STEPS)
+        got = flash_counts()
+        want = {"flash_fwd": 2 * L * M * PIPE_STEPS,
+                "flash_bwd_dq": L * M * PIPE_STEPS,
+                "flash_bwd_dkv": L * M * PIPE_STEPS}
+        if got != want:
+            raise AssertionError(f"{schedule}: flash launches {got}, want "
+                                 f"{want}")
+        losses = trainer.losses()
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{schedule}: losses {losses}")
+        step_s, _ = step_stats(trainer, PIPE_STEPS)
+        flops = transformer_train_flops_per_token(
+            trainer.model, LM_T, causal=True) * LM_B * LM_T
+        out[schedule] = dict(
+            pipe_chunks=chunks, losses=losses,
+            step_s=[r.seconds for r in trainer.history],
+            median_step_s=step_s, tokens_per_s=LM_B * LM_T / step_s,
+            mfu=flops / step_s / BF16_OPS_PER_S,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            most_live_microbatches=dict(st.peak_live), launches=got)
+        launches[schedule] = got
+        log(f"[pipe] {schedule}: {json.dumps(out[schedule])}")
+        del trainer, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = lm_trainer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ref.train(steps=PIPE_STEPS)
+    step_s, _ = step_stats(ref, PIPE_STEPS)
+    flops = transformer_train_flops_per_token(
+        ref.model, LM_T, causal=True) * LM_B * LM_T
+    out["dp"] = dict(losses=ref.losses(), median_step_s=step_s,
+                     tokens_per_s=LM_B * LM_T / step_s,
+                     mfu=flops / step_s / BF16_OPS_PER_S,
+                     peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = out["dp"]["losses"]
+    errs = {name: max(abs(a - b) / abs(b)
+                      for a, b in zip(out[name]["losses"], want))
+            for name, _ in PIPE_SCHEDULES}
+    log(f"[pipe] losses against dp (max rel): {errs}")
+    if not max(errs.values()) <= PIPE_LOSS_TOL:
+        raise AssertionError(f"pipeline losses against dp: {errs} > "
+                             f"{PIPE_LOSS_TOL}")
+    if out["1f1b"]["most_live_microbatches"] != {
+            s: min(8, 2 * (4 - s) - 1) for s in range(4)}:
+        raise AssertionError("1f1b held more microbatches than 2(S-s)-1")
+    result = dict(card=card_line(), loss_rel_err_vs_dp=errs, **out)
+    log(f"[pipe] {json.dumps(result)}")
+    return result, launches
+
+
 def main() -> int:
     started = time.monotonic()
     import torch
@@ -3259,6 +3553,7 @@ def main() -> int:
     rows, max_err, library_label = phase_kernel(flush)
     flash_rows, lse_err = phase_flash(flush)
     flash64 = phase_flash64(flush)
+    flash8b = phase_flash8b(flush)
     ring = phase_ring(flush)
     del flush
     torch.cuda.empty_cache()
@@ -3279,6 +3574,8 @@ def main() -> int:
     accum, accum_flash, accum_bn = phase_accum()
     multistep = phase_multistep()
     offload, offload_flash = phase_offload()
+    zero8b, zero8b_flash = phase_zero8b()
+    pipe, pipe_flash = phase_pipe()
 
     model = build_model(seed=0)
     forward = phase_forward(model)
@@ -3325,6 +3622,15 @@ def main() -> int:
                 launches_accum=accum_flash[name],
                 accum="transformer_lm_pp with grad_accum 4 (4 x B 16), "
                       "3 timed steps"),
+            at_8b=dict(
+                launches=zero8b_flash[name], **flash8b[name],
+                per="one call at B 1, T 4096, H 32, Hkv 8, D 128, causal "
+                    "(llama3_8b_zero, config 5); launches: its 3 timed "
+                    "zero-3 steps at depth 8"),
+            launches_pipe={sched: pipe_flash[sched][name]
+                           for sched in pipe_flash},
+            pipe="transformer_lm_pp on mesh.pipe 4 (one process, every "
+                 "stage), 8 microbatches, 3 steps a schedule",
             launches_resume=ckpt["launches"][name],
             launches_offload=offload_flash[name],
             resume="llama3_longcontext, 2 steps + save + a resumed "
@@ -3392,7 +3698,8 @@ def main() -> int:
                         dp_train=dp_train, dp_preset=dp_preset,
                         flash64=flash64, lm_d64=lm_d64, bert=bert,
                         ckpt=ckpt, accum=accum, multistep=multistep,
-                        offload=offload)))
+                        offload=offload, flash8b=flash8b, zero8b=zero8b,
+                        pipe=pipe)))
     from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
 
     bootstrap.shutdown()  # the NCCL group of the data-parallel phases

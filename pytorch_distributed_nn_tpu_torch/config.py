@@ -4,7 +4,7 @@ the ported slices read.
 Typed dataclasses with dotted CLI overrides (``--optim.lr=0.1``,
 ``--model.extra '{"quantized": true}'``) and the named presets the port
 runs. A field the port does not read yet is not declared, so an override
-naming it (``--metrics_path``, ``--profile_dir``, ``--parallel.zero_stage``)
+naming it (``--metrics_path``, ``--profile_dir``, ``--data.path``)
 fails as an unknown field instead of being ignored.
 """
 
@@ -68,7 +68,7 @@ class ModelConfig:
 
 @dataclass
 class ParallelConfig:
-    strategy: str = "dp"  # single | dp | dp_explicit
+    strategy: str = "dp"  # single | dp | dp_explicit | zero | pipeline
     # dp_explicit's DDP-style bucket controller (ops/buckets.py): bucket
     # size in MB (<= 0: no buckets, one all-reduce a tensor, unless a
     # quantized wire asks for one large bucket)
@@ -78,9 +78,21 @@ class ParallelConfig:
     # OverlapReducer); the result is bit for bit the one after the backward
     overlap: bool = True
     quantized_allreduce: str = ""  # "" | "bf16" | "int8" (dp_explicit)
-    # gradient accumulation (single/dp): the global batch runs as this
-    # many microbatches, their gradients summed in f32, one update
+    # zero: 1 = optimizer state sharded over fsdp, parameters replicated;
+    # 3 = parameters too (0 = the dp step)
+    zero_stage: int = 3
+    # pipeline: microbatches a step (the batch splits into this many)
+    microbatches: int = 1
+    # gradient accumulation (single/dp/zero): the global batch runs as
+    # this many microbatches, their gradients summed in f32, one update
     grad_accum: int = 1
+    # pipeline: "gpipe" (all forwards, then all backwards), "1f1b"
+    # (PipeDream-flush: at most 2(S - s) - 1 microbatches live on stage s)
+    # or "interleaved" (pipe_chunks virtual stages a device)
+    pipeline_schedule: str = "gpipe"
+    # virtual chunks a device under pipeline_schedule "interleaved" (the
+    # layers divide by stages x chunks, the microbatches by stages)
+    pipe_chunks: int = 1
 
 
 @dataclass
@@ -165,9 +177,9 @@ def parse_overrides(argv: list[str]) -> dict[str, str]:
 
 
 def _llama3_8b_zero() -> TrainConfig:
-    # Config 5: Llama-3-8B sharded data-parallel. Its ZeRO training is
-    # multi-card work (ROADMAP.md §1 item 3, the sharded strategies); the
-    # serve entry uses its model.
+    # Config 5: "Llama-3-8B sharded data-parallel (allgather params +
+    # reduce-scatter grads)": ZeRO stage 3 over fsdp; the serve entry uses
+    # its model.
     return TrainConfig(
         preset="llama3_8b_zero",
         steps=20,
@@ -178,7 +190,7 @@ def _llama3_8b_zero() -> TrainConfig:
         data=DataConfig(dataset="lm_synthetic", batch_size=16, seq_len=4096,
                         vocab_size=128256),
         model=ModelConfig(name="llama3_8b", remat=True),
-        parallel=ParallelConfig(strategy="zero"),
+        parallel=ParallelConfig(strategy="zero", zero_stage=3),
         xent_chunk=2048,
     )
 
@@ -270,9 +282,8 @@ def _bert_base_buckets() -> TrainConfig:
 
 
 def _transformer_lm_pp() -> TrainConfig:
-    # Config 4: "Transformer-LM pipeline-parallel (send/recv p2p)". The
-    # pipeline strategy is not ported yet (it raises); with
-    # --mesh.pipe 1 --parallel.strategy dp the model trains on one card.
+    # Config 4: "Transformer-LM pipeline-parallel (send/recv p2p)": 4
+    # stages, 8 microbatches a step (parallel/pipeline.py).
     return TrainConfig(
         preset="transformer_lm_pp",
         steps=50,
@@ -281,7 +292,8 @@ def _transformer_lm_pp() -> TrainConfig:
                           schedule="cosine"),
         data=DataConfig(dataset="lm_synthetic", batch_size=64, seq_len=1024),
         model=ModelConfig(name="transformer_lm", remat=True),
-        parallel=ParallelConfig(strategy="pipeline"),
+        parallel=ParallelConfig(strategy="pipeline", microbatches=8,
+                                pipeline_schedule="gpipe"),
     )
 
 

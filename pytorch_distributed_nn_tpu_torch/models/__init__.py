@@ -1,7 +1,7 @@
 """Model registry: ``register`` / ``get_model`` as in the JAX package.
 Ported: ``llama3_8b``, ``mlp``, ``lenet``, ``resnet50``, ``bert_base``,
 ``transformer_lm`` and ``vit``. The MoE LM is not: it needs the expert
-axis (ROADMAP.md §1 item 3, the sharded strategies)."""
+axis (ROADMAP.md §1 item 3, the remaining sharded strategies)."""
 
 from __future__ import annotations
 
@@ -39,9 +39,11 @@ def get_model(cfg: ModelConfig, device="cuda", input_shape=None, seq=None):
     )
 
     if cfg.name == "moe_lm":
+        from pytorch_distributed_nn_tpu_torch.runtime.mesh import REMAINING
+
         raise NotImplementedError(
-            "model 'moe_lm' is not ported yet: it needs the expert axis "
-            "(ROADMAP.md §1 item 3, the sharded strategies)")
+            f"model 'moe_lm' is not ported yet: it needs the expert axis "
+            f"({REMAINING})")
     if cfg.name not in _REGISTRY:
         raise KeyError(
             f"unknown model {cfg.name!r}; have {sorted(_REGISTRY)}")

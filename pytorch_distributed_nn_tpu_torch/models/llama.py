@@ -36,7 +36,7 @@ from pytorch_distributed_nn_tpu_torch.config import ModelConfig
 from pytorch_distributed_nn_tpu_torch.models import register
 from pytorch_distributed_nn_tpu_torch.nn.attention import MultiHeadAttention
 from pytorch_distributed_nn_tpu_torch.nn.dtypes import get_policy
-from pytorch_distributed_nn_tpu_torch.nn.layers import Dense
+from pytorch_distributed_nn_tpu_torch.nn.layers import Dense, Embed
 from pytorch_distributed_nn_tpu_torch.nn.quantized import Int8Dense, Int8Embed
 from pytorch_distributed_nn_tpu_torch.runtime.mesh import SeqGroup
 from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
@@ -156,9 +156,8 @@ class Llama(nn.Module):
             self.tok_embed = Int8Embed(vocab_size, d_model, dtype=dtype,
                                        device=device)
         else:
-            self.tok_embed = nn.Module()
-            self.tok_embed.embedding = nn.Parameter(torch.zeros(
-                (vocab_size, d_model), dtype=param_dtype, device=device))
+            self.tok_embed = Embed(vocab_size, d_model,
+                                   param_dtype=param_dtype, device=device)
         for i in range(num_layers):
             self.add_module(f"layer{i}", LlamaBlock(
                 d_model, num_heads, num_kv_heads, mlp_dim,
@@ -192,7 +191,7 @@ class Llama(nn.Module):
             x = self.tok_embed(tokens)
         else:
             # int32 tokens index as they are (values unchanged)
-            x = F.embedding(tokens, self.tok_embed.embedding).to(self.dtype)
+            x = self.embed(tokens)
         remat = self.remat and cache is None and torch.is_grad_enabled()
         if remat and self.remat_offload:
             self.offloaded = dict(tensors=0, bytes=0, pinned=True)
@@ -217,6 +216,22 @@ class Llama(nn.Module):
             x = x[:, -1:]
         x = self.final_norm(x)
         return x if return_hidden else self.lm_head(x)
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The token embedding in the compute dtype (the float model)."""
+        return self.tok_embed(tokens).to(self.dtype)
+
+    def run_block(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """Layer ``name`` on ``x`` without a cache, rerun in the backward
+        under remat (the pipeline's stages; no host offload there)."""
+        block = getattr(self, name)
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, x, None, None, use_reentrant=False)
+        return block(x)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm and the f32 ``lm_head``: the logits."""
+        return self.lm_head(self.final_norm(x))
 
     def init_params(self, seed: int = 0) -> "Llama":
         return init_float_params(self, seed=seed)

@@ -9,8 +9,9 @@ Submodules keep the flax names (``tok_embed``, ``pos_embed``,
 Attention's ``attn_impl="auto"`` takes the flash kernels on the card in
 bf16 from T = 128 at head_dim 64 or 128 (``nn/attention.py``), and the
 plain path elsewhere. The decode cache is not ported yet (ROADMAP.md,
-slice 5: the serving features); the pipeline schedule that config 4 runs
-this model under is ROADMAP.md §1 item 3, the sharded strategies.
+slice 5: the serving features). The pipeline (``parallel/pipeline.py``)
+runs the model's three parts by themselves: :meth:`TransformerLM.embed`,
+:meth:`TransformerLM.run_block` and :meth:`TransformerLM.head`.
 """
 
 from __future__ import annotations
@@ -111,19 +112,33 @@ class TransformerLM(nn.Module):
         if T > self.max_len:
             raise ValueError(
                 f"sequence length {T} exceeds max_len {self.max_len}")
-        if positions is None:
-            positions = torch.arange(T, device=tokens.device)[None]
-        x = (self.tok_embed(tokens) + self.pos_embed(positions)).to(
-            self.dtype)
-        remat = self.remat and torch.is_grad_enabled()
+        x = self.embed(tokens, positions)
         for i in range(self.num_layers):
-            block = getattr(self, f"block{i}")
-            x = (checkpoint(block, x, use_reentrant=False) if remat
-                 else block(x))
+            x = self.run_block(f"block{i}", x)
         if last_only:
             x = x[:, -1:]
         x = self.ln_f(x)
         return x if return_hidden else self.lm_head(x)
+
+    def embed(self, tokens: torch.Tensor,
+              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token plus position embeddings, in the compute dtype."""
+        if positions is None:
+            positions = torch.arange(tokens.shape[1],
+                                     device=tokens.device)[None]
+        return (self.tok_embed(tokens) + self.pos_embed(positions)).to(
+            self.dtype)
+
+    def run_block(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """Block ``name`` on ``x``, rerun in the backward under remat."""
+        block = getattr(self, name)
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, x, use_reentrant=False)
+        return block(x)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """``ln_f`` and the f32 ``lm_head``: the logits."""
+        return self.lm_head(self.ln_f(x))
 
     def init_params(self, seed: int = 0) -> "TransformerLM":
         return init_params_(self, seed)

@@ -13,7 +13,10 @@ so a mean is a SUM divided by the group's size, on every backend alike.
 
 The sequence-parallel verbs (:func:`shift_right`, :func:`all_to_all`)
 return new tensors and are differentiable (their backward is the reverse
-exchange), as the JAX verbs are under ``jax.grad``.
+exchange), as the JAX verbs are under ``jax.grad``. The sharded strategies
+use :func:`all_gather_into_tensor` and :func:`reduce_scatter_tensor`
+(ZeRO's gather of a parameter and the sum of its gradient's shards) and
+:func:`exchange` (the pipeline's point-to-point hops).
 """
 
 from __future__ import annotations
@@ -82,14 +85,20 @@ def payload_bytes(records: Sequence[CommRecord]) -> int:
 def ring_wire_bytes(op: str, payload: float, n: int) -> float:
     """Bytes each of ``n`` ranks sends for one collective on ``payload``
     bytes, by the ring algorithm: an all-reduce (or a broadcast done as
-    one) sends 2(n-1)/n of the payload; a ring shift sends the payload once
-    (nothing at n = 1); an all-to-all keeps 1/n of it and sends the rest."""
+    one) sends 2(n-1)/n of the payload; a ring shift or a point-to-point
+    send sends the payload once (a shift nothing at n = 1); an all-to-all
+    or a reduce-scatter keeps 1/n of it and sends the rest; an all-gather
+    passes n - 1 shards (the payload) on."""
     if op in ("all_reduce", "broadcast"):
         return 2.0 * payload * (n - 1) / max(n, 1)
     if op == "shift":
         return float(payload) if n > 1 else 0.0
-    if op == "all_to_all":
+    if op == "send":
+        return float(payload)
+    if op in ("all_to_all", "reduce_scatter"):
         return payload * (n - 1) / max(n, 1)
+    if op == "all_gather":
+        return float(payload) * (n - 1)
     raise ValueError(f"unknown collective {op!r}")
 
 
@@ -155,6 +164,53 @@ def broadcast(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     _record("broadcast", x, group)
     dist.broadcast(x, src=src, group=group)
     return x
+
+
+# the newer names of the same calls where this torch has them
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def all_gather_into_tensor(out: torch.Tensor, x: torch.Tensor,
+                           group=None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0 into ``out`` (rank order
+    of the group); returns ``out``. The payload is ``x``, the shard."""
+    _record("all_gather", x, group)
+    _ALL_GATHER(out, x.contiguous(), group=group)
+    return out
+
+
+def reduce_scatter_tensor(out: torch.Tensor, x: torch.Tensor,
+                          group=None) -> torch.Tensor:
+    """The sum over the group's ranks of ``x``, of which rank i keeps the
+    i-th of the group-size equal pieces along dim 0, into ``out``;
+    returns ``out``. The payload is ``x``, the whole tensor."""
+    _record("reduce_scatter", x, group)
+    _REDUCE_SCATTER(out, x.contiguous(), op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def exchange(sends: Sequence[tuple[int, torch.Tensor]],
+             recvs: Sequence[tuple[int, torch.Tensor]],
+             group=None) -> None:
+    """One hop of point-to-point traffic as one ``batch_isend_irecv``:
+    each ``(peer, tensor)`` of ``sends`` goes to the peer (its index in
+    the group), each of ``recvs`` is filled from its peer. Between two
+    ranks, the sends of one and the receives of the other come in the same
+    order (NCCL matches them by order). Waits for all of them."""
+    if not sends and not recvs:
+        return
+    for _, t in sends:
+        _record("send", t, group, n=2)
+    ops = [dist.P2POp(dist.isend, t.contiguous(),
+                      dist.get_global_rank(group, peer), group=group)
+           for peer, t in sends]
+    ops += [dist.P2POp(dist.irecv, t, dist.get_global_rank(group, peer),
+                       group=group) for peer, t in recvs]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
 
 
 def tree_all_reduce_mean(tensors: Iterable[torch.Tensor],

@@ -6,9 +6,10 @@
 Ported: ``single``, ``dp`` and ``dp_explicit`` over a process group, with
 ``parallel.overlap`` (the reduction issued from the backward), sequence
 parallelism (``mesh.seq > 1``) and gradient accumulation
-(``parallel.grad_accum``) under ``single``/``dp``. The
-sharded strategies (``zero``, ``pipeline``, ``ps``) raise, naming the
-ROADMAP item that ports them.
+(``parallel.grad_accum``) under ``single``/``dp``/``zero``; ``zero``
+(stages 1 and 3, ``parallel/zero.py``) and ``pipeline`` (gpipe, 1f1b,
+interleaved; ``parallel/pipeline.py``). ``ps`` and ``zero`` with
+``mesh.seq > 1`` raise, naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -17,13 +18,16 @@ import logging
 from typing import Callable
 
 from pytorch_distributed_nn_tpu_torch.config import TrainConfig
-from pytorch_distributed_nn_tpu_torch.runtime.mesh import MeshSpec
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import (
+    REMAINING,
+    MeshSpec,
+    ProcessMesh,
+)
 from pytorch_distributed_nn_tpu_torch.train.state import TrainState
 
 log = logging.getLogger(__name__)
 
-_LATER = ("zero", "pipeline", "ps")
-_SHARDED = "ROADMAP.md §1 item 3, the sharded strategies"
+_STRATEGIES = ("single", "dp", "dp_explicit", "zero", "pipeline")
 
 
 def make_chunked_loss(chunk: int) -> Callable:
@@ -38,6 +42,7 @@ def make_chunked_loss(chunk: int) -> Callable:
                                chunk=chunk)
 
     loss_fn.needs_params = True
+    loss_fn.reads = ("lm_head.kernel",)  # ZeRO-3 holds it gathered
     loss_fn.apply_kwargs = {"return_hidden": True}
     return loss_fn
 
@@ -50,6 +55,9 @@ def _check_seq(cfg: TrainConfig, seq: int) -> None:
         raise ValueError(
             "mesh.seq > 1 shards the sequence dim of (B, T) token batches; "
             f"dataset {cfg.data.dataset!r} has no sequence dim to shard")
+    if cfg.parallel.strategy == "zero":
+        raise NotImplementedError(
+            f"zero with mesh.seq > 1 is not ported yet ({REMAINING})")
     if cfg.parallel.strategy not in ("single", "dp"):
         raise ValueError(
             "mesh.seq > 1 needs the replicated step (single/dp): strategy "
@@ -68,17 +76,28 @@ def _check_seq(cfg: TrainConfig, seq: int) -> None:
 
 
 def make_train_step(cfg: TrainConfig, loss_fn: Callable,
-                    mesh: MeshSpec | None = None
+                    mesh: MeshSpec | None = None, *,
+                    process: ProcessMesh | None = None
                     ) -> tuple[Callable, Callable[[TrainState], TrainState]]:
     """``(step_fn, place_state_fn)`` over the ranks of the default process
     group: the step, and the function that lays the freshly built state
-    out across them (rank 0's broadcast). ``mesh`` is the resolved mesh
-    (``cfg.mesh`` when None); under sequence parallelism the step's loss
-    and gradients are each rank's mean over its tokens, averaged over
-    every rank, which is the global mean because the shards are equal."""
+    out across them (rank 0's broadcast; under ``zero`` and ``pipeline``
+    also the rank's slices or stages and the optimizer over them, where
+    the caller builds it otherwise). ``mesh`` is the resolved mesh
+    (``cfg.mesh`` when None); ``process`` the rank's groups (made from
+    ``cfg.mesh`` and the process group when the state is placed, if
+    None). Under sequence parallelism the step's loss and gradients are
+    each rank's mean over its tokens, averaged over every rank, which is
+    the global mean because the shards are equal."""
     from pytorch_distributed_nn_tpu_torch.parallel import dp
 
     strategy = cfg.parallel.strategy
+    if strategy == "ps":
+        raise NotImplementedError(
+            f"strategy 'ps' (the asynchronous parameter server) is not "
+            f"ported yet ({REMAINING})")
+    if strategy not in _STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r}")
     seq = (mesh or cfg.mesh).seq
     if seq > 1:
         _check_seq(cfg, seq)
@@ -86,23 +105,20 @@ def make_train_step(cfg: TrainConfig, loss_fn: Callable,
     if accum < 1:
         raise ValueError(f"parallel.grad_accum must be >= 1, got {accum}")
     if accum > 1:
-        # the JAX package's rule: the compiler-sharded steps (zero is not
-        # ported yet and raises below)
         if strategy not in ("single", "dp", "zero"):
             raise ValueError(
-                f"grad_accum needs the replicated step (single/dp/zero), "
-                f"got strategy {strategy!r}")
+                f"grad_accum needs the replicated or ZeRO step (single/dp/"
+                f"zero), got strategy {strategy!r} (the pipeline "
+                "microbatches its own schedule: parallel.microbatches)")
         if cfg.data.batch_size % accum:
             raise ValueError(
                 f"batch_size {cfg.data.batch_size} not divisible by "
                 f"grad_accum {accum}")
-    if strategy in _LATER:
-        raise NotImplementedError(
-            f"strategy {strategy!r} is not ported yet ({_SHARDED}); have "
-            "'single', 'dp' and 'dp_explicit'")
-    if strategy not in ("single", "dp", "dp_explicit"):
-        raise ValueError(f"unknown strategy {strategy!r}")
     if cfg.xent_chunk:
+        if strategy not in ("single", "dp", "dp_explicit", "zero"):
+            raise ValueError(
+                f"xent_chunk is not supported under strategy {strategy!r} "
+                "(needs the shared dp/zero step)")
         if cfg.data.dataset != "lm_synthetic":
             raise ValueError(
                 "xent_chunk is a causal-LM loss option (datasets "
@@ -123,7 +139,28 @@ def make_train_step(cfg: TrainConfig, loss_fn: Callable,
         # else: the rank's sequence fits in one chunk, and the dense loss
         # (which does support label_smoothing) is already within the
         # chunked memory bound
-    if strategy in ("single", "dp"):
+
+    def mesh_of() -> ProcessMesh:
+        if process is not None:
+            return process
+        from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+        from pytorch_distributed_nn_tpu_torch.runtime.mesh import (
+            process_mesh,
+        )
+
+        return process_mesh(cfg.mesh, cc.rank(), cc.world_size())
+
+    if strategy == "zero" and cfg.parallel.zero_stage != 0:
+        from pytorch_distributed_nn_tpu_torch.parallel import zero
+
+        return zero.make_sharded_train_step(
+            loss_fn, mesh_of, stage=cfg.parallel.zero_stage, accum=accum,
+            optim_cfg=cfg.optim, total_steps=cfg.steps)
+    if strategy == "pipeline":
+        from pytorch_distributed_nn_tpu_torch.parallel import pipeline
+
+        return pipeline.make_pipeline_train_step(cfg, loss_fn, mesh_of)
+    if strategy in ("single", "dp", "zero"):  # zero stage 0: the dp step
         if cfg.parallel.quantized_allreduce:
             log.warning("quantized_allreduce requires strategy='dp_explicit' "
                         "(the 'dp' step reduces exactly) -- ignoring")

@@ -1,17 +1,53 @@
-"""The shared train step of the JAX package's ``parallel/zero.py``
-(``_build_step``) at stage 0: data parallelism with the model replicated,
-loss and gradients, their mean across ranks, one optimizer update.
+"""Sharded data parallelism, ZeRO (the JAX package's ``parallel/zero.py``):
+BASELINE.json config 5, "allgather params + reduce-scatter grads".
 
-Across ranks this is the JAX ``dp`` step, where the compiler shards the
-batch: BatchNorm statistics span the global batch (the ``dp`` place
-function sets each BatchNorm's ``sync_group``), and every gradient is
-all-reduced to its mean, one tensor at a time: after the backward, or
-with ``overlap`` from the backward as each gradient is accumulated
-(``ops.buckets.OverlapReducer``; bit for bit the same). At world 1 the
-mean is the identity and nothing is issued. A token-weighted loss (the
-masked LM's) is divided by the global count of valid tokens, as the JAX
-``dp`` step's one computation over the global batch does. Sharded stages
-are ROADMAP.md §1 item 3, the sharded strategies.
+Stage 0 (:func:`make_zero_train_step`) is the shared data-parallel step
+(the ``dp`` strategy): the model replicated, loss and gradients, their
+mean across ranks, one optimizer update. Across ranks this is the JAX
+``dp`` step, where the compiler shards the batch: BatchNorm statistics
+span the global batch (the ``dp`` place function sets each BatchNorm's
+``sync_group``), and every gradient is all-reduced to its mean, one tensor
+at a time: after the backward, or with ``overlap`` from the backward as
+each gradient is accumulated (``ops.buckets.OverlapReducer``; bit for bit
+the same). At world 1 the mean is the identity and nothing is issued. A
+token-weighted loss (the masked LM's) is divided by the global count of
+valid tokens, as the JAX ``dp`` step's one computation over the global
+batch does.
+
+Stages 1 and 3 (:func:`make_sharded_train_step`), where the JAX package
+lays the state out by ``sharding_rules.spec_for`` and lets XLA insert the
+collectives, do the same by hand over the rank's ``fsdp`` group
+(:class:`ZeroShards`): each leaf that ``spec_for`` splits over ``fsdp`` is
+held as the slice the JAX device at the same ``fsdp`` coordinate holds,
+and smaller leaves stay replicated.
+
+- Stage 1: the parameters stay whole; the optimizer holds the moments of
+  this rank's slice only (its parameters are views of the slices). Each
+  gradient is reduce-scattered to its mean slice as it completes in the
+  backward, the owner updates its slice, and the new parameter is
+  all-gathered after the update.
+- Stage 3: each split parameter lives as its slice; the module's tensor
+  keeps its shape but no storage. A unit (a direct child of the model:
+  an embedding, a block, the head) gathers its parameters before its
+  forward and frees them after; before its backward (a hook on its
+  output's gradient) it gathers them again, also for remat's recompute,
+  and frees them once each of its gradients is complete and
+  reduce-scattered. A loss that reads a parameter itself (the chunked
+  LM loss reads ``lm_head.kernel``, ``loss_fn.reads``) holds that unit
+  gathered from before the forward until its gradient is complete.
+
+Replicated leaves are all-reduced to their mean over data x fsdp, as
+under ``dp``; a split gradient's reduce-scattered sum over ``fsdp`` is
+then summed over ``data`` and divided by data x fsdp. Gradient
+accumulation splits the batch as the stage-0 step does
+(:func:`split_microbatches`); the gradients are summed over the
+microbatches in f32 and reduced once, from the last microbatch's
+backward. Every collective of a step is issued in the same order on every
+rank (the backward's order). At world 1 nothing is split
+(``spec_for`` with fsdp 1), no hook is registered and no collective is
+issued: the step is the ``dp`` step. The global-norm clip, lamb's trust
+ratio and adafactor's factored moments take their sums across the
+slices (``train.optim.ShardLayout``).
 
 Gradient accumulation (``accum > 1``, the JAX ``step_accum``): the batch
 runs as ``accum`` microbatches, one forward and backward each, and one
@@ -35,24 +71,35 @@ issue nothing on the earlier microbatches.
 
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+from typing import Callable, Iterable
 
 import torch
+import torch.distributed as dist
 
+from pytorch_distributed_nn_tpu_torch.nn.batchnorm import TpuBatchNorm
 from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
 from pytorch_distributed_nn_tpu_torch.parallel import dp
+from pytorch_distributed_nn_tpu_torch.parallel.sharding_rules import (
+    fsdp_dim,
+    shard_slice,
+)
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import ProcessMesh
+from pytorch_distributed_nn_tpu_torch.train.optim import (
+    ShardLayout,
+    make_optimizer,
+)
 from pytorch_distributed_nn_tpu_torch.train.state import TrainState
 
 
 def make_zero_train_step(loss_fn: Callable, *, stage: int = 0,
                          accum: int = 1, overlap: bool = False) -> Callable:
-    """``step(state, x, y) -> (state, {"loss": loss})``; the state is
-    updated in place. ``loss`` is the mean over the ranks' batches."""
+    """The stage-0 step: ``step(state, x, y) -> (state, {"loss": loss})``;
+    the state is updated in place. ``loss`` is the mean over the ranks'
+    batches. Stages 1 and 3 are :func:`make_sharded_train_step`."""
     if stage != 0:
-        raise NotImplementedError(
-            f"zero_stage {stage} shards parameters or optimizer state "
-            "across devices: not ported yet (ROADMAP.md §1 item 3, the "
-            "sharded strategies)")
+        raise ValueError(f"the replicated step is stage 0, got {stage} "
+                         "(make_sharded_train_step runs 1 and 3)")
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")
 
@@ -160,3 +207,325 @@ def _global_token_mean(loss_fn: Callable, y, world: int) -> Callable:
     count = cc.all_reduce_sum(valid_mask(y).sum().float().reshape(1))[0]
     denom = count.clamp(min=1) / world
     return lambda out, labels: loss_fn(out, labels, denom=denom)
+
+
+# --------------------------------------------------------------------------
+# stages 1 and 3
+# --------------------------------------------------------------------------
+
+def _gather(full: torch.Tensor, shard: torch.Tensor, dim: int, group,
+            size: int) -> None:
+    """``full`` (along ``dim``) from every rank's ``shard``, in place."""
+    buf = torch.empty((size * shard.shape[dim],) + tuple(
+        s for i, s in enumerate(shard.shape) if i != dim),
+        dtype=shard.dtype, device=shard.device)
+    cc.all_gather_into_tensor(buf, shard.movedim(dim, 0), group)
+    full.copy_(buf.movedim(0, dim))
+
+
+def _scatter_sum(grad: torch.Tensor, dim: int, group,
+                 size: int) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum over ``group`` of
+    ``grad``."""
+    moved = grad.movedim(dim, 0)
+    out = torch.empty((moved.shape[0] // size,) + tuple(moved.shape[1:]),
+                      dtype=grad.dtype, device=grad.device)
+    cc.reduce_scatter_tensor(out, moved, group)
+    return out.movedim(0, dim).contiguous()
+
+
+class _Unit:
+    """A direct child of the model that holds split parameters (stage 3):
+    gathered or freed together."""
+
+    def __init__(self, names: list[str]) -> None:
+        self.names = names  # its split parameters
+        self.gathered = False
+        self.in_backward = False  # gathered for its backward (and remat)
+        self.held = False  # a loss reads it: kept until its gradients
+        self.pending: set[str] = set()
+
+
+class ZeroShards:
+    """The ZeRO layout of one model on one rank (``state.sharding``): which
+    slice of each parameter it owns (``dims``, ``shards``), the optimizer's
+    tensors, and, at stage 3, the hooks that gather and free the units.
+    Built by :func:`make_sharded_train_step`'s place function."""
+
+    def __init__(self, model: torch.nn.Module, mesh: ProcessMesh,
+                 stage: int) -> None:
+        self.model = model
+        self.stage = stage
+        self.mesh = mesh
+        self.fsdp, self.data = mesh.fsdp, mesh.data
+        self.replica = mesh.replica  # the data axis alone
+        n = self.fsdp.size
+        self.named = {k: p for k, p in model.named_parameters()
+                      if p.requires_grad}
+        self.dims = {k: fsdp_dim(k, tuple(p.shape), n)
+                     for k, p in self.named.items()}
+        self.shards: dict[str, torch.Tensor] = {}
+        self.shapes = {k: tuple(p.shape) for k, p in self.named.items()}
+        with torch.no_grad():
+            for k, p in self.named.items():
+                d = self.dims[k]
+                if d is None:
+                    continue
+                part = shard_slice(p.shape[d], self.fsdp.index, n)
+                view = p.detach().narrow(d, part.start, part.stop - part.start)
+                shard = view.clone() if stage == 3 else view
+                self.shards[k] = shard.requires_grad_()
+        self._name_of = {id(p): k for k, p in self.named.items()}
+        self._units: dict[str, _Unit] = {}
+        self._unit_of: dict[str, _Unit] = {}
+        self._last = True  # this backward's gradients are reduced
+        self._accum = 1
+        self._sums: dict[str, torch.Tensor] = {}
+        self._reduced: set[str] = set()
+        if self.active:
+            self._install()
+        if stage == 3:
+            for unit in self._units.values():
+                self._free(unit)
+
+    @property
+    def active(self) -> bool:
+        """Whether anything is split or reduced (false at world 1)."""
+        return bool(self.shards) or self.data.size > 1
+
+    # -- what the optimizer and the checkpoint see -----------------------
+
+    def optimizer_params(self) -> list[torch.Tensor]:
+        """The tensors the optimizer updates, in parameter order: the slice
+        of a split parameter, the parameter itself otherwise."""
+        return [self.shards.get(k, p) for k, p in self.named.items()]
+
+    def layout(self) -> ShardLayout:
+        return ShardLayout(dims=[self.dims[k] if k in self.shards else None
+                                 for k in self.named],
+                           shapes=list(self.shapes.values()),
+                           group=self.fsdp.group, size=self.fsdp.size)
+
+    def owned_params(self) -> dict[str, torch.Tensor]:
+        """The state's parameter tensors that differ from the module's: the
+        slices, at stage 3 (stage 1 keeps every parameter whole)."""
+        return dict(self.shards) if self.stage == 3 else {}
+
+    def meta(self) -> dict:
+        """The layout a checkpoint records."""
+        return {"strategy": "zero", "zero_stage": self.stage,
+                "mesh": self.mesh.spec.sizes(),
+                "split": {k: [self.dims[k], list(self.shapes[k])]
+                          for k in self.shards}}
+
+    @property
+    def part_name(self) -> str:
+        """This rank's piece of a checkpoint."""
+        return f"fsdp{self.fsdp.index}"
+
+    def parts(self) -> list[str]:
+        return [f"fsdp{i}" for i in range(self.fsdp.size)]
+
+    @property
+    def writes(self) -> bool:
+        """Whether this rank writes its piece (the first data replica)."""
+        return self.replica.index == 0
+
+    # -- stage 3: gather and free ----------------------------------------
+
+    def _install(self) -> None:
+        model = self.model
+        for uname, child in model.named_children():
+            names = [k for k in self.shards
+                     if k.startswith(uname + ".")]
+            if not names:
+                continue
+            unit = self._units[uname] = _Unit(names)
+            for k in names:
+                self._unit_of[k] = unit
+            if self.stage == 3:
+                child.register_forward_pre_hook(
+                    lambda m, args, u=unit: self._gather_unit(u))
+                child.register_forward_hook(
+                    lambda m, args, out, u=unit: self._after_forward(u, out))
+        for p in self.named.values():
+            p.register_post_accumulate_grad_hook(
+                lambda p: self._grad_ready(self._name_of[id(p)]))
+
+    @torch.no_grad()
+    def _gather_unit(self, unit: _Unit) -> None:
+        if unit.gathered:
+            return
+        for k in unit.names:
+            full = self.named[k].data
+            full.untyped_storage().resize_(full.numel() * full.element_size())
+            _gather(full, self.shards[k], self.dims[k], self.fsdp.group,
+                    self.fsdp.size)
+        unit.gathered = True
+        unit.pending = set(unit.names)
+
+    def _free(self, unit: _Unit) -> None:
+        for k in unit.names:
+            # the shape stays, the storage goes; a tensor that autograd
+            # saved reads the data again once the unit is gathered for the
+            # backward
+            self.named[k].data.untyped_storage().resize_(0)
+        unit.gathered = unit.in_backward = unit.held = False
+
+    def _after_forward(self, unit: _Unit, out) -> None:
+        if unit.in_backward or unit.held:
+            return  # remat's recompute inside the backward, or a loss's
+        if torch.is_grad_enabled() and isinstance(out, torch.Tensor) \
+                and out.requires_grad:
+            out.register_hook(lambda g, u=unit: self._before_backward(u))
+        self._free(unit)
+
+    def _before_backward(self, unit: _Unit) -> None:
+        self._gather_unit(unit)
+        unit.in_backward = True
+
+    @contextlib.contextmanager
+    def hold(self, names: Iterable[str]):
+        """The units of the parameters ``names`` gathered inside; in grad
+        mode they stay gathered until their gradients are complete."""
+        units = {self._unit_of[k] for k in names if k in self._unit_of}
+        if self.stage != 3:
+            units = set()
+        for u in units:
+            self._gather_unit(u)
+            u.held = True
+        try:
+            yield
+        finally:
+            if not torch.is_grad_enabled():
+                for u in units:
+                    self._free(u)
+
+    # -- the gradients ---------------------------------------------------
+
+    def begin(self, last: bool, accum: int) -> None:
+        """A microbatch's backward follows; ``last``: its gradients are
+        complete (reduced in the hooks), else summed."""
+        self._last, self._accum = last, accum
+        self._reduced = set()
+
+    @torch.no_grad()
+    def _grad_ready(self, k: str) -> None:
+        p = self.named[k]
+        if self._accum > 1:
+            if p.dtype != torch.float32:  # sum another dtype in f32
+                s = self._sums.get(k)
+                g = p.grad.float()
+                self._sums[k] = g if s is None else s.add_(g)
+                p.grad = None
+                if self._last:
+                    p.grad = self._sums.pop(k).div_(self._accum).to(p.dtype)
+            elif self._last:
+                p.grad.div_(self._accum)
+        if self._last:
+            self._reduce(k)
+        unit = self._unit_of.get(k)
+        if unit is not None and self.stage == 3:
+            unit.pending.discard(k)
+            if not unit.pending:
+                self._free(unit)
+
+    def _reduce(self, k: str) -> None:
+        p = self.named[k]
+        n = self.data.size
+        if k in self.shards:
+            g = _scatter_sum(p.grad, self.dims[k], self.fsdp.group,
+                             self.fsdp.size)
+            if self.replica.size > 1:
+                cc.all_reduce_sum(g, self.replica.group)
+            self.shards[k].grad = g.div_(n)
+            p.grad = None
+        elif n > 1:
+            cc.all_reduce_mean(p.grad, self.data.group)
+        self._reduced.add(k)
+
+    def end(self) -> None:
+        """After a microbatch's backward: every split unit freed; on the
+        last microbatch every gradient reduced."""
+        if self._last and self.active:
+            missing = [k for k in self.named if k not in self._reduced]
+            if missing:
+                raise RuntimeError(
+                    f"parameters got no gradient: {missing[:5]}")
+        if self.stage == 3:
+            for unit in self._units.values():
+                if unit.gathered:
+                    self._free(unit)
+
+    @torch.no_grad()
+    def gather_updated(self) -> None:
+        """Stage 1, after the update: every split parameter whole again
+        from the owners' new slices."""
+        for k, shard in self.shards.items():
+            full = torch.empty(self.shapes[k], dtype=shard.dtype,
+                               device=shard.device)
+            _gather(full, shard.detach(), self.dims[k], self.fsdp.group,
+                    self.fsdp.size)
+            self.named[k].data.copy_(full)
+
+
+def make_sharded_train_step(loss_fn: Callable, mesh_of: Callable, *,
+                            stage: int, accum: int = 1,
+                            optim_cfg=None, total_steps: int = 1):
+    """ZeRO stages 1 and 3: ``(step, place_state)``. ``mesh_of()`` gives
+    the rank's :class:`ProcessMesh` when the state is placed;
+    ``place_state`` broadcasts rank 0's weights, lays the state out
+    (:class:`ZeroShards`, kept as ``state.sharding``) and builds the
+    optimizer over the rank's slices (``optim_cfg``, ``total_steps``)."""
+    if stage not in (1, 3):
+        raise ValueError(f"zero_stage must be 0, 1 or 3, got {stage}")
+    if accum < 1:
+        raise ValueError(f"accum must be >= 1, got {accum}")
+    reads = tuple(getattr(loss_fn, "reads", ()))
+    token_weighted = getattr(loss_fn, "token_weighted", False)
+
+    def place_state(state: TrainState) -> TrainState:
+        mesh = mesh_of()
+        if mesh.data.size > 1:
+            for m in state.model.modules():
+                if isinstance(m, TpuBatchNorm):
+                    m.sync_group = mesh.data.group or dist.group.WORLD
+            dp.replicate_state(state)
+        zs = ZeroShards(state.model, mesh, stage)
+        state.sharding = zs
+        state.optimizer = make_optimizer(
+            optim_cfg, zs.optimizer_params(), total_steps=total_steps,
+            layout=zs.layout() if zs.shards else None)
+        return state
+
+    replicated = make_zero_train_step(loss_fn, stage=0, accum=accum)
+
+    def step(state: TrainState, x, y):
+        zs: ZeroShards = state.sharding
+        if not zs.active:
+            return replicated(state, x, y)  # world 1: the dp step
+        n = zs.data.size
+        parts = (list(zip(split_microbatches(x, accum),
+                          split_microbatches(y, accum)))
+                 if accum > 1 else [(x, y)])
+        lsum = None
+        for a, (bx, by) in enumerate(parts):
+            fn = loss_fn
+            if n > 1 and token_weighted:
+                fn = _global_token_mean(loss_fn, by, n)
+            zs.begin(last=a == len(parts) - 1, accum=accum)
+            with zs.hold(reads):
+                loss = dp._loss_and_grads(
+                    state, bx, by, fn,
+                    microbatch=a if accum > 1 else None)
+            zs.end()
+            lsum = loss if lsum is None else lsum + loss
+        loss = lsum / accum if accum > 1 else lsum
+        if n > 1:
+            loss = cc.all_reduce_mean(loss.reshape(1), zs.data.group)[0]
+        state.apply_gradients()
+        if stage == 1 and zs.shards:
+            zs.gather_updated()
+        return state, {"loss": loss}
+
+    return step, place_state

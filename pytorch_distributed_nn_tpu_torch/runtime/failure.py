@@ -2,7 +2,8 @@
 ``runtime/failure.py``): SIGTERM becomes a request to stop at the next step
 boundary, after a synchronous checkpoint save, with
 :data:`GRACEFUL_EXIT_CODE`. The heartbeats, the failure detector and the
-restarts of ``launch.py`` are not ported yet (ROADMAP.md §1 item 3).
+restarts of ``launch.py`` are not ported yet (ROADMAP.md §1 item 3, the
+remaining sharded strategies).
 """
 
 from __future__ import annotations

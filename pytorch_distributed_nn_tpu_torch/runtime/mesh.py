@@ -1,30 +1,36 @@
 """Logical parallelism degrees: ``MeshSpec`` of the JAX package's
 ``runtime/mesh.py``, resolved against the process group's world size.
 
-The port runs data and sequence parallelism: one process a device, the
-global batch split over the ``data`` and ``fsdp`` axes
-(:func:`data_parallel`, :func:`batch_slice`) and each row's tokens over
-``seq`` (:func:`seq_slice`). The axes that shard the model (``pipe``,
-``expert``, ``tensor``) are ROADMAP.md §1 item 3 and raise.
+The port runs data, sequence, sharded-data and pipeline parallelism: one
+process a device, the global batch split over the ``data`` and ``fsdp``
+axes (:func:`batch_slice`), each row's tokens over ``seq``
+(:func:`seq_slice`), the parameters over ``fsdp`` (``parallel/zero.py``)
+and the layers over ``pipe`` (``parallel/pipeline.py``). The axes that
+shard layers within (``expert``, ``tensor``) raise, naming
+:data:`REMAINING`.
 
 Rank r sits at the row-major coordinates of r over ``AXES`` in the
 resolved shape (:func:`coords`), the order in which the JAX package lays
 CPU devices out on its mesh. :func:`process_mesh` builds a rank's process
-groups: the ring of its ``seq`` axis (:class:`SeqGroup`) and the ranks that
-share its sequence shard (the ``data`` x ``fsdp`` group).
+groups along each axis it needs (:class:`AxisGroup`). Where the world
+does not divide by ``pipe`` (one process on one card), every process holds
+all the pipe stages of its data coordinate and hands activations between
+them in memory (``ProcessMesh.pipe_local``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any
 
 import numpy as np
 import torch.distributed as dist
 
 AXES: tuple[str, ...] = ("pipe", "data", "fsdp", "expert", "seq", "tensor")
-_MODEL_AXES = ("pipe", "expert", "tensor")
+_MODEL_AXES = ("expert", "tensor")
+# what is left of the sharded strategies; every port error for it names this
+REMAINING = "ROADMAP.md §1 item 3, the remaining sharded strategies"
 
 
 @dataclasses.dataclass
@@ -77,18 +83,27 @@ class MeshSpec:
 
 
 def data_parallel(spec: MeshSpec, world_size: int) -> MeshSpec:
-    """``spec`` resolved on ``world_size`` processes, one device each;
-    raises ``NotImplementedError`` where an axis that shards the model
-    (pipe, expert, tensor) exceeds 1."""
+    """``spec`` resolved on ``world_size`` processes, one device each
+    (``pipe`` stages count as processes unless the world does not divide
+    by them, :func:`pipe_is_local`); raises ``NotImplementedError`` where
+    an axis that shards layers within (expert, tensor) exceeds 1."""
     model_axes = {name: getattr(spec, name) for name in _MODEL_AXES
                   if getattr(spec, name) > 1}
     if model_axes:
         raise NotImplementedError(
-            f"mesh axes {model_axes} shard the model: not ported yet "
-            "(ROADMAP.md §1 item 3, the sharded strategies); the port runs "
-            "the data, fsdp (data-parallel) and seq (sequence-parallel) "
+            f"mesh axes {model_axes} shard the layers: not ported yet "
+            f"({REMAINING}); the port runs the pipe, data, fsdp and seq "
             "degrees")
+    if pipe_is_local(spec, world_size):
+        return spec.resolve(world_size * spec.pipe)
     return spec.resolve(world_size)
+
+
+def pipe_is_local(spec: MeshSpec, world_size: int) -> bool:
+    """Whether each process holds every ``pipe`` stage (the world does not
+    divide by ``spec.pipe``: one process on one card, where NCCL refuses two
+    ranks on the same device)."""
+    return spec.pipe > 1 and world_size % spec.pipe != 0
 
 
 def coords(spec: MeshSpec, rank: int) -> dict[str, int]:
@@ -112,52 +127,88 @@ def axis_groups(spec: MeshSpec, axes: tuple[str, ...]
 
 
 @dataclasses.dataclass(frozen=True)
-class SeqGroup:
-    """A rank's place on the ``seq`` ring: the process group of the ring
-    (None at size 1, where nothing is exchanged), this rank's index on it,
-    and its size. The model hands it to its attention layers."""
+class AxisGroup:
+    """A rank's place along one axis (or a product of axes): the process
+    group of the ranks that differ from it only there (None at size 1,
+    where nothing is exchanged, or where one process holds the whole
+    axis), its index on it, and the size."""
 
     group: Any = None
     index: int = 0
     size: int = 1
 
 
+# a rank's place on the seq ring: the model hands it to its attention
+SeqGroup = AxisGroup
+
+
 @dataclasses.dataclass(frozen=True)
 class ProcessMesh:
-    """The resolved mesh as one rank sees it."""
+    """The resolved mesh as one rank sees it. ``spec`` is the whole mesh;
+    with ``pipe_local`` the processes span it with ``pipe = 1`` and each
+    holds every stage (``pipe.group`` is None, ``pipe.index`` 0)."""
 
     spec: MeshSpec
     rank: int
-    seq: SeqGroup
-    data_group: Optional[Any]  # ranks with this rank's sequence shard
+    seq: AxisGroup
+    # the data x fsdp product: the ranks with this rank's seq shard and stage
+    data: AxisGroup
+    pipe: AxisGroup
+    fsdp: AxisGroup  # the fsdp axis alone
+    replica: AxisGroup  # the data axis alone
+    pipe_local: bool = False
+
+    @property
+    def process_spec(self) -> MeshSpec:
+        """The shape the processes span (``pipe`` 1 when it is local)."""
+        if self.pipe_local:
+            return dataclasses.replace(self.spec, pipe=1)
+        return self.spec
 
     @property
     def data_index(self) -> int:
         """This rank's index on the flattened data x fsdp axis (the batch
         rows it owns, :func:`batch_slice`)."""
-        c = coords(self.spec, self.rank)
+        c = coords(self.process_spec, self.rank)
         return c["data"] * self.spec.fsdp + c["fsdp"]
+
+
+_GROUPS = (("seq", ("seq",)), ("data", ("data", "fsdp")),
+           ("pipe", ("pipe",)), ("fsdp", ("fsdp",)),
+           ("replica", ("data",)))
 
 
 def process_mesh(spec: MeshSpec, rank: int, world_size: int) -> ProcessMesh:
     """``spec`` resolved on the process group's ``world_size`` ranks, and
-    rank ``rank``'s groups. With ``seq > 1`` every rank creates every seq
-    ring, then every data group, in :func:`axis_groups` order (collective
-    ``dist.new_group`` calls); with ``seq == 1`` the ring is trivial and the
-    data group is the world."""
+    rank ``rank``'s groups. Every rank creates the groups of every axis of
+    size > 1 (collective ``dist.new_group`` calls) in :data:`_GROUPS`
+    order, each axis's groups in :func:`axis_groups` order; an axis of size
+    1, or one that spans the whole world, makes none (the world group
+    stands in for the latter, None for the former)."""
     spec = data_parallel(spec, world_size)
-    if spec.seq == 1:
-        return ProcessMesh(spec, rank, SeqGroup(), data_group=None)
-    seq = data = None
-    for kind, axes in (("seq", ("seq",)), ("data", ("data", "fsdp"))):
-        for ranks in axis_groups(spec, axes):
-            group = dist.new_group(list(ranks))
-            if rank in ranks:
-                if kind == "seq":
-                    seq = SeqGroup(group, ranks.index(rank), len(ranks))
-                else:
-                    data = group
-    return ProcessMesh(spec, rank, seq, data_group=data)
+    local = pipe_is_local(spec, world_size)
+    procs = dataclasses.replace(spec, pipe=1) if local else spec
+    made: dict[str, AxisGroup] = {}
+    for kind, axes in _GROUPS:
+        size = math.prod(getattr(procs, a) for a in axes)
+        index = 0
+        c = coords(procs, rank)
+        for a in axes:
+            index = index * getattr(procs, a) + c[a]
+        if size == 1:
+            made[kind] = AxisGroup()
+        elif size == world_size:
+            made[kind] = AxisGroup(dist.group.WORLD, index, size)
+        else:
+            for ranks in axis_groups(procs, axes):
+                group = dist.new_group(list(ranks))
+                if rank in ranks:
+                    made[kind] = AxisGroup(group, ranks.index(rank), size)
+    if local:
+        made["pipe"] = AxisGroup(None, 0, spec.pipe)
+    return ProcessMesh(spec, rank, made["seq"], data=made["data"],
+                       pipe=made["pipe"], fsdp=made["fsdp"],
+                       replica=made["replica"], pipe_local=local)
 
 
 def batch_slice(global_batch: int, rank: int, n: int) -> slice:

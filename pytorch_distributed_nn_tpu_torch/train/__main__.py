@@ -15,11 +15,14 @@ Usage:
         --checkpoint_dir /path/to/ckpt --checkpoint_every 100 \
         --parallel.grad_accum 4 --label_smoothing 0.1 --multistep_k 20
 
-    # config 3 (BERT-base, overlapped 100 MB buckets) and config 4's
-    # transformer LM on one card (its pipeline is not ported yet)
+    # config 3 (BERT-base, overlapped 100 MB buckets); config 4 (the
+    # transformer LM's 4-stage pipeline: one rank a stage under torchrun,
+    # every stage in one process alone) and config 5 (ZeRO-3 over fsdp)
     python -m pytorch_distributed_nn_tpu_torch.train --preset bert_base_buckets
     python -m pytorch_distributed_nn_tpu_torch.train \\
-        --preset transformer_lm_pp --mesh.pipe 1 --parallel.strategy dp
+        --preset transformer_lm_pp --parallel.pipeline_schedule 1f1b
+    torchrun --standalone --nproc_per_node 4 \\
+        -m pytorch_distributed_nn_tpu_torch.train --preset llama3_8b_zero
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and raises where CUDA
 is missing. Under ``torchrun`` (or with ``WORLD_SIZE``/``RANK`` set) each

@@ -26,9 +26,22 @@ corrupt newest step to the next-newest kept one; an explicit ``step`` is
 restored as asked or raises; no checkpoint at all raises
 ``FileNotFoundError``.
 
-The state is replicated (stage 0): the coordinator writes, every rank
-passes a barrier in :meth:`wait`, and every rank restores from the files,
-whatever the world size was when they were written.
+A replicated state (``state.sharding`` None): the coordinator writes,
+every rank passes a barrier in :meth:`wait`, and every rank restores from
+the files, whatever the world size was when they were written.
+
+A sharded state (ZeRO's slices, the pipeline's stages) is saved
+synchronously by every rank that owns a piece (the first data replica):
+``model-<part>.pt``, ``optim-<part>.pt`` and ``train-<part>.pt`` with the
+part named by the layout (``fsdp<i>``, ``pipe<d>``, or ``local`` where one
+process holds every stage), between barriers; the coordinator then writes
+``meta.json``, which names the layout (strategy, mesh sizes,
+``zero_stage``, schedule, ``pipe_chunks``, the split of each leaf), and the
+manifest over every file, and renames the step into place. A rank
+restores its own part, on the same layout only (:class:`LayoutError`
+otherwise: resharding on read is not ported). :func:`read_full_params`
+reads such a checkpoint in one process into the whole flax-named
+``state_dict`` that a replicated run loads.
 """
 
 from __future__ import annotations
@@ -57,12 +70,20 @@ _META = "meta.json"
 _MANIFEST = "manifest.json"
 
 
-def _file_of(name: str) -> str:
-    if name.startswith("model."):
-        return "model.pt"
-    if name.startswith("opt."):
-        return "optim.pt"
-    return "train.pt"
+class LayoutError(Exception):
+    """The checkpoint's layout is not the state's (a different mesh,
+    strategy or stage): resharding on read is not ported."""
+
+
+def _file_of(name: str, part: str | None = None) -> str:
+    base = ("model" if name.startswith("model.") else
+            "optim" if name.startswith("opt.") else "train")
+    return f"{base}.pt" if part is None else f"{base}-{part}.pt"
+
+
+def _parts_files(parts: list[str]) -> list[str]:
+    return [f"{base}-{part}.pt" for part in parts
+            for base in ("model", "optim", "train")]
 
 
 def _sha256(path: Path) -> str:
@@ -103,6 +124,9 @@ class CheckpointManager:
             return False
         meta = {"data_step": int(data_step), "step": step}
         self._queued.add(step)
+        if state.sharding is not None:
+            self._save_sharded(state, step, meta)
+            return True
         if not self.is_writer:
             return True
         if self._thread is not None:
@@ -117,6 +141,44 @@ class CheckpointManager:
         log.info("queued checkpoint save at step %d -> %s", step,
                  self.directory)
         return True
+
+    def _save_sharded(self, state: TrainState, step: int,
+                      meta: dict) -> None:
+        """Every owner writes its part, then the coordinator the meta and
+        the manifest; synchronous, between barriers."""
+        t0 = time.perf_counter()
+        sharding = state.sharding
+        tmp = self.directory / f".tmp-{step}"
+        if self.is_writer:
+            if tmp.exists():
+                shutil.rmtree(tmp)
+            tmp.mkdir()
+        cc.barrier()
+        if sharding.writes:
+            live = state.state_dict()
+            for base in ("model", "optim", "train"):
+                fname = f"{base}-{sharding.part_name}.pt"
+                torch.save({k: v.detach().cpu() for k, v in live.items()
+                            if _file_of(k, sharding.part_name) == fname},
+                           tmp / fname)
+        cc.barrier()
+        if self.is_writer:
+            meta = dict(meta, layout=sharding.meta(),
+                        parts=sharding.parts())
+            (tmp / _META).write_text(json.dumps(meta))
+            files = [*_parts_files(meta["parts"]), _META]
+            manifest = {f: {"bytes": (tmp / f).stat().st_size,
+                            "sha256": _sha256(tmp / f)} for f in files}
+            (tmp / _MANIFEST).write_text(json.dumps(manifest))
+            final = self.directory / str(step)
+            if final.exists():
+                shutil.rmtree(final)
+            os.rename(tmp, final)
+            self.last_save = dict(
+                step=step, seconds=time.perf_counter() - t0,
+                bytes=sum(m["bytes"] for m in manifest.values()))
+            self._prune()
+        cc.barrier()
 
     def _writer(self) -> None:
         while True:
@@ -188,6 +250,8 @@ class CheckpointManager:
         for i, s in enumerate(steps):
             try:
                 return self._restore_step(template, s)
+            except LayoutError:
+                raise
             except (OSError, ValueError, KeyError, RuntimeError,
                     pickle.UnpicklingError) as e:
                 last_err = e
@@ -202,19 +266,20 @@ class CheckpointManager:
     def _restore_step(self, template: TrainState,
                       step: int) -> tuple[TrainState, dict]:
         path = self.directory / str(step)
-        manifest = json.loads((path / _MANIFEST).read_text())
-        for fname, want in manifest.items():
-            f = path / fname
-            if f.stat().st_size != want["bytes"] or _sha256(f) != \
-                    want["sha256"]:
-                raise ValueError(f"{f} does not match its manifest")
-        if set(manifest) != {*_FILES, _META}:
-            raise ValueError(f"{path}: manifest lists {sorted(manifest)}")
+        meta = _verified_meta(path)
+        sharding = template.sharding
+        want = None if sharding is None else sharding.meta()
+        if meta.get("layout") != want:
+            raise LayoutError(
+                f"{path} holds layout {meta.get('layout')}, the state is "
+                f"{want}: resharding on read is not ported (ROADMAP.md §1 "
+                "item 3, the remaining sharded strategies)")
+        files = (_FILES if sharding is None else
+                 _parts_files([sharding.part_name]))
         tensors: dict[str, torch.Tensor] = {}
-        for fname in _FILES:
+        for fname in files:
             tensors.update(torch.load(path / fname, map_location="cpu",
                                       weights_only=True))
-        meta = json.loads((path / _META).read_text())
         template.load_state_dict(tensors)
         log.info("restored checkpoint step %d from %s", step, path)
         return template, meta
@@ -242,6 +307,60 @@ class CheckpointManager:
                 self._queue.put(None)
                 self._thread.join(timeout=60.0)
                 self._thread = None
+
+
+def _verified_meta(path: Path) -> dict:
+    """The meta of step directory ``path`` once every file matches the
+    manifest and the manifest lists every file; raises ValueError."""
+    manifest = json.loads((path / _MANIFEST).read_text())
+    for fname, want in manifest.items():
+        f = path / fname
+        if f.stat().st_size != want["bytes"] or _sha256(f) != \
+                want["sha256"]:
+            raise ValueError(f"{f} does not match its manifest")
+    meta = json.loads((path / _META).read_text())
+    files = (_parts_files(meta["parts"]) if "layout" in meta
+             else list(_FILES))
+    if set(manifest) != {*files, _META}:
+        raise ValueError(f"{path}: manifest lists {sorted(manifest)}")
+    return meta
+
+
+def read_full_params(directory: str | Path,
+                     step: int | None = None) -> dict[str, torch.Tensor]:
+    """The whole parameters of a checkpoint (the newest step, or ``step``)
+    as the flax-named ``state_dict`` a replicated run loads, read in one
+    process whatever its layout: a ZeRO-3 leaf's slices concatenated in
+    ``fsdp`` order along their dim, the pipeline's stages merged (the
+    counterpart of the JAX ``restore_unstacked_params``)."""
+    directory = Path(directory)
+    if step is None:
+        steps = sorted(int(p.name) for p in directory.iterdir()
+                       if p.name.isdigit() and p.is_dir())
+        if not steps:
+            raise FileNotFoundError(f"no checkpoint under {directory}")
+        step = steps[-1]
+    path = directory / str(step)
+    meta = _verified_meta(path)
+
+    def model_of(fname):
+        return {k[len("model."):]: v for k, v in torch.load(
+            path / fname, map_location="cpu", weights_only=True).items()}
+
+    if "layout" not in meta:
+        return model_of("model.pt")
+    parts = [model_of(f"model-{part}.pt") for part in meta["parts"]]
+    layout = meta["layout"]
+    if layout["strategy"] == "pipeline":
+        out = {}
+        for part in parts:
+            out.update(part)
+        return out
+    out = dict(parts[0])
+    if layout["zero_stage"] == 3:
+        for name, (dim, _) in layout["split"].items():
+            out[name] = torch.cat([part[name] for part in parts], dim=dim)
+    return out
 
 
 def _snapshot(state: TrainState) -> tuple[dict[str, torch.Tensor], Any]:

@@ -36,6 +36,15 @@ here:
   rounded to it), the rest of the step in f32, and the new moment is
   stored cast.
 
+On sharded parameters (``ShardLayout``: ZeRO's fsdp shards, the
+pipeline's stages) the elementwise optimizers run on each rank's slice as
+they are. The three reductions that span a whole parameter or the whole
+model take their partial sums across ranks: the global norm of the clip
+(over the shard group, each replicated leaf counted once, then over the
+other stages), lamb's ``|p|`` and ``|u|`` and adafactor's factored means
+and block RMS (over the shard group). Without a layout, or where nothing
+is split, the update is the one-device update, bit for bit.
+
 Each is written out with ``torch._foreach`` ops (per tensor where a norm
 or a factored moment is per tensor), in optax's order of operations, in
 place on the moments and on the step's own temporaries: an adam step holds
@@ -57,13 +66,15 @@ same f32 values.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
-from typing import Callable, Iterable
+from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
 
 from pytorch_distributed_nn_tpu_torch.config import OptimConfig
+from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
 
 Schedule = Callable[[int], float]
 
@@ -131,12 +142,16 @@ def make_schedule(cfg: OptimConfig, total_steps: int) -> Schedule:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: list[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
+                         norm: torch.Tensor | None = None) -> torch.Tensor:
     """optax's ``clip_by_global_norm``, in place and without a host sync:
     when the global norm reaches ``max_norm`` every gradient becomes
-    ``g / norm * max_norm``; below it nothing changes. Returns the norm."""
-    norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+    ``g / norm * max_norm``; below it nothing changes. ``norm`` is the
+    global norm where the caller has taken it across ranks (else it is
+    taken over ``grads``). Returns the norm."""
+    if norm is None:
+        norm = torch.stack([g.float().square().sum()
+                            for g in grads]).sum().sqrt()
     keep = norm < max_norm
     one = torch.ones((), device=norm.device)
     denom = torch.where(keep, one, norm)
@@ -144,6 +159,30 @@ def clip_by_global_norm_(grads: list[torch.Tensor],
     for g in grads:
         g.div_(denom).mul_(mult)
     return norm
+
+
+@dataclasses.dataclass
+class ShardLayout:
+    """Where the optimizer's tensors lie across ranks. ``dims[i]`` is the
+    dim of parameter i split over the ``size`` ranks of ``group`` (None:
+    this rank holds it whole, as every rank of the group does), and
+    ``shapes[i]`` its whole shape. ``norm_group`` (of ``norm_size``) holds
+    the ranks with the OTHER parameters of the model (the pipeline's other
+    stages): the global norm sums over it too."""
+
+    dims: list[int | None]
+    shapes: list[tuple[int, ...]]
+    group: Any = None
+    size: int = 1
+    norm_group: Any = None
+    norm_size: int = 1
+
+    def split(self, i: int) -> bool:
+        return self.size > 1 and self.dims[i] is not None
+
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the shard group, in place."""
+        return cc.all_reduce_sum(t, self.group)
 
 
 _NAMES = ("sgd", "momentum", "adam", "adamw", "lamb", "lion", "adafactor")
@@ -157,10 +196,11 @@ def _f32_bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
 
 
-def _factored_zeros(p: torch.Tensor) -> tuple:
+def _factored_zeros(p: torch.Tensor, shape=None) -> tuple:
     """adafactor's zero moments of ``p``: ``(None, v)`` whole, or
-    ``((d1, d0), (v_row, v_col))`` factored over its two largest dims."""
-    dims = _factored_dims(p.shape)
+    ``((d1, d0), (v_row, v_col))`` factored over the two largest dims of
+    ``shape`` (the whole parameter's, where ``p`` is a slice of it)."""
+    dims = _factored_dims(p.shape if shape is None else shape)
     if dims is None:
         return None, torch.zeros_like(p)
     d1, d0 = dims
@@ -193,7 +233,8 @@ class Optimizer:
     from construction, zeros, as optax's ``init`` makes them."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
-                 cfg: OptimConfig, total_steps: int) -> None:
+                 cfg: OptimConfig, total_steps: int,
+                 layout: ShardLayout | None = None) -> None:
         if cfg.name not in _NAMES:
             raise ValueError(f"unknown optimizer {cfg.name!r}; have {_NAMES}")
         if cfg.mu_dtype and cfg.name not in _MU_DTYPES:
@@ -205,6 +246,9 @@ class Optimizer:
         self.cfg = cfg
         self.name = cfg.name
         self.params = [p for p in params if p.requires_grad]
+        if layout is not None and len(layout.dims) != len(self.params):
+            raise ValueError("the layout does not describe the parameters")
+        self.layout = layout
         self.schedule = make_schedule(cfg, total_steps)
         self.total_steps = total_steps
         self.grad_clip_norm = cfg.grad_clip_norm
@@ -222,7 +266,10 @@ class Optimizer:
         if cfg.name in ("adam", "adamw", "lamb"):
             self.nu = self._zeros()
         if cfg.name == "adafactor":
-            self.factored = [_factored_zeros(p) for p in self.params]
+            shapes = (layout.shapes if layout is not None
+                      else [p.shape for p in self.params])
+            self.factored = [_factored_zeros(p, shape)
+                             for p, shape in zip(self.params, shapes)]
         self.count = 0
         self._table: torch.Tensor | None = None  # per-update values
         self._row: torch.Tensor | None = None  # set by reading()
@@ -276,12 +323,66 @@ class Optimizer:
             raise RuntimeError("a trainable parameter got no gradient")
         self.release()
         if self.grad_clip_norm > 0:
-            clip_by_global_norm_(grads, self.grad_clip_norm)
+            clip_by_global_norm_(grads, self.grad_clip_norm,
+                                 self._global_norm(grads))
         row = self._row if self._row is not None else self.hyper(
             self.count)[0]
         with torch.no_grad():
             getattr(self, f"_{self.name}")(grads, row)
         self.count += 1
+
+    @torch.no_grad()
+    def _global_norm(self, grads) -> torch.Tensor | None:
+        """The norm over every rank's gradients (None without a layout
+        that splits anything: :func:`clip_by_global_norm_` takes it
+        locally). Each replicated leaf counts once."""
+        lay = self.layout
+        if lay is None or (lay.size == 1 and lay.norm_size == 1):
+            return None
+        sq = [g.float().square().sum() for g in grads]
+        zero = torch.zeros((), device=grads[0].device)
+        whole = [s for i, s in enumerate(sq) if not lay.split(i)]
+        total = torch.stack(whole).sum() if whole else zero
+        parts = [s for i, s in enumerate(sq) if lay.split(i)]
+        if parts:
+            total = total + lay.sum_(torch.stack(parts).sum().reshape(1))[0]
+        if lay.norm_size > 1:
+            total = cc.all_reduce_sum(total.reshape(1), lay.norm_group)[0]
+        return total.sqrt()
+
+    def _norms(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+        """The L2 norm of each whole parameter from its slices."""
+        lay = self.layout
+        out = [None if lay is not None and lay.split(i)
+               else torch.linalg.vector_norm(t)
+               for i, t in enumerate(tensors)]
+        split = [i for i, n in enumerate(out) if n is None]
+        if split:
+            sq = lay.sum_(torch.stack(
+                [tensors[i].float().square().sum() for i in split]))
+            for i, v in zip(split, sq.sqrt()):
+                out[i] = v.to(tensors[i].dtype)
+        return out
+
+    def _split_dim(self, i: int) -> int | None:
+        """The dim of parameter i split across ranks (None: whole here)."""
+        lay = self.layout
+        return lay.dims[i] if lay is not None and lay.split(i) else None
+
+    def _mean(self, t: torch.Tensor, dim: int | None = None,
+              keepdim: bool = False, split: int | None = None
+              ) -> torch.Tensor:
+        """``t.mean(dim)`` (all dims when None), where ``t`` is this rank's
+        slice along ``split`` (None: ``t`` is whole here): the mean over
+        the whole tensor where the reduction crosses the split."""
+        if split is None or (dim is not None and dim != split):
+            return t.mean() if dim is None else t.mean(dim, keepdim=keepdim)
+        size = self.layout.size
+        if dim is None:
+            return self.layout.sum_(t.sum().reshape(1))[0] / (
+                t.numel() * size)
+        s = self.layout.sum_(t.sum(dim, keepdim=keepdim).contiguous())
+        return s / (t.shape[dim] * size)
 
     def _zeros(self, dtype=None) -> list[torch.Tensor]:
         return [torch.zeros_like(p, dtype=dtype or p.dtype)
@@ -381,9 +482,8 @@ class Optimizer:
 
     def _lamb(self, grads, row: torch.Tensor) -> None:
         updates = self._decay(self._adam_direction(grads, row), own=True)
-        for u, p in zip(updates, self.params):
-            pn = torch.linalg.vector_norm(p)
-            un = torch.linalg.vector_norm(u)
+        for u, pn, un in zip(updates, self._norms(self.params),
+                             self._norms(updates)):
             u.mul_(torch.where((pn == 0) | (un == 0), torch.ones_like(pn),
                                pn / un))
         self._apply(updates, row[_NEG_LR], own=True)
@@ -409,17 +509,25 @@ class Optimizer:
                 u = g * v ** -0.5
             else:
                 d1, d0 = dims
-                v_row = state[0].copy_(rate * state[0] + keep * g2.mean(d0))
-                v_col = state[1].copy_(rate * state[1] + keep * g2.mean(d1))
+                sd = self._split_dim(i)
+                v_row = state[0].copy_(rate * state[0] + keep * self._mean(
+                    g2, d0, split=sd))
+                v_col = state[1].copy_(rate * state[1] + keep * self._mean(
+                    g2, d1, split=sd))
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_col_mean = v_row.mean(reduced_d1, keepdim=True)
+                # where v_row (the dims but d0) is split, if anywhere
+                row_sd = None if sd in (None, d0) else sd - (sd > d0)
+                row_col_mean = self._mean(v_row, reduced_d1, keepdim=True,
+                                          split=row_sd)
                 row_factor = (v_row / row_col_mean) ** -0.5
                 col_factor = v_col ** -0.5
                 u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
             # clip_by_block_rms(1.0), the lr, scale_by_param_block_rms
-            u = u / torch.clamp(u.square().mean().sqrt(), min=1.0)
+            sd = self._split_dim(i)
+            u = u / torch.clamp(self._mean(u.square(), split=sd).sqrt(),
+                                min=1.0)
             u = u * row[_LR]
-            rms = p.square().mean().sqrt()
+            rms = self._mean(p.square(), split=sd).sqrt()
             updates.append(u * torch.clamp(rms, min=1e-3))
         self._apply(self._decay(updates, own=True), -1.0, own=True)
 
@@ -429,5 +537,6 @@ class Optimizer:
 
 
 def make_optimizer(cfg: OptimConfig, params: Iterable[torch.nn.Parameter],
-                   total_steps: int = 10_000) -> Optimizer:
-    return Optimizer(params, cfg, total_steps)
+                   total_steps: int = 10_000,
+                   layout: ShardLayout | None = None) -> Optimizer:
+    return Optimizer(params, cfg, total_steps, layout=layout)

@@ -15,6 +15,7 @@ hold them).
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -29,6 +30,11 @@ class TrainState:
     # init's); the Llama path draws nothing from it yet
     generator: torch.Generator
     step: int = 0
+    # the sharded strategies' layout of this rank's part (ZeRO's
+    # ``ZeroShards``, the pipeline's ``PipelineStages``; None replicated):
+    # its ``owned_params()`` replace the module's tensors in state_dict,
+    # and a checkpoint records its ``meta()`` and writes its ``part``
+    sharding: Any = None
 
     @property
     def model_state(self) -> dict[str, torch.Tensor]:
@@ -47,10 +53,14 @@ class TrainState:
     def state_dict(self) -> dict[str, torch.Tensor]:
         """Every tensor of the state by name, live (not copies):
         ``model.<name>`` for the parameters and buffers under their flax
-        names (``utils/interop.py``'s), ``opt.<moment>.<param name>`` for
+        names (``utils/interop.py``'s; a ZeRO-3 rank's slice where it holds
+        one), ``opt.<moment>.<param name>`` for
         the optimizer's moments, ``opt.count``, ``generator`` (its
         ``get_state()``) and ``step``."""
         out = {f"model.{k}": v for k, v in self.model.state_dict().items()}
+        if self.sharding is not None:
+            out.update({f"model.{k}": v for k, v in
+                        self.sharding.owned_params().items()})
         for k, v in _optimizer_tensors(self).items():
             out[f"opt.{k}"] = v
         out["opt.count"] = torch.tensor(self.optimizer.count)

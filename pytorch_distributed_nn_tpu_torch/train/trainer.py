@@ -3,9 +3,10 @@ loop (the JAX package's ``train/trainer.py``).
 
 Ported: the process group (``runtime/bootstrap.py``: one process a
 device, under ``torchrun`` or alone) and the mesh over it
-(``runtime/mesh.py``: data and sequence parallelism, each rank loading the
-rows of its data coordinate and the tokens of its seq coordinate, the model
-built with the rank's seq ring), initialisation from the model's own
+(``runtime/mesh.py``: data, sequence, ZeRO and pipeline parallelism, each
+rank loading the rows of its data coordinate and the tokens of its seq
+coordinate, every stage of a pipeline the same rows, the model built with
+the rank's seq ring), initialisation from the model's own
 seeded init or given weights, the per-step loop with its logging cadence
 (on rank 0), the held-out evaluation, checkpoints (``train/checkpoint.py``:
 restored at construction when ``resume`` is set, saved every
@@ -20,6 +21,7 @@ so asking for them fails as an unknown field.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -38,6 +40,8 @@ from pytorch_distributed_nn_tpu_torch.models import get_model
 from pytorch_distributed_nn_tpu_torch.nn.layers import Dropout
 from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
 from pytorch_distributed_nn_tpu_torch.parallel.api import make_train_step
+from pytorch_distributed_nn_tpu_torch.parallel.pipeline import PipelineStages
+from pytorch_distributed_nn_tpu_torch.parallel.zero import ZeroShards
 from pytorch_distributed_nn_tpu_torch.runtime import bootstrap, failure
 from pytorch_distributed_nn_tpu_torch.runtime.mesh import process_mesh
 from pytorch_distributed_nn_tpu_torch.train.losses import (
@@ -106,9 +110,13 @@ class Trainer:
                                input_shape=self.dataset.spec.x_shape,
                                seq=seq if seq.size > 1 else None)
         self.state = self._init_state(params)
-        step_fn, place_fn = make_train_step(cfg, self.loss_fn, spec)
+        step_fn, place_fn = make_train_step(cfg, self.loss_fn, spec,
+                                            process=self.mesh)
         self.step_fn = step_fn
         self.state = place_fn(self.state)
+        if self.state.optimizer is None:  # zero and pipeline make theirs
+            self.state.optimizer = make_optimizer(
+                cfg.optim, self.model.parameters(), total_steps=cfg.steps)
         self.history: list[StepRecord] = []
         self.eval_history: list[EvalRecord] = []
         self.last_metrics = None
@@ -166,14 +174,14 @@ class Trainer:
         else:
             self.model.load_state_dict(params)
         self.model.train()
-        optimizer = make_optimizer(cfg.optim, self.model.parameters(),
-                                   total_steps=cfg.steps)
         generator = torch.Generator(self.device)
         generator.manual_seed(cfg.seed + 1)  # apart from the init's seed
         if self.is_coordinator:
             log.info("model %s: %.2fM params", cfg.model.name,
                      param_count(self.model) / 1e6)
-        return TrainState(model=self.model, optimizer=optimizer,
+        # the optimizer comes after the strategy has placed the state:
+        # under zero and pipeline it updates only what this rank holds
+        return TrainState(model=self.model, optimizer=None,
                           generator=generator)
 
     def train(self, steps: int | None = None) -> list[StepRecord]:
@@ -251,6 +259,15 @@ class Trainer:
                 "remat_offload copies the block inputs into pinned host "
                 "buffers allocated each step, which a captured graph would "
                 "freeze")
+        sharding = self.state.sharding
+        if isinstance(sharding, PipelineStages):
+            reasons.append(
+                "the pipeline's tick loop hands activations between stages "
+                "on the host, which capture is not tried on")
+        if isinstance(sharding, ZeroShards) and sharding.active:
+            reasons.append(
+                "ZeRO's hooks gather and free parameters across ranks, "
+                "which capture is not tried on")
         quant = self.cfg.parallel.quantized_allreduce
         if self.cfg.parallel.strategy == "dp_explicit" and quant == "int8":
             reasons.append(
@@ -360,19 +377,27 @@ class Trainer:
 
     @torch.no_grad()
     def _eval_step(self, x, y) -> tuple[torch.Tensor, torch.Tensor]:
+        sharding = self.state.sharding
+        if isinstance(sharding, PipelineStages):
+            # the fill-drain forward; every stage gets the last one's
+            return sharding.evaluate(x, y, self.loss_fn)
         chunk = self.cfg.xent_chunk
         # as training: the chunked loss only where the rank's T exceeds
         # one chunk
         if chunk and x.shape[-1] > chunk:
             hidden = self.model(x, return_hidden=True)
-            return chunked_lm_eval(hidden, self.model.lm_head.kernel, y,
-                                   chunk=chunk)
+            reads = ["lm_head.kernel"]
+            with (sharding.hold(reads) if isinstance(sharding, ZeroShards)
+                  else contextlib.nullcontext()):
+                return chunked_lm_eval(hidden, self.model.lm_head.kernel, y,
+                                       chunk=chunk)
         logits = self.model(x)
         return self.loss_fn(logits, y), accuracy(logits, y)
 
     def evaluate(self, num_batches: int | None = None) -> EvalRecord:
         """Forward-only pass over the held-out stream (steps from
-        ``EVAL_STEP_OFFSET`` on), BatchNorm on its running statistics;
+        ``EVAL_STEP_OFFSET`` on; under the pipeline the fill-drain forward
+        over the stages), BatchNorm on its running statistics;
         returns and records the mean loss and accuracy over every rank's
         rows (and sequence shards: the mean of equal shards' means); for
         the masked LM, over the valid labels of every rank's rows, the

@@ -17,7 +17,15 @@ the port's are OIHW: they are transposed here, once.
 :func:`params_from_jax` and :func:`params_to_jax` carry the single-
 collection models (BERT, the transformer LM, ViT, and the float Llama):
 flatten or nest at the dots, conv kernels (ViT's ``patch_embed``) HWIO <->
-OIHW. Nothing here imports JAX.
+OIHW.
+
+The sharded strategies' layouts: :func:`stack_stage_params` and
+:func:`unstack_stage_params` carry the port's per-block names to and from
+the JAX pipeline's stacked tree (``{"stages": ..., "rest": ...}``, leaves
+(S, K, ...) or, interleaved, (S, v, Kc, ...)); :func:`shard_params` and
+:func:`gather_shards` carry a whole ``state_dict`` to and from the ZeRO-3
+slices each ``fsdp`` rank holds (``parallel.sharding_rules``). Nothing
+here imports JAX.
 """
 
 from __future__ import annotations
@@ -121,3 +129,110 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, Any]:
         raise ValueError(f"{sorted(stats)} are BatchNorm statistics; use "
                          "vision_params_to_jax")
     return params
+
+
+def _block_tree(flat: Mapping[str, torch.Tensor], name: str
+                ) -> dict[str, np.ndarray]:
+    """The leaves of block ``name`` by their path inside it."""
+    pre = name + "."
+    return {k[len(pre):]: _numpy(v) for k, v in flat.items()
+            if k.startswith(pre)}
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def stack_stage_params(state_dict: Mapping[str, torch.Tensor],
+                       block_names: list[str], n_stages: int,
+                       n_chunks: int = 1, chunked: bool | None = None
+                       ) -> dict[str, Any]:
+    """The JAX ``stack_stage_params`` of a port ``state_dict``: the blocks
+    stacked into ``{"stages": tree}`` with leaves (S, K, ...) (stage s holds
+    blocks [sK, (s+1)K)) or, ``chunked``, device-major (S, v, Kc, ...)
+    ([d, j] is virtual stage j S + d), and the other leaves nested under
+    ``"rest"``; numpy leaves."""
+    S, v = n_stages, n_chunks
+    chunked = v > 1 if chunked is None else chunked
+    L = len(block_names)
+    if L % (S * v):
+        raise ValueError(f"{L} blocks not divisible by {S} stages x {v} "
+                         "chunks")
+    trees = [_block_tree(state_dict, n) for n in block_names]
+    stacked = {}
+    for key in trees[0]:
+        x = np.stack([t[key] for t in trees])
+        if chunked:
+            per = L // (S * v)
+            x = np.moveaxis(x.reshape((v, S, per) + x.shape[1:]), 0, 1)
+        else:
+            x = x.reshape((S, L // S) + x.shape[1:])
+        stacked[key] = x
+    rest = {k: v_ for k, v_ in state_dict.items()
+            if k.split(".", 1)[0] not in set(block_names)}
+    return {"stages": _nest({k: torch.from_numpy(np.ascontiguousarray(x))
+                             for k, x in stacked.items()}),
+            "rest": _nest(rest)}
+
+
+def unstack_stage_params(tree: Mapping[str, Any], block_names: list[str],
+                         n_chunks: int = 1, chunked: bool | None = None
+                         ) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`stack_stage_params` (the JAX
+    ``unstack_stage_params``): the port's flat ``state_dict`` from a
+    stacked tree (numpy leaves, e.g. the JAX pipeline's
+    ``jax.device_get(state.params)``)."""
+    chunked = n_chunks > 1 if chunked is None else chunked
+    out = _flatten(tree["rest"], {})
+    stages = _flatten(tree["stages"], {})
+    for key, x in stages.items():
+        a = x.float().numpy() if x.dtype == torch.bfloat16 else x.numpy()
+        if chunked:
+            a = np.moveaxis(a, 1, 0).reshape((-1,) + a.shape[3:])
+        else:
+            a = a.reshape((-1,) + a.shape[2:])
+        if a.shape[0] != len(block_names):
+            raise ValueError(f"{key}: {a.shape[0]} blocks, names for "
+                             f"{len(block_names)}")
+        for i, name in enumerate(block_names):
+            out[f"{name}.{key}"] = _leaf(a[i]).to(x.dtype)
+    return out
+
+
+def shard_params(state_dict: Mapping[str, torch.Tensor], fsdp: int,
+                 index: int) -> dict[str, torch.Tensor]:
+    """The ZeRO-3 slice of each leaf that ``fsdp`` rank ``index`` holds
+    (``sharding_rules.spec_for``: the part along the split dim, or the
+    whole leaf where it stays replicated)."""
+    from pytorch_distributed_nn_tpu_torch.parallel.sharding_rules import (
+        fsdp_dim,
+        shard_slice,
+    )
+
+    out = {}
+    for k, t in state_dict.items():
+        d = fsdp_dim(k, tuple(t.shape), fsdp)
+        if d is None:
+            out[k] = t
+        else:
+            part = shard_slice(t.shape[d], index, fsdp)
+            out[k] = t.narrow(d, part.start, part.stop - part.start)
+    return out
+
+
+def gather_shards(shards: list[Mapping[str, torch.Tensor]],
+                  shapes: Mapping[str, tuple[int, ...]]
+                  ) -> dict[str, torch.Tensor]:
+    """The whole ``state_dict`` from every ``fsdp`` rank's slices (in
+    rank order): the inverse of :func:`shard_params`, each leaf's split
+    found by the same rule on its whole shape (``shapes``)."""
+    from pytorch_distributed_nn_tpu_torch.parallel.sharding_rules import (
+        fsdp_dim,
+    )
+
+    out = {}
+    for k, t in shards[0].items():
+        d = fsdp_dim(k, tuple(shapes[k]), len(shards))
+        out[k] = t if d is None else torch.cat([s[k] for s in shards], d)
+    return out

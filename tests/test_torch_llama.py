@@ -179,8 +179,13 @@ def test_config_overrides_match_jax():
         ref = jconfig.get_config(preset, **ov)
         assert got.seed == ref.seed == 4
         assert vars(got.model) == vars(ref.model)
+    # the ZeRO stage is a field now, as in the JAX package
+    assert (tconfig.get_config("llama3_8b_zero", **{
+        "parallel.zero_stage": "1"}).parallel.zero_stage
+        == jconfig.get_config("llama3_8b_zero", **{
+            "parallel.zero_stage": "1"}).parallel.zero_stage == 1)
     with pytest.raises(AttributeError, match="unknown config field"):
-        tconfig.get_config("llama3_8b_zero", **{"parallel.zero_stage": "1"})
+        tconfig.get_config("llama3_8b_zero", **{"data.path": "x"})
     with pytest.raises(ValueError):
         tconfig.parse_overrides(["positional"])
 

@@ -142,8 +142,10 @@ def test_mesh_coords_and_groups_follow_the_jax_device_order(kw):
 
 def test_mesh_lets_seq_through_and_refuses_the_model_axes():
     assert data_parallel(MeshSpec(seq=4, data=-1), 8).sizes()["data"] == 2
-    for axis in ("pipe", "expert", "tensor"):
-        with pytest.raises(NotImplementedError, match="sharded strategies"):
+    assert data_parallel(MeshSpec(pipe=2, data=-1), 8).data_degree() == 4
+    for axis in ("expert", "tensor"):
+        with pytest.raises(NotImplementedError,
+                           match="remaining sharded strategies"):
             data_parallel(MeshSpec(data=-1, **{axis: 2}), 8)
 
 

@@ -186,9 +186,9 @@ def test_longcontext_preset_matches_jax():
 
 @pytest.mark.parametrize("field", ["profile_dir", "metrics_path",
                                    "prom_path", "data.image_size",
-                                   "data.path", "parallel.zero_stage",
-                                   "parallel.microbatches",
-                                   "parallel.pipeline_schedule"])
+                                   "data.path", "data.token_dtype",
+                                   "data.holdout_frac",
+                                   "data.num_workers"])
 def test_unported_fields_fail_as_unknown(field):
     with pytest.raises(AttributeError, match="unknown config field"):
         tconfig.get_config("llama3_longcontext", **{field: "1"})
@@ -200,14 +200,19 @@ def test_mesh_resolves_as_jax_and_refuses_more_than_one_device():
         assert (MeshSpec(**kw).resolve(n).sizes()
                 == dict(zip(("pipe", "data", "fsdp", "expert", "seq",
                              "tensor"), JMeshSpec(**kw).resolve(n).shape)))
-    # the port resolves the data-parallel and seq degrees against the
-    # process group's world size; the axes that shard the model raise
+    # the port resolves the data-parallel, seq and pipe degrees against the
+    # process group's world size (every pipe stage in one process where
+    # the world does not divide by pipe); the axes that shard the layers
+    # within raise
     assert data_parallel(MeshSpec(seq=1, data=-1), 1).world_size() == 1
     four = data_parallel(MeshSpec(data=2, fsdp=-1), 4)
     assert four.data_degree() == 4 and four.sizes()["fsdp"] == 2
     assert data_parallel(MeshSpec(seq=2, data=-1), 4).data_degree() == 2
-    with pytest.raises(NotImplementedError, match="sharded strategies"):
-        data_parallel(MeshSpec(pipe=2, data=-1), 4)
+    assert data_parallel(MeshSpec(pipe=2, data=-1), 4).data_degree() == 2
+    assert data_parallel(MeshSpec(pipe=4, data=-1), 1).sizes()["pipe"] == 4
+    with pytest.raises(NotImplementedError,
+                       match="remaining sharded strategies"):
+        data_parallel(MeshSpec(tensor=2, data=-1), 4)
     assert [batch_slice(12, r, 3) for r in range(3)] == [
         slice(0, 4), slice(4, 8), slice(8, 12)]
     with pytest.raises(ValueError, match="divisible"):
@@ -215,9 +220,10 @@ def test_mesh_resolves_as_jax_and_refuses_more_than_one_device():
 
 
 @pytest.mark.parametrize("override,err,match", [
-    ({"parallel.strategy": "zero"}, NotImplementedError, "sharded strat"),
-    ({"parallel.strategy": "pipeline"}, NotImplementedError,
-     "sharded strat"),
+    ({"parallel.strategy": "ps"}, NotImplementedError,
+     "remaining sharded strat"),
+    ({"parallel.strategy": "zero", "mesh.seq": "2"}, NotImplementedError,
+     "remaining sharded strat"),
     ({"parallel.strategy": "bogus"}, ValueError, "unknown strategy"),
     ({"parallel.grad_accum": "2"}, ValueError, "not divisible"),
     ({"parallel.grad_accum": "0"}, ValueError, "accum"),
@@ -227,6 +233,17 @@ def test_make_train_step_refuses_what_is_not_ported(override, err, match):
     cfg = tconfig.get_config("llama3_longcontext", **override)
     with pytest.raises(err, match=match):
         make_train_step(cfg, tlosses.lm_xent)
+
+
+@pytest.mark.parametrize("override", [
+    {"parallel.strategy": "zero", "parallel.zero_stage": "1"},
+    {"parallel.strategy": "zero", "parallel.zero_stage": "3"},
+    {"parallel.strategy": "pipeline", "mesh.pipe": "2", "xent_chunk": "0"},
+])
+def test_make_train_step_builds_zero_and_pipeline(override):
+    cfg = tconfig.get_config("llama3_longcontext", **override)
+    step, place = make_train_step(cfg, tlosses.lm_xent)
+    assert callable(step) and callable(place)
 
 
 def test_chunked_loss_only_where_seq_exceeds_a_chunk():
