@@ -187,6 +187,24 @@ after phase 23):
               --mesh.pipe 1 --parallel.strategy dp run; peak memory, step
               time, the most microbatches a stage held.
 
+The expert axis (phase 27 runs after phase 26):
+
+27. moe     -- moe_lm_ep at full width (12 layers, d 768, 12 heads of 64,
+              8 experts of MLP 3072, top-2, capacity 1.25, routing groups
+              of 1024, vocab 32000, B 32, T 1024, no remat, adamw,
+              zero_stage 3) on NCCL at world 1, where expert = -1
+              resolves to 1 and nothing is split: one step's loss with the
+              flash kernels against the plain attention's forward loss
+              from the same weights and batch (MOE_LOSS_TOL); a warm-up and
+              3 steps with the flash counts reset just before and read just
+              after (12 forward, 12 dq, 12 dk/dv a step: no remat) and no
+              collective; step time, tokens/s, MFU by the MoE closed form
+              (utils/flops.py), peak memory, the routing's fraction of
+              (token, choice)s dropped; one profiled step with the flash
+              kernels counted by name between the spin kernels, and the
+              device time by kernel family (the kernels line's
+              ``at_moe``).
+
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit from nvidia-smi, and the result JSON line.
 """
@@ -2121,9 +2139,11 @@ def lm_trainer(**overrides):
     return Trainer(cfg, device="cuda")  # seeded init (cfg.seed)
 
 
-def train_report(trainer, steps, flops_per_token, tokens, peak):
+def train_report(trainer, steps, flops_per_token, tokens, peak,
+                 count=None):
     """Step time, tokens/s, MFU and peak memory of the last ``steps``
-    steps, and one more step under torch.profiler."""
+    steps, and one more step under torch.profiler (``count``: as
+    :func:`profile_step`'s)."""
     step_s, wait_s = step_stats(trainer, steps)
     flops = flops_per_token * tokens
     out = dict(card=card_line(), steps=steps,
@@ -2134,7 +2154,7 @@ def train_report(trainer, steps, flops_per_token, tokens, peak):
                model_gflop_per_token=flops_per_token / 1e9,
                model_tflop_per_step=flops / 1e12,
                mfu=flops / step_s / BF16_OPS_PER_S, peak_mem_gb=peak / 1e9)
-    prof = profile_step(trainer)
+    prof = profile_step(trainer, count=count)
     if prof is not None:
         prof["idle_share_vs_unprofiled_step"] = (
             1 - prof["device_ms"] / (step_s * 1e3))
@@ -3520,6 +3540,122 @@ def phase_pipe():
     return result, launches
 
 
+MOE_B, MOE_T, MOE_D = 32, 1024, 64  # moe_lm_ep as it is
+MOE_STEPS = 3  # timed steps (after one warm-up step)
+# one full-width step's loss, flash kernels against the plain attention
+# from the same weights and batch: the two round to bf16 at other places,
+# and a routing choice that flips on a tie-close pair moves a few tokens'
+# terms of the mean
+MOE_LOSS_TOL = 1e-3  # relative
+# the flash kernels' names in a device trace
+FLASH_RX = {"flash_fwd": r"flash_fwd_kernel", "flash_bwd_dq":
+            r"flash_bwd_dq_kernel", "flash_bwd_dkv": r"flash_bwd_dkv_kernel"}
+
+
+def phase_moe():
+    """moe_lm_ep at full width on one card (NCCL, world 1, expert 1:
+    nothing split): one step's loss with the flash kernels against the
+    plain attention's forward loss from the same weights and batch; a
+    warm-up and MOE_STEPS steps with the flash counts reset just before
+    and read just after (L forward, L dq, L dk/dv a step) and no
+    collective; tokens/s, MFU, peak memory, the routing's dropped
+    fraction; one profiled step with the flash kernels counted by name."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+    from pytorch_distributed_nn_tpu_torch.parallel import dp
+    from pytorch_distributed_nn_tpu_torch.parallel.expert import (
+        MoEMLP,
+        add_aux_losses,
+        collect_aux_losses,
+    )
+    from pytorch_distributed_nn_tpu_torch.parallel.zero import ZeroShards
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.utils.flops import (
+        transformer_train_flops_per_token,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = Trainer(get_config("moe_lm_ep", log_every="1"),
+                      device="cuda")  # seeded init (cfg.seed)
+    model, cfg = trainer.model, trainer.cfg
+    layers = [m for m in model.modules() if isinstance(m, MoEMLP)]
+    zs = trainer.state.sharding
+    if not (isinstance(zs, ZeroShards) and zs.stage == 3 and not zs.active
+            and trainer.mesh.spec.expert == 1 and model.num_layers == 12
+            and model.d_model == 768 and model.head_dim == MOE_D
+            and len(layers) == 12 and layers[0].num_experts == 8
+            and layers[0].mlp_dim == 3072 and not cfg.model.remat
+            and (cfg.data.batch_size, cfg.data.seq_len) == (MOE_B, MOE_T)):
+        raise AssertionError("moe_lm_ep is not the preset at full width")
+    L = model.num_layers
+    n_params = sum(p.numel() for p in model.parameters())
+    x, y = trainer.loader.batch_at(0)
+    reset_flash_counts()
+    loss_f = dp._loss_and_grads(trainer.state, x, y, trainer.loss_fn).item()
+    check_counts = flash_counts()
+    trainer.state.optimizer.zero_grad()
+    if check_counts != {k: L for k in FLASH_KERNELS}:
+        raise AssertionError(f"flash launches in one step: {check_counts}")
+    for i in range(L):
+        getattr(model, f"block{i}").attn.impl = "xla"
+    reset_flash_counts()
+    with torch.no_grad(), collect_aux_losses(model) as aux:
+        loss_x = add_aux_losses(trainer.loss_fn(model(x), y), aux).item()
+    if any(flash_counts().values()):
+        raise AssertionError("the plain forward launched a flash kernel")
+    for i in range(L):
+        getattr(model, f"block{i}").attn.impl = "auto"
+    loss_err = abs(loss_f - loss_x) / abs(loss_x)
+    log(f"[moe] one step, flash vs plain attention: loss {loss_f:.6f} vs "
+        f"{loss_x:.6f} (rel {loss_err:.3e}, limit {MOE_LOSS_TOL})")
+    if not (math.isfinite(loss_f) and loss_err <= MOE_LOSS_TOL):
+        raise AssertionError("the flash MoE step disagrees with the plain "
+                             "attention")
+    torch.cuda.empty_cache()
+    trainer.train(steps=1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()  # the main path's count starts here
+    with cc.recording() as records:
+        trainer.train(steps=MOE_STEPS)
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: L * MOE_STEPS for k in FLASH_KERNELS}
+    if launches != want:
+        raise AssertionError(f"flash launches {launches}, want {want}")
+    if records:
+        raise AssertionError(f"collectives at world 1: {records[:3]}")
+    losses = trainer.losses()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses {losses}")
+    dropped = [float(m.last_fraction_dropped.mean()) for m in layers]
+    per_token = transformer_train_flops_per_token(model, MOE_T, causal=True)
+    report = train_report(trainer, MOE_STEPS, per_token, MOE_B * MOE_T,
+                          peak, count=FLASH_RX)
+    prof = report["profile"]
+    if prof is None:
+        raise AssertionError("the profiled MoE step recorded no device time")
+    profiled = prof["counted"]
+    if profiled != {k: L for k in FLASH_KERNELS}:
+        raise AssertionError(f"flash kernels in a profiled step: {profiled}")
+    result = dict(check=dict(loss_flash=loss_f, loss_plain=loss_x,
+                             loss_rel_err=loss_err, limit=MOE_LOSS_TOL),
+                  launches=launches, profiled_launches=profiled,
+                  params=n_params, layers=L, losses=losses,
+                  fraction_dropped_by_layer=dropped,
+                  fraction_dropped_mean=sum(dropped) / len(dropped),
+                  collectives=len(records),
+                  **{k: v for k, v in report.items() if k != "losses"})
+    log(f"[moe] {json.dumps(result)}")
+    del trainer, model, zs, layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result, launches, profiled
+
+
 def main() -> int:
     started = time.monotonic()
     import torch
@@ -3576,6 +3712,7 @@ def main() -> int:
     offload, offload_flash = phase_offload()
     zero8b, zero8b_flash = phase_zero8b()
     pipe, pipe_flash = phase_pipe()
+    moe, moe_flash, moe_profiled = phase_moe()
 
     model = build_model(seed=0)
     forward = phase_forward(model)
@@ -3627,6 +3764,13 @@ def main() -> int:
                 per="one call at B 1, T 4096, H 32, Hkv 8, D 128, causal "
                     "(llama3_8b_zero, config 5); launches: its 3 timed "
                     "zero-3 steps at depth 8"),
+            at_moe=dict(
+                launches=moe_flash[name],
+                profiled_launches=moe_profiled[name],
+                per="moe_lm_ep at full width (B 32, T 1024, H = Hkv = 12, "
+                    "D 64, causal, no remat); launches: its 3 timed steps; "
+                    "profiled_launches: the kernels of this name in one "
+                    "profiled step's device trace"),
             launches_pipe={sched: pipe_flash[sched][name]
                            for sched in pipe_flash},
             pipe="transformer_lm_pp on mesh.pipe 4 (one process, every "
@@ -3699,7 +3843,7 @@ def main() -> int:
                         flash64=flash64, lm_d64=lm_d64, bert=bert,
                         ckpt=ckpt, accum=accum, multistep=multistep,
                         offload=offload, flash8b=flash8b, zero8b=zero8b,
-                        pipe=pipe)))
+                        pipe=pipe, moe=moe)))
     from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
 
     bootstrap.shutdown()  # the NCCL group of the data-parallel phases

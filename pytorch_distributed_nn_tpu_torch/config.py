@@ -55,7 +55,8 @@ class DataConfig:
 
 @dataclass
 class ModelConfig:
-    # mlp | lenet | resnet50 | bert_base | transformer_lm | vit | llama3_8b
+    # mlp | lenet | resnet50 | bert_base | transformer_lm | moe_lm | vit |
+    # llama3_8b
     name: str = "mlp"
     dtype: str = "float32"  # param dtype
     compute_dtype: str = "bfloat16"
@@ -195,6 +196,23 @@ def _llama3_8b_zero() -> TrainConfig:
     )
 
 
+def _moe_lm_ep() -> TrainConfig:
+    # The mixture-of-experts LM (models/moe_lm.py): the experts split over
+    # the `expert` axis (every rank, -1), the batch over data x fsdp,
+    # ZeRO stage 3; no remat. The model's own defaults make it 12 layers,
+    # d 768, 12 heads of 64, 8 experts of MLP 3072, top-2, capacity 1.25.
+    return TrainConfig(
+        preset="moe_lm_ep",
+        steps=50,
+        mesh=MeshSpec(expert=-1, data=1),
+        optim=OptimConfig(name="adamw", lr=3e-4, weight_decay=0.1,
+                          warmup_steps=10, schedule="cosine"),
+        data=DataConfig(dataset="lm_synthetic", batch_size=32, seq_len=1024),
+        model=ModelConfig(name="moe_lm", remat=False),
+        parallel=ParallelConfig(strategy="zero", zero_stage=3),
+    )
+
+
 def _llama3_longcontext() -> TrainConfig:
     # 32k-token causal-LM training on one card: flash attention in both
     # directions, remat on every block, chunked cross-entropy. head_dim 128
@@ -300,6 +318,7 @@ def _transformer_lm_pp() -> TrainConfig:
 PRESETS = {
     "mlp_mnist": _mlp_mnist,
     "lenet_cifar10": _lenet_cifar10,
+    "moe_lm_ep": _moe_lm_ep,
     "resnet50_dp": _resnet50_dp,
     "bert_base_buckets": _bert_base_buckets,
     "transformer_lm_pp": _transformer_lm_pp,

@@ -1,7 +1,6 @@
 """Model registry: ``register`` / ``get_model`` as in the JAX package.
 Ported: ``llama3_8b``, ``mlp``, ``lenet``, ``resnet50``, ``bert_base``,
-``transformer_lm`` and ``vit``. The MoE LM is not: it needs the expert
-axis (ROADMAP.md §1 item 3, the remaining sharded strategies)."""
+``transformer_lm``, ``moe_lm`` and ``vit``."""
 
 from __future__ import annotations
 
@@ -33,17 +32,12 @@ def get_model(cfg: ModelConfig, device="cuda", input_shape=None, seq=None):
         lenet,
         llama,
         mlp,
+        moe_lm,
         resnet,
         transformer_lm,
         vit,
     )
 
-    if cfg.name == "moe_lm":
-        from pytorch_distributed_nn_tpu_torch.runtime.mesh import REMAINING
-
-        raise NotImplementedError(
-            f"model 'moe_lm' is not ported yet: it needs the expert axis "
-            f"({REMAINING})")
     if cfg.name not in _REGISTRY:
         raise KeyError(
             f"unknown model {cfg.name!r}; have {sorted(_REGISTRY)}")

@@ -3,7 +3,11 @@ package's ``models/transformer_lm.py``). GPT-style pre-LN blocks with
 learned positions, a final LayerNorm ``ln_f`` and an f32 ``lm_head``.
 
 Submodules keep the flax names (``tok_embed``, ``pos_embed``,
-``block{i}.{ln1,attn,ln2,mlp_in,mlp_out}``, ``ln_f``, ``lm_head``).
+``block{i}.{ln1,attn,ln2,mlp_in,mlp_out}``, ``ln_f``, ``lm_head``). A
+subclass swaps a block's dense MLP for another FFN through
+:meth:`TransformerLM.layer_ffn` (the JAX ``DecoderBlock.ffn`` hook): the
+MoE LM (``models/moe_lm.py``) puts its expert layers there, as
+``block{i}.moe``.
 ``remat`` reruns each block's forward in the backward
 (``torch.utils.checkpoint``, the JAX model's ``nn.remat`` per block).
 Attention's ``attn_impl="auto"`` takes the flash kernels on the card in
@@ -38,10 +42,14 @@ from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
 
 
 class DecoderBlock(nn.Module):
+    """A pre-LN block. ``ffn`` is ``(name, module)`` of an FFN that takes
+    the place of the dense ``mlp_in``/``mlp_out`` (None: the dense MLP)."""
+
     def __init__(self, d_model: int, num_heads: int, mlp_dim: int, *,
                  dropout: float = 0.0, ln_eps: float = 1e-5,
                  attn_impl: str = "auto", dtype=torch.float32,
                  param_dtype=torch.float32, salt: int = 0,
+                 ffn: Optional[tuple[str, nn.Module]] = None,
                  device=None) -> None:
         super().__init__()
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
@@ -51,13 +59,22 @@ class DecoderBlock(nn.Module):
             rotary=False, use_bias=True, impl=attn_impl, **kw)
         self.drop_attn = Dropout(dropout, salt)
         self.ln2 = LayerNorm(d_model, eps=ln_eps, **kw)
-        self.mlp_in = Dense(d_model, mlp_dim, **kw)
-        self.mlp_out = Dense(mlp_dim, d_model, **kw)
+        self.ffn_name = None
+        if ffn is None:
+            self.mlp_in = Dense(d_model, mlp_dim, **kw)
+            self.mlp_out = Dense(mlp_dim, d_model, **kw)
+        else:
+            self.ffn_name = ffn[0]
+            self.add_module(*ffn)
         self.drop_mlp = Dropout(dropout, salt + 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.drop_attn(self.attn(self.ln1(x)))
-        y = self.mlp_out(gelu(self.mlp_in(self.ln2(x))))
+        y = self.ln2(x)
+        if self.ffn_name is None:
+            y = self.mlp_out(gelu(self.mlp_in(y)))
+        else:
+            y = getattr(self, self.ffn_name)(y)
         return x + self.drop_mlp(y)
 
 
@@ -68,6 +85,10 @@ class TransformerLM(nn.Module):
     ``ln_f``'d (B, T, D) trunk output (the chunked loss applies the head
     blockwise). Built on ``device`` (default ``cuda``, which raises
     without CUDA)."""
+
+    # a subclass whose routing spans a whole group of tokens (the MoE LM)
+    # turns this off: cached decode would not equal full recompute
+    supports_decode = True
 
     def __init__(self, *, vocab_size: int = 32000, num_layers: int = 12,
                  d_model: int = 768, num_heads: int = 12, mlp_dim: int = 3072,
@@ -90,11 +111,20 @@ class TransformerLM(nn.Module):
         for i in range(num_layers):
             self.add_module(f"block{i}", DecoderBlock(
                 d_model, num_heads, mlp_dim, dropout=dropout, ln_eps=ln_eps,
-                attn_impl=attn_impl, salt=2 * i, **kw))
+                attn_impl=attn_impl, salt=2 * i,
+                ffn=self.layer_ffn(i, d_model=d_model, mlp_dim=mlp_dim,
+                                   **kw), **kw))
         self.ln_f = LayerNorm(d_model, eps=ln_eps, **kw)
         self.lm_head = Dense(d_model, vocab_size, dtype=torch.float32,
                              param_dtype=param_dtype, use_bias=False,
                              device=device)
+
+    def layer_ffn(self, i: int, **block) -> Optional[tuple[str, nn.Module]]:
+        """The FFN of block ``i`` as ``(flax name, module)``, made from the
+        block's ``d_model``, ``mlp_dim``, ``dtype``, ``param_dtype`` and
+        ``device``; None for the dense MLP, as here everywhere. The MoE
+        subclass returns expert layers on its cadence."""
+        return None
 
     @property
     def head_dim(self) -> int:
@@ -104,6 +134,10 @@ class TransformerLM(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 last_only: bool = False, return_hidden: bool = False,
                 cache: Optional[dict] = None) -> torch.Tensor:
+        if cache is not None and not self.supports_decode:
+            raise ValueError(
+                f"{type(self).__name__} does not support decode caching: "
+                "its routing spans a whole group of tokens")
         if cache is not None:
             raise NotImplementedError(
                 "the transformer LM's decode cache is not ported yet "

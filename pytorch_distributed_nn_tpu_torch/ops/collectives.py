@@ -16,7 +16,11 @@ return new tensors and are differentiable (their backward is the reverse
 exchange), as the JAX verbs are under ``jax.grad``. The sharded strategies
 use :func:`all_gather_into_tensor` and :func:`reduce_scatter_tensor`
 (ZeRO's gather of a parameter and the sum of its gradient's shards) and
-:func:`exchange` (the pipeline's point-to-point hops).
+:func:`exchange` (the pipeline's point-to-point hops). The expert axis
+(``parallel/expert.py``) uses two differentiable verbs for a computation
+that is replicated across the group but for one split step:
+:func:`gather_replicated` (the experts' outputs from every rank) and
+:func:`sum_grad` (the identity whose gradient is summed over the group).
 """
 
 from __future__ import annotations
@@ -324,3 +328,53 @@ def all_to_all(x: torch.Tensor, group, size: int, *, split_axis: int,
     if size == 1:
         return _all_to_all(x, group, size, split_axis, concat_axis)
     return _AllToAll.apply(x, group, size, split_axis, concat_axis)
+
+
+# --------------------------------------------------------------------------
+# the expert axis: a replicated computation with one split step
+# --------------------------------------------------------------------------
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size: int, index: int):
+        ctx.index, ctx.rows = index, x.shape[0]
+        out = torch.empty((size * x.shape[0],) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        return all_gather_into_tensor(out, x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(0, ctx.index * ctx.rows, ctx.rows), None, None, None
+
+
+def gather_replicated(x: torch.Tensor, group, size: int,
+                      index: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0 in group order (an
+    all-gather), for a computation downstream that every rank of the group
+    runs alike on the same values. Its gradient is then the same on every
+    rank, so the backward keeps this rank's rows (``index`` in the group)
+    and sends nothing. The identity at size 1."""
+    if size == 1:
+        return x
+    return _GatherReplicated.apply(x, group, size, index)
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.contiguous(), ctx.group), None
+
+
+def sum_grad(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """The identity, whose gradient is summed over ``group`` (an
+    all-reduce in the backward): the input of a step that each rank of the
+    group computes a part of, from the same ``x``. The identity with no
+    collective at size 1."""
+    if size == 1:
+        return x
+    return _SumGrad.apply(x, group)

@@ -7,7 +7,8 @@ Ported: ``single``, ``dp`` and ``dp_explicit`` over a process group, with
 ``parallel.overlap`` (the reduction issued from the backward), sequence
 parallelism (``mesh.seq > 1``) and gradient accumulation
 (``parallel.grad_accum``) under ``single``/``dp``/``zero``; ``zero``
-(stages 1 and 3, ``parallel/zero.py``) and ``pipeline`` (gpipe, 1f1b,
+(stages 1 and 3, ``parallel/zero.py``, which also splits the experts over
+``mesh.expert``) and ``pipeline`` (gpipe, 1f1b,
 interleaved; ``parallel/pipeline.py``). ``ps`` and ``zero`` with
 ``mesh.seq > 1`` raise, naming the ROADMAP item that ports them.
 """

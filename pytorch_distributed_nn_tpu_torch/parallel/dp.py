@@ -34,6 +34,10 @@ from pytorch_distributed_nn_tpu_torch.nn.batchnorm import TpuBatchNorm
 from pytorch_distributed_nn_tpu_torch.nn.layers import dropout_stream, fold_in
 from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
 from pytorch_distributed_nn_tpu_torch.ops.buckets import OverlapReducer
+from pytorch_distributed_nn_tpu_torch.parallel.expert import (
+    add_aux_losses,
+    collect_aux_losses,
+)
 from pytorch_distributed_nn_tpu_torch.train.state import TrainState
 
 
@@ -54,17 +58,25 @@ def _loss_and_grads(state: TrainState, x: torch.Tensor, y: torch.Tensor,
     (``loss_fn.apply_kwargs``) and the live parameters by name
     (``loss_fn.needs_params``). ``microbatch`` (under gradient
     accumulation) folds its index into the dropout seed, as the JAX step
-    folds it into the step's key."""
+    folds it into the step's key. The MoE layers' load-balance terms
+    (``parallel/expert.py``) are added to the loss, as the JAX ``forward``
+    adds the sown ``"losses"``; a microbatch's are its own. The dropout
+    stream is keyed by the rank, or by the layout's ``dropout_rank`` where
+    ranks hold the same rows (the expert axis)."""
     apply_kwargs = getattr(loss_fn, "apply_kwargs", None)
     seed = state.generator.initial_seed()
     if microbatch is not None:
         seed = fold_in(seed, microbatch)
-    with dropout_stream(seed, state.step, cc.rank()):
-        out = forward(state, x, apply_kwargs=apply_kwargs)
-        if getattr(loss_fn, "needs_params", False):
-            loss = loss_fn(out, y, dict(state.model.named_parameters()))
-        else:
-            loss = loss_fn(out, y)
+    rank = getattr(state.sharding, "dropout_rank", None)
+    with dropout_stream(seed, state.step,
+                        cc.rank() if rank is None else rank):
+        with collect_aux_losses(state.model) as aux:
+            out = forward(state, x, apply_kwargs=apply_kwargs)
+            if getattr(loss_fn, "needs_params", False):
+                loss = loss_fn(out, y, dict(state.model.named_parameters()))
+            else:
+                loss = loss_fn(out, y)
+        loss = add_aux_losses(loss, aux)
         loss.backward()
     return loss.detach()
 

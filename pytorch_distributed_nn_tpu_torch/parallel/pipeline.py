@@ -64,7 +64,7 @@ from pytorch_distributed_nn_tpu_torch.parallel.pipeline_schedule import (
     interleaved_1f1b,
     one_f_one_b,
 )
-from pytorch_distributed_nn_tpu_torch.runtime.mesh import REMAINING, ProcessMesh
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import ProcessMesh
 from pytorch_distributed_nn_tpu_torch.train.losses import accuracy, valid_mask
 from pytorch_distributed_nn_tpu_torch.train.optim import (
     ShardLayout,
@@ -88,13 +88,18 @@ class StagePartition:
 
 def partition_for(model) -> StagePartition:
     """The partition of the dense transformer LM (``block{i}``) or the
-    float Llama (``layer{i}``); anything else raises."""
+    float Llama (``layer{i}``); anything else raises, the MoE LM
+    included."""
     from pytorch_distributed_nn_tpu_torch.models.llama import Llama
+    from pytorch_distributed_nn_tpu_torch.models.moe_lm import (
+        MoETransformerLM,
+    )
     from pytorch_distributed_nn_tpu_torch.models.transformer_lm import (
         TransformerLM,
     )
 
-    if isinstance(model, TransformerLM):
+    if isinstance(model, TransformerLM) and not isinstance(
+            model, MoETransformerLM):
         return StagePartition([f"block{i}" for i in range(model.num_layers)],
                               ("tok_embed", "pos_embed"), ("ln_f", "lm_head"))
     if isinstance(model, Llama):
@@ -109,8 +114,8 @@ def partition_for(model) -> StagePartition:
                               ("tok_embed",), ("final_norm", "lm_head"))
     raise ValueError(
         f"pipeline parallelism supports TransformerLM/Llama, got "
-        f"{type(model).__name__} (MoE stacks wait for the expert axis, "
-        f"{REMAINING})")
+        f"{type(model).__name__} (the MoE LM's moe_block/period stacks "
+        "under the pipeline are ROADMAP.md §1 item 3.8, pipeline x MoE)")
 
 
 def stage_blocks(part: StagePartition, n_stages: int, n_chunks: int,

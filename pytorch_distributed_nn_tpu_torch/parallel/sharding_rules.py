@@ -6,10 +6,13 @@ the port imports nothing of the JAX package).
   :data:`MIN_SHARD_ELEMS` elements is split over ``fsdp`` along its
   largest dim that ``fsdp`` divides; the embedding and head tables along
   their vocab dim (where it divides); smaller leaves stay replicated.
-- **tensor** and **expert**: the name-driven Megatron and expert rules,
-  ported as data. The mesh still refuses both axes above 1
-  (``runtime/mesh.py``, ROADMAP.md §1 item 3, the remaining sharded
-  strategies), so no step reads them yet.
+- **expert**: the stacked experts of an MoE layer (``moe/wi``,
+  ``moe/wo``) split along E over ``expert`` (``parallel/zero.py``
+  reads it; the router stays replicated), before the fsdp rule picks
+  another dim.
+- **tensor**: the name-driven Megatron rules, ported as data. The mesh
+  still refuses ``tensor`` above 1 (``runtime/mesh.py``, ROADMAP.md §1
+  item 3, the remaining sharded strategies), so no step reads them yet.
 
 :func:`spec_for` returns the JAX ``PartitionSpec``'s entries as a tuple
 (``None``, ``"fsdp"``, ``"tensor"``, ``"expert"`` or a tuple of axes, one
@@ -95,10 +98,11 @@ def spec_for(path: str, shape: tuple[int, ...], *, tensor: int = 1,
     return tuple(axes)
 
 
-def fsdp_dim(path: str, shape: tuple[int, ...], fsdp: int) -> int | None:
-    """The dim of a leaf that ``fsdp`` splits (None: replicated), under
-    the fsdp rule alone (tensor and expert 1)."""
-    spec = spec_for(path, shape, fsdp=fsdp)
+def fsdp_dim(path: str, shape: tuple[int, ...], fsdp: int,
+             expert: int = 1) -> int | None:
+    """The dim of a leaf of whole shape ``shape`` that ``fsdp`` splits
+    (None: replicated), under the fsdp and expert rules (tensor 1)."""
+    spec = spec_for(path, shape, fsdp=fsdp, expert=expert)
     return spec.index(FSDP) if FSDP in spec else None
 
 

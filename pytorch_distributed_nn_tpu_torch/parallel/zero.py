@@ -36,6 +36,19 @@ and smaller leaves stay replicated.
   LM loss reads ``lm_head.kernel``, ``loss_fn.reads``) holds that unit
   gathered from before the forward until its gradient is complete.
 
+The expert axis (``mesh.expert > 1``, the JAX ``moe_lm_ep`` layout): the
+stacked experts of each MoE layer (``moe.wi``, ``moe.wo``, split along E by
+``spec_for``'s EP rule) live on each rank as the E/n slice at its
+``expert`` coordinate (``MoEMLP.split_experts``) and are never gathered:
+each rank computes its own experts (``parallel/expert.py``). Where
+``fsdp`` splits them too, it splits the slice along another dim. Ranks that differ only in their expert
+coordinate hold the same rows and compute the same replicated values, so
+nothing is reduced over ``expert``: the expert slices' gradients, like
+every other, are reduced over data x fsdp only. The clip's global norm
+sums the slices' squares over the expert group (``ShardLayout``). A
+checkpoint's part is the rank's (expert, fsdp) coordinate; the ranks off
+expert 0 write only their expert slices and their moments.
+
 Replicated leaves are all-reduced to their mean over data x fsdp, as
 under ``dp``; a split gradient's reduce-scattered sum over ``fsdp`` is
 then summed over ``data`` and divided by data x fsdp. Gradient
@@ -80,11 +93,18 @@ import torch.distributed as dist
 from pytorch_distributed_nn_tpu_torch.nn.batchnorm import TpuBatchNorm
 from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
 from pytorch_distributed_nn_tpu_torch.parallel import dp
+from pytorch_distributed_nn_tpu_torch.parallel.expert import MoEMLP
 from pytorch_distributed_nn_tpu_torch.parallel.sharding_rules import (
+    EXPERT,
     fsdp_dim,
     shard_slice,
+    spec_for,
 )
-from pytorch_distributed_nn_tpu_torch.runtime.mesh import ProcessMesh
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import (
+    AXES,
+    ProcessMesh,
+    coords,
+)
 from pytorch_distributed_nn_tpu_torch.train.optim import (
     ShardLayout,
     make_optimizer,
@@ -259,13 +279,35 @@ class ZeroShards:
         self.mesh = mesh
         self.fsdp, self.data = mesh.fsdp, mesh.data
         self.replica = mesh.replica  # the data axis alone
-        n = self.fsdp.size
+        self.expert = mesh.expert
+        n, ne = self.fsdp.size, self.expert.size
+        # the expert split first: each MoE layer keeps its E/n experts
+        self.experts: set[str] = set()  # the expert-split leaves
+        if ne > 1:
+            for name, m in model.named_modules():
+                if isinstance(m, MoEMLP) and all(
+                        EXPERT in spec_for(f"{name}.{leaf}",
+                                           tuple(getattr(m, leaf).shape),
+                                           expert=ne)
+                        for leaf in ("wi", "wo")):
+                    m.split_experts(self.expert)
+                    self.experts |= {f"{name}.wi", f"{name}.wo"}
         self.named = {k: p for k, p in model.named_parameters()
                       if p.requires_grad}
-        self.dims = {k: fsdp_dim(k, tuple(p.shape), n)
-                     for k, p in self.named.items()}
+        # whole shapes (an expert slice's E is n times its own)
+        self.shapes = {k: ((p.shape[0] * ne,) + tuple(p.shape[1:])
+                           if k in self.experts else tuple(p.shape))
+                       for k, p in self.named.items()}
+        self.dims = {k: fsdp_dim(k, self.shapes[k], n, expert=ne)
+                     for k in self.named}
         self.shards: dict[str, torch.Tensor] = {}
-        self.shapes = {k: tuple(p.shape) for k, p in self.named.items()}
+        # dropout masks follow the rows: the rank at expert 0 of this
+        # rank's expert group keys them
+        c = coords(mesh.process_spec, mesh.rank)
+        stride = 1
+        for a in AXES[AXES.index("expert") + 1:]:
+            stride *= getattr(mesh.process_spec, a)
+        self.dropout_rank = mesh.rank - c["expert"] * stride
         with torch.no_grad():
             for k, p in self.named.items():
                 d = self.dims[k]
@@ -291,7 +333,7 @@ class ZeroShards:
     @property
     def active(self) -> bool:
         """Whether anything is split or reduced (false at world 1)."""
-        return bool(self.shards) or self.data.size > 1
+        return bool(self.shards) or self.data.size > 1 or bool(self.experts)
 
     # -- what the optimizer and the checkpoint see -----------------------
 
@@ -304,7 +346,10 @@ class ZeroShards:
         return ShardLayout(dims=[self.dims[k] if k in self.shards else None
                                  for k in self.named],
                            shapes=list(self.shapes.values()),
-                           group=self.fsdp.group, size=self.fsdp.size)
+                           group=self.fsdp.group, size=self.fsdp.size,
+                           experts=[k in self.experts for k in self.named],
+                           expert_group=self.expert.group,
+                           expert_size=self.expert.size)
 
     def owned_params(self) -> dict[str, torch.Tensor]:
         """The state's parameter tensors that differ from the module's: the
@@ -312,24 +357,49 @@ class ZeroShards:
         return dict(self.shards) if self.stage == 3 else {}
 
     def meta(self) -> dict:
-        """The layout a checkpoint records."""
-        return {"strategy": "zero", "zero_stage": self.stage,
-                "mesh": self.mesh.spec.sizes(),
-                "split": {k: [self.dims[k], list(self.shapes[k])]
-                          for k in self.shards}}
+        """The layout a checkpoint records: the fsdp split of each leaf
+        (``split``: dim and whole shape) and the expert-split leaves
+        (``experts``: whole shape)."""
+        out = {"strategy": "zero", "zero_stage": self.stage,
+               "mesh": self.mesh.spec.sizes(),
+               "split": {k: [self.dims[k], list(self.shapes[k])]
+                         for k in self.shards}}
+        if self.experts:
+            out["experts"] = {k: list(self.shapes[k])
+                              for k in sorted(self.experts)}
+        return out
+
+    def _part(self, expert: int, fsdp: int) -> str:
+        return (f"expert{expert}-fsdp{fsdp}" if self.experts
+                else f"fsdp{fsdp}")
 
     @property
     def part_name(self) -> str:
         """This rank's piece of a checkpoint."""
-        return f"fsdp{self.fsdp.index}"
+        return self._part(self.expert.index, self.fsdp.index)
 
     def parts(self) -> list[str]:
-        return [f"fsdp{i}" for i in range(self.fsdp.size)]
+        return [self._part(e, f) for e in
+                range(self.expert.size if self.experts else 1)
+                for f in range(self.fsdp.size)]
 
     @property
     def writes(self) -> bool:
         """Whether this rank writes its piece (the first data replica)."""
         return self.replica.index == 0
+
+    def keeps(self, param: str) -> bool:
+        """Whether this rank's piece holds ``param``'s tensors (its value
+        and its moments): its expert slices, and on expert 0 everything
+        else, so that a replicated leaf is written once."""
+        return self.expert.index == 0 or param in self.experts
+
+    def restore_parts(self) -> list[str]:
+        """The pieces a rank reads back, its own first: off expert 0 also
+        expert 0's, for every tensor its own piece does not hold."""
+        if self.experts and self.expert.index:
+            return [self.part_name, self._part(0, self.fsdp.index)]
+        return [self.part_name]
 
     # -- stage 3: gather and free ----------------------------------------
 
@@ -495,7 +565,7 @@ def make_sharded_train_step(loss_fn: Callable, mesh_of: Callable, *,
         state.sharding = zs
         state.optimizer = make_optimizer(
             optim_cfg, zs.optimizer_params(), total_steps=total_steps,
-            layout=zs.layout() if zs.shards else None)
+            layout=zs.layout() if zs.shards or zs.experts else None)
         return state
 
     replicated = make_zero_train_step(loss_fn, stage=0, accum=accum)

@@ -1,12 +1,15 @@
 """Logical parallelism degrees: ``MeshSpec`` of the JAX package's
 ``runtime/mesh.py``, resolved against the process group's world size.
 
-The port runs data, sequence, sharded-data and pipeline parallelism: one
-process a device, the global batch split over the ``data`` and ``fsdp``
-axes (:func:`batch_slice`), each row's tokens over ``seq``
-(:func:`seq_slice`), the parameters over ``fsdp`` (``parallel/zero.py``)
-and the layers over ``pipe`` (``parallel/pipeline.py``). The axes that
-shard layers within (``expert``, ``tensor``) raise, naming
+The port runs data, sequence, sharded-data, expert and pipeline
+parallelism: one process a device, the global batch split over the
+``data`` and ``fsdp`` axes (:func:`batch_slice`; ranks that differ only
+in their ``expert`` coordinate hold the same rows, as the JAX
+``batch_pspec`` lays them out), each row's tokens over ``seq``
+(:func:`seq_slice`), the parameters over ``fsdp`` (``parallel/zero.py``),
+the experts of a mixture-of-experts layer over ``expert``
+(``parallel/expert.py``) and the layers over ``pipe``
+(``parallel/pipeline.py``). The ``tensor`` axis raises, naming
 :data:`REMAINING`.
 
 Rank r sits at the row-major coordinates of r over ``AXES`` in the
@@ -28,7 +31,7 @@ import numpy as np
 import torch.distributed as dist
 
 AXES: tuple[str, ...] = ("pipe", "data", "fsdp", "expert", "seq", "tensor")
-_MODEL_AXES = ("expert", "tensor")
+_MODEL_AXES = ("tensor",)
 # what is left of the sharded strategies; every port error for it names this
 REMAINING = "ROADMAP.md §1 item 3, the remaining sharded strategies"
 
@@ -86,14 +89,14 @@ def data_parallel(spec: MeshSpec, world_size: int) -> MeshSpec:
     """``spec`` resolved on ``world_size`` processes, one device each
     (``pipe`` stages count as processes unless the world does not divide
     by them, :func:`pipe_is_local`); raises ``NotImplementedError`` where
-    an axis that shards layers within (expert, tensor) exceeds 1."""
+    the axis that shards a layer's products (tensor) exceeds 1."""
     model_axes = {name: getattr(spec, name) for name in _MODEL_AXES
                   if getattr(spec, name) > 1}
     if model_axes:
         raise NotImplementedError(
             f"mesh axes {model_axes} shard the layers: not ported yet "
-            f"({REMAINING}); the port runs the pipe, data, fsdp and seq "
-            "degrees")
+            f"({REMAINING}); the port runs the pipe, data, fsdp, expert "
+            "and seq degrees")
     if pipe_is_local(spec, world_size):
         return spec.resolve(world_size * spec.pipe)
     return spec.resolve(world_size)
@@ -156,6 +159,8 @@ class ProcessMesh:
     pipe: AxisGroup
     fsdp: AxisGroup  # the fsdp axis alone
     replica: AxisGroup  # the data axis alone
+    # the expert axis: the ranks with this rank's rows and the other experts
+    expert: AxisGroup = AxisGroup()
     pipe_local: bool = False
 
     @property
@@ -175,7 +180,7 @@ class ProcessMesh:
 
 _GROUPS = (("seq", ("seq",)), ("data", ("data", "fsdp")),
            ("pipe", ("pipe",)), ("fsdp", ("fsdp",)),
-           ("replica", ("data",)))
+           ("replica", ("data",)), ("expert", ("expert",)))
 
 
 def process_mesh(spec: MeshSpec, rank: int, world_size: int) -> ProcessMesh:
@@ -208,7 +213,8 @@ def process_mesh(spec: MeshSpec, rank: int, world_size: int) -> ProcessMesh:
         made["pipe"] = AxisGroup(None, 0, spec.pipe)
     return ProcessMesh(spec, rank, made["seq"], data=made["data"],
                        pipe=made["pipe"], fsdp=made["fsdp"],
-                       replica=made["replica"], pipe_local=local)
+                       replica=made["replica"], expert=made["expert"],
+                       pipe_local=local)
 
 
 def batch_slice(global_batch: int, rank: int, n: int) -> slice:

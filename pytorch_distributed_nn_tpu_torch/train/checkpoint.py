@@ -33,11 +33,15 @@ the files, whatever the world size was when they were written.
 A sharded state (ZeRO's slices, the pipeline's stages) is saved
 synchronously by every rank that owns a piece (the first data replica):
 ``model-<part>.pt``, ``optim-<part>.pt`` and ``train-<part>.pt`` with the
-part named by the layout (``fsdp<i>``, ``pipe<d>``, or ``local`` where one
-process holds every stage), between barriers; the coordinator then writes
-``meta.json``, which names the layout (strategy, mesh sizes,
-``zero_stage``, schedule, ``pipe_chunks``, the split of each leaf), and the
-manifest over every file, and renames the step into place. A rank
+part named by the layout (``fsdp<i>``, ``expert<e>-fsdp<i>`` under an
+expert split, ``pipe<d>``, or ``local`` where one process holds every
+stage), between barriers; the coordinator then writes ``meta.json``,
+which names the layout (strategy, mesh sizes, ``zero_stage``, schedule,
+``pipe_chunks``, the split of each leaf, the expert-split leaves), and the
+manifest over every file, and renames the step into place. Under an
+expert split the ranks off expert 0 write only their expert slices and
+those slices' moments (the layout's ``keeps``), so a replicated tensor is
+written once, and read the rest back from expert 0's piece. A rank
 restores its own part, on the same layout only (:class:`LayoutError`
 otherwise: resharding on read is not ported). :func:`read_full_params`
 reads such a checkpoint in one process into the whole flax-named
@@ -79,6 +83,16 @@ def _file_of(name: str, part: str | None = None) -> str:
     base = ("model" if name.startswith("model.") else
             "optim" if name.startswith("opt.") else "train")
     return f"{base}.pt" if part is None else f"{base}-{part}.pt"
+
+
+def _param_of(key: str) -> str | None:
+    """The parameter (or buffer) a state key holds a tensor of:
+    ``model.<name>`` and ``opt.<moment>.<name>``; None for the counters."""
+    if key.startswith("model."):
+        return key[len("model."):]
+    if key.startswith("opt.") and key.count(".") >= 2:
+        return key.split(".", 2)[2]
+    return None
 
 
 def _parts_files(parts: list[str]) -> list[str]:
@@ -156,10 +170,12 @@ class CheckpointManager:
         cc.barrier()
         if sharding.writes:
             live = state.state_dict()
+            keeps = getattr(sharding, "keeps", None)
             for base in ("model", "optim", "train"):
                 fname = f"{base}-{sharding.part_name}.pt"
                 torch.save({k: v.detach().cpu() for k, v in live.items()
-                            if _file_of(k, sharding.part_name) == fname},
+                            if _file_of(k, sharding.part_name) == fname
+                            and (keeps is None or keeps(_param_of(k)))},
                            tmp / fname)
         cc.barrier()
         if self.is_writer:
@@ -274,12 +290,16 @@ class CheckpointManager:
                 f"{path} holds layout {meta.get('layout')}, the state is "
                 f"{want}: resharding on read is not ported (ROADMAP.md §1 "
                 "item 3, the remaining sharded strategies)")
-        files = (_FILES if sharding is None else
-                 _parts_files([sharding.part_name]))
+        if sharding is None:
+            files = list(_FILES)
+        else:  # its own piece first; what that lacks from the others
+            files = _parts_files(getattr(sharding, "restore_parts",
+                                         lambda: [sharding.part_name])())
         tensors: dict[str, torch.Tensor] = {}
         for fname in files:
-            tensors.update(torch.load(path / fname, map_location="cpu",
-                                      weights_only=True))
+            for k, v in torch.load(path / fname, map_location="cpu",
+                                   weights_only=True).items():
+                tensors.setdefault(k, v)
         template.load_state_dict(tensors)
         log.info("restored checkpoint step %d from %s", step, path)
         return template, meta
@@ -331,8 +351,9 @@ def read_full_params(directory: str | Path,
     """The whole parameters of a checkpoint (the newest step, or ``step``)
     as the flax-named ``state_dict`` a replicated run loads, read in one
     process whatever its layout: a ZeRO-3 leaf's slices concatenated in
-    ``fsdp`` order along their dim, the pipeline's stages merged (the
-    counterpart of the JAX ``restore_unstacked_params``)."""
+    ``fsdp`` order along their dim, the expert slices in ``expert`` order
+    along E, the pipeline's stages merged (the counterpart of the JAX
+    ``restore_unstacked_params``)."""
     directory = Path(directory)
     if step is None:
         steps = sorted(int(p.name) for p in directory.iterdir()
@@ -356,10 +377,20 @@ def read_full_params(directory: str | Path,
         for part in parts:
             out.update(part)
         return out
-    out = dict(parts[0])
-    if layout["zero_stage"] == 3:
-        for name, (dim, _) in layout["split"].items():
-            out[name] = torch.cat([part[name] for part in parts], dim=dim)
+    nf = layout["mesh"]["fsdp"]
+    # the pieces of each expert coordinate, in fsdp order
+    by_expert = [parts[e:e + nf] for e in range(0, len(parts), nf)]
+
+    def whole_over_fsdp(pieces, name):
+        if layout["zero_stage"] == 3 and name in layout["split"]:
+            dim = layout["split"][name][0]
+            return torch.cat([p[name] for p in pieces], dim=dim)
+        return pieces[0][name]
+
+    out = {name: whole_over_fsdp(by_expert[0], name) for name in parts[0]}
+    for name in layout.get("experts", {}):
+        out[name] = torch.cat([whole_over_fsdp(pieces, name)
+                               for pieces in by_expert], dim=0)
     return out
 
 

@@ -36,13 +36,14 @@ here:
   rounded to it), the rest of the step in f32, and the new moment is
   stored cast.
 
-On sharded parameters (``ShardLayout``: ZeRO's fsdp shards, the
-pipeline's stages) the elementwise optimizers run on each rank's slice as
-they are. The three reductions that span a whole parameter or the whole
-model take their partial sums across ranks: the global norm of the clip
-(over the shard group, each replicated leaf counted once, then over the
-other stages), lamb's ``|p|`` and ``|u|`` and adafactor's factored means
-and block RMS (over the shard group). Without a layout, or where nothing
+On sharded parameters (``ShardLayout``: ZeRO's fsdp shards, the expert
+axis's slices of the stacked experts, the pipeline's stages) the
+elementwise optimizers run on each rank's slice as they are. The three
+reductions that span a whole parameter or the whole model take their
+partial sums across ranks: the global norm of the clip (over the shard
+group and the expert group, each replicated leaf counted once, then over
+the other stages), lamb's ``|p|`` and ``|u|`` and adafactor's factored
+means and block RMS (over the groups whose split dim they reduce). Without a layout, or where nothing
 is split, the update is the one-device update, bit for bit.
 
 Each is written out with ``torch._foreach`` ops (per tensor where a norm
@@ -168,7 +169,10 @@ class ShardLayout:
     this rank holds it whole, as every rank of the group does), and
     ``shapes[i]`` its whole shape. ``norm_group`` (of ``norm_size``) holds
     the ranks with the OTHER parameters of the model (the pipeline's other
-    stages): the global norm sums over it too."""
+    stages): the global norm sums over it too. ``experts[i]``: parameter i
+    is this rank's slice along dim 0 of the stacked experts, the others'
+    on the ``expert_size`` ranks of ``expert_group`` (before any fsdp
+    split, which takes another dim)."""
 
     dims: list[int | None]
     shapes: list[tuple[int, ...]]
@@ -176,9 +180,19 @@ class ShardLayout:
     size: int = 1
     norm_group: Any = None
     norm_size: int = 1
+    experts: list[bool] | None = None
+    expert_group: Any = None
+    expert_size: int = 1
 
     def split(self, i: int) -> bool:
         return self.size > 1 and self.dims[i] is not None
+
+    def expert_split(self, i: int) -> bool:
+        return self.expert_size > 1 and bool(self.experts and self.experts[i])
+
+    def expert_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the expert group, in place."""
+        return cc.all_reduce_sum(t, self.expert_group)
 
     def sum_(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the shard group, in place."""
@@ -337,15 +351,27 @@ class Optimizer:
         that splits anything: :func:`clip_by_global_norm_` takes it
         locally). Each replicated leaf counts once."""
         lay = self.layout
-        if lay is None or (lay.size == 1 and lay.norm_size == 1):
+        if lay is None or (lay.size == 1 and lay.norm_size == 1
+                           and lay.expert_size == 1):
             return None
         sq = [g.float().square().sum() for g in grads]
         zero = torch.zeros((), device=grads[0].device)
-        whole = [s for i, s in enumerate(sq) if not lay.split(i)]
+        ex = [lay.expert_split(i) for i in range(len(sq))]
+        whole = [s for i, s in enumerate(sq)
+                 if not lay.split(i) and not ex[i]]
         total = torch.stack(whole).sum() if whole else zero
-        parts = [s for i, s in enumerate(sq) if lay.split(i)]
+        parts = [s for i, s in enumerate(sq) if lay.split(i) and not ex[i]]
         if parts:
             total = total + lay.sum_(torch.stack(parts).sum().reshape(1))[0]
+        if any(ex):  # the expert slices: over fsdp where split, then expert
+            experts = torch.stack([s for i, s in enumerate(sq)
+                                   if ex[i] and not lay.split(i)]
+                                  or [zero]).sum()
+            both = [s for i, s in enumerate(sq) if ex[i] and lay.split(i)]
+            if both:
+                experts = experts + lay.sum_(
+                    torch.stack(both).sum().reshape(1))[0]
+            total = total + lay.expert_sum_(experts.reshape(1))[0]
         if lay.norm_size > 1:
             total = cc.all_reduce_sum(total.reshape(1), lay.norm_group)[0]
         return total.sqrt()
@@ -353,15 +379,25 @@ class Optimizer:
     def _norms(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
         """The L2 norm of each whole parameter from its slices."""
         lay = self.layout
-        out = [None if lay is not None and lay.split(i)
+        out = [None if lay is not None and (lay.split(i) or
+                                            lay.expert_split(i))
                else torch.linalg.vector_norm(t)
                for i, t in enumerate(tensors)]
-        split = [i for i, n in enumerate(out) if n is None]
+        sliced = [i for i, n in enumerate(out) if n is None]
+        if not sliced:
+            return out
+        sq = dict(zip(sliced, [tensors[i].float().square().sum()
+                               for i in sliced]))
+        split = [i for i in sliced if lay.split(i)]
         if split:
-            sq = lay.sum_(torch.stack(
-                [tensors[i].float().square().sum() for i in split]))
-            for i, v in zip(split, sq.sqrt()):
-                out[i] = v.to(tensors[i].dtype)
+            sq.update(zip(split, lay.sum_(torch.stack(
+                [sq[i] for i in split]))))
+        ex = [i for i in sliced if lay.expert_split(i)]
+        if ex:
+            sq.update(zip(ex, lay.expert_sum_(torch.stack(
+                [sq[i] for i in ex]))))
+        for i in sliced:
+            out[i] = sq[i].sqrt().to(tensors[i].dtype)
         return out
 
     def _split_dim(self, i: int) -> int | None:
@@ -370,19 +406,28 @@ class Optimizer:
         return lay.dims[i] if lay is not None and lay.split(i) else None
 
     def _mean(self, t: torch.Tensor, dim: int | None = None,
-              keepdim: bool = False, split: int | None = None
-              ) -> torch.Tensor:
+              keepdim: bool = False, split: int | None = None,
+              expert: bool = False) -> torch.Tensor:
         """``t.mean(dim)`` (all dims when None), where ``t`` is this rank's
-        slice along ``split`` (None: ``t`` is whole here): the mean over
-        the whole tensor where the reduction crosses the split."""
-        if split is None or (dim is not None and dim != split):
+        slice along ``split`` (None: ``t`` is whole here) and, with
+        ``expert``, along dim 0 over the expert group: the mean over the
+        whole tensor where the reduction crosses a split."""
+        fsdp = split is not None and dim in (None, split)
+        ex = expert and dim in (None, 0)
+        if not (fsdp or ex):
             return t.mean() if dim is None else t.mean(dim, keepdim=keepdim)
-        size = self.layout.size
+        lay = self.layout
+        n = (lay.size if fsdp else 1) * (lay.expert_size if ex else 1)
         if dim is None:
-            return self.layout.sum_(t.sum().reshape(1))[0] / (
-                t.numel() * size)
-        s = self.layout.sum_(t.sum(dim, keepdim=keepdim).contiguous())
-        return s / (t.shape[dim] * size)
+            s, count = t.sum().reshape(1), t.numel() * n
+        else:
+            s = t.sum(dim, keepdim=keepdim).contiguous()
+            count = t.shape[dim] * n
+        if fsdp:
+            s = lay.sum_(s)
+        if ex:
+            s = lay.expert_sum_(s)
+        return (s[0] if dim is None else s) / count
 
     def _zeros(self, dtype=None) -> list[torch.Tensor]:
         return [torch.zeros_like(p, dtype=dtype or p.dtype)
@@ -504,6 +549,7 @@ class Optimizer:
         for i, (g, p) in enumerate(zip(grads, self.params)):
             dims, state = self.factored[i]
             g2 = g * g + eps
+            ex = self.layout is not None and self.layout.expert_split(i)
             if dims is None:
                 v = state.copy_(rate * state + keep * g2)
                 u = g * v ** -0.5
@@ -511,23 +557,24 @@ class Optimizer:
                 d1, d0 = dims
                 sd = self._split_dim(i)
                 v_row = state[0].copy_(rate * state[0] + keep * self._mean(
-                    g2, d0, split=sd))
+                    g2, d0, split=sd, expert=ex))
                 v_col = state[1].copy_(rate * state[1] + keep * self._mean(
-                    g2, d1, split=sd))
+                    g2, d1, split=sd, expert=ex))
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
                 # where v_row (the dims but d0) is split, if anywhere
                 row_sd = None if sd in (None, d0) else sd - (sd > d0)
                 row_col_mean = self._mean(v_row, reduced_d1, keepdim=True,
-                                          split=row_sd)
+                                          split=row_sd,
+                                          expert=ex and d0 != 0)
                 row_factor = (v_row / row_col_mean) ** -0.5
                 col_factor = v_col ** -0.5
                 u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
             # clip_by_block_rms(1.0), the lr, scale_by_param_block_rms
             sd = self._split_dim(i)
-            u = u / torch.clamp(self._mean(u.square(), split=sd).sqrt(),
-                                min=1.0)
+            u = u / torch.clamp(self._mean(u.square(), split=sd,
+                                           expert=ex).sqrt(), min=1.0)
             u = u * row[_LR]
-            rms = self._mean(p.square(), split=sd).sqrt()
+            rms = self._mean(p.square(), split=sd, expert=ex).sqrt()
             updates.append(u * torch.clamp(rms, min=1e-3))
         self._apply(self._decay(updates, own=True), -1.0, own=True)
 

@@ -1,12 +1,18 @@
 """Analytic FLOP counts, for MFU reports on the card (MFU = model FLOPs /
 step time / 989 TFLOP/s, the H100 SXM's dense bf16 rate): the JAX
 package's ``utils/flops.py`` closed form for the transformer families
-(Llama, the transformer LM, BERT, ViT), and ResNet's from its geometry
-(the JAX package asks XLA's cost analysis for that one)."""
+(Llama, the transformer LM, BERT, ViT), ResNet's from its geometry, and
+the MoE LM's from its routing geometry (the JAX package asks XLA's cost
+analysis for those two)."""
 
 from __future__ import annotations
 
 import torch
+
+from pytorch_distributed_nn_tpu_torch.parallel.expert import (
+    MoEMLP,
+    expert_capacity,
+)
 
 
 def lm_train_flops_per_token(n_params: int, n_layers: int, seq_len: int,
@@ -23,23 +29,44 @@ def lm_train_flops_per_token(n_params: int, n_layers: int, seq_len: int,
 
 def matmul_param_count(model: torch.nn.Module) -> int:
     """N of :func:`lm_train_flops_per_token`: the parameters that take part
-    in a matmul, every ``kernel`` (dense, attention projections, heads,
-    ViT's patch convolution, which is a matmul per patch). Embedding tables
-    (lookups), biases and norm scales are not counted. BERT-base: 108.97M
-    (109.12M with its biases and LayerNorm parameters)."""
+    in a matmul for every token, every ``kernel`` (dense, attention
+    projections, heads, ViT's patch convolution, which is a matmul per
+    patch) outside the MoE layers (:func:`moe_forward_flops_per_token`
+    counts those). Embedding tables (lookups), biases and norm scales are
+    not counted. BERT-base: 108.97M (109.12M with its biases and LayerNorm
+    parameters)."""
+    moe = tuple(f"{n}." for n, m in model.named_modules()
+                if isinstance(m, MoEMLP))
     return sum(p.numel() for n, p in model.named_parameters()
-               if n.rsplit(".", 1)[-1] == "kernel")
+               if n.rsplit(".", 1)[-1] == "kernel" and not n.startswith(moe))
+
+
+def moe_forward_flops_per_token(layer: MoEMLP, d_model: int,
+                                seq_len: int) -> float:
+    """Forward FLOPs a token of one MoE layer (``parallel/expert.py``) in
+    rows of ``seq_len``: the router 2 d E, and over the E C slots of its
+    routing group of g tokens the dispatch and the combine 2 E C d each
+    and the experts' two products 4 E C d ff / g (every slot runs, full or
+    not). The JAX package's XLA count adds the routing's and gelu's
+    elementwise work, 0.3% more at moe_lm_ep's widths."""
+    E, ff = layer.num_experts, layer.mlp_dim
+    g = min(layer.group_size, seq_len)
+    C = expert_capacity(g, E, layer.k, layer.capacity_factor)
+    return 2.0 * d_model * E + 4.0 * E * C * d_model * (1.0 + ff / g)
 
 
 def transformer_train_flops_per_token(model: torch.nn.Module, seq_len: int,
                                       *, causal: bool) -> float:
     """6N + 12 L T d (bidirectional: BERT, ViT) or 6N + 6 L T d (causal:
     the transformer LM, Llama) for a model with ``num_layers`` and
-    ``d_model``. BERT-base at T = 128: 6 x 108.96M + 12 x 12 x 128 x 768
-    = 0.668 GFLOP a token."""
+    ``d_model``, plus 3 x :func:`moe_forward_flops_per_token` for each MoE
+    layer. BERT-base at T = 128: 6 x 108.96M + 12 x 12 x 128 x 768 =
+    0.668 GFLOP a token; moe_lm_ep at T = 1024: 1.507 GFLOP a token."""
+    moe = sum(moe_forward_flops_per_token(m, model.d_model, seq_len)
+              for m in model.modules() if isinstance(m, MoEMLP))
     return lm_train_flops_per_token(matmul_param_count(model),
                                     model.num_layers, seq_len, model.d_model,
-                                    causal=causal)
+                                    causal=causal) + 3.0 * moe
 
 
 def lm_tokens_per_card(batch_size: int, seq_len: int, data_degree: int,

@@ -24,8 +24,11 @@ The sharded strategies' layouts: :func:`stack_stage_params` and
 the JAX pipeline's stacked tree (``{"stages": ..., "rest": ...}``, leaves
 (S, K, ...) or, interleaved, (S, v, Kc, ...)); :func:`shard_params` and
 :func:`gather_shards` carry a whole ``state_dict`` to and from the ZeRO-3
-slices each ``fsdp`` rank holds (``parallel.sharding_rules``). Nothing
-here imports JAX.
+slices each ``fsdp`` (and ``expert``) rank holds
+(``parallel.sharding_rules``). The MoE LM's leaves need nothing of their
+own: ``blockN/moe/{router/kernel,wi,wo}`` flatten to
+``blockN.moe.{router.kernel,wi,wo}`` as any other. Nothing here imports
+JAX.
 """
 
 from __future__ import annotations
@@ -201,38 +204,55 @@ def unstack_stage_params(tree: Mapping[str, Any], block_names: list[str],
 
 
 def shard_params(state_dict: Mapping[str, torch.Tensor], fsdp: int,
-                 index: int) -> dict[str, torch.Tensor]:
-    """The ZeRO-3 slice of each leaf that ``fsdp`` rank ``index`` holds
-    (``sharding_rules.spec_for``: the part along the split dim, or the
-    whole leaf where it stays replicated)."""
+                 index: int, expert: int = 1,
+                 expert_index: int = 0) -> dict[str, torch.Tensor]:
+    """The slice of each leaf that the rank at ``fsdp`` coordinate
+    ``index`` (and ``expert`` coordinate ``expert_index``) holds under
+    ZeRO-3 (``sharding_rules.spec_for``: the stacked experts' E/n along E,
+    the part along the fsdp dim, or the whole leaf where it stays
+    replicated): the JAX ``state_shardings``' per-device shard."""
     from pytorch_distributed_nn_tpu_torch.parallel.sharding_rules import (
-        fsdp_dim,
+        EXPERT,
+        FSDP,
         shard_slice,
+        spec_for,
     )
 
     out = {}
     for k, t in state_dict.items():
-        d = fsdp_dim(k, tuple(t.shape), fsdp)
-        if d is None:
-            out[k] = t
-        else:
-            part = shard_slice(t.shape[d], index, fsdp)
-            out[k] = t.narrow(d, part.start, part.stop - part.start)
+        spec = spec_for(k, tuple(t.shape), fsdp=fsdp, expert=expert)
+        for d, axis in enumerate(spec):
+            if axis in (EXPERT, FSDP):
+                i, n = ((expert_index, expert) if axis == EXPERT
+                        else (index, fsdp))
+                part = shard_slice(t.shape[d], i, n)
+                t = t.narrow(d, part.start, part.stop - part.start)
+        out[k] = t
     return out
 
 
 def gather_shards(shards: list[Mapping[str, torch.Tensor]],
-                  shapes: Mapping[str, tuple[int, ...]]
+                  shapes: Mapping[str, tuple[int, ...]], expert: int = 1
                   ) -> dict[str, torch.Tensor]:
-    """The whole ``state_dict`` from every ``fsdp`` rank's slices (in
-    rank order): the inverse of :func:`shard_params`, each leaf's split
-    found by the same rule on its whole shape (``shapes``)."""
+    """The whole ``state_dict`` from every rank's slices (in rank order
+    over (expert, fsdp), fsdp the faster): the inverse of
+    :func:`shard_params`, each leaf's split found by the same rule on its
+    whole shape (``shapes``)."""
     from pytorch_distributed_nn_tpu_torch.parallel.sharding_rules import (
-        fsdp_dim,
+        EXPERT,
+        FSDP,
+        spec_for,
     )
 
+    fsdp = len(shards) // expert
     out = {}
-    for k, t in shards[0].items():
-        d = fsdp_dim(k, tuple(shapes[k]), len(shards))
-        out[k] = t if d is None else torch.cat([s[k] for s in shards], d)
+    for k in shards[0]:
+        spec = spec_for(k, tuple(shapes[k]), fsdp=fsdp, expert=expert)
+        pieces = [shards[i][k] for i in range(0, len(shards), fsdp)]
+        if FSDP in spec:
+            d = spec.index(FSDP)
+            pieces = [torch.cat([shards[e + f][k] for f in range(fsdp)], d)
+                      for e in range(0, len(shards), fsdp)]
+        out[k] = (torch.cat(pieces, spec.index(EXPERT)) if EXPERT in spec
+                  else pieces[0])
     return out
