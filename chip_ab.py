@@ -17,10 +17,17 @@ default; ``serve`` and ``train`` are run only when asked). Prints one line
 
 The serve keys: ``decode_profile``, one B = 8 decode step of the
 full-width int8 Llama-3-8B under torch.profiler
-(``chip_smoke.profile_decode_step``), and ``serve``, the tree's own serving
-phase (``chip_smoke.phase_serve``: 16 requests through the engine, the
-three solo checks included). Both are set largely by the host, so compare
-trees only within one call.
+(``chip_smoke.profile_decode_step``: device ms and kernel count);
+``greedy``, one fixed greedy workload through the tree's
+``ServingEngine`` (:func:`greedy_serve`: 16 requests, prompts 16-128
+tokens, 32 new tokens each, 8 slots, cache length 256, the compute KV
+cache; tokens/s and round p50/p95), the same calls in every tree; and
+``decode_attention``, the tree's decode-step attention alone
+(``_decode_attention`` where the tree has it, else ``_cache_attention``)
+at B 8, H 32, Hkv 8, D 128, bf16, every row at the end of a cache of
+256, 8192 and 32768 keys (:func:`decode_attention`: median ms and the
+peak device memory it adds). The serving numbers are set largely by the
+host, so compare trees only within one call.
 
 The train keys (``train``): the tree's own training phases, each as
 ``chip_smoke.py`` runs it, reported by median step seconds, tokens or
@@ -55,6 +62,7 @@ within one call to the card. Needs one card.
 import json
 import os
 import subprocess
+import time
 import sys
 import threading
 
@@ -139,12 +147,73 @@ def main() -> int:
         tokens = torch.randint(0, cs.V, (8, 65), generator=g, device="cuda",
                                dtype=torch.int32)
         out["decode_profile"] = cs.profile_decode_step(model, tokens)
-        out["serve"] = cs.phase_serve(model)[0]
+        out["greedy"] = greedy_serve(cs, model)
+        del model
+        torch.cuda.empty_cache()
+        out["decode_attention"] = decode_attention(cs)
     if which == "train":
         del flush
         train(cs, build, out)
     print("AB " + json.dumps(out))
     return 0
+
+
+def greedy_serve(cs, model):
+    """16 greedy requests (prompts 16-128 tokens from one seeded sampler,
+    32 new tokens each) through an 8-slot engine with a cache of 256, all
+    submitted at once after one warm-up request; wall seconds, tokens/s
+    and the decode rounds' p50/p95 in ms. Only calls every tree has."""
+    from pytorch_distributed_nn_tpu_torch.serve import (
+        ServingEngine,
+        ragged_prompt_sampler,
+    )
+
+    engine = ServingEngine(model, max_slots=8, max_seq_len=256)
+    sample = ragged_prompt_sampler(cs.V, min_len=16, max_len=128, seed=3)
+    engine.submit(sample(), 4)
+    engine.run_until_idle()
+    warm = len(engine.round_seconds)
+    t0 = time.monotonic()
+    reqs = [engine.submit(sample(), 32) for _ in range(16)]
+    engine.run_until_idle()
+    wall = time.monotonic() - t0
+    rounds = sorted(engine.round_seconds[warm:])
+    tokens = sum(len(r.tokens) for r in reqs)
+    return dict(requests=len(reqs), tokens=tokens, wall_s=wall,
+                tokens_per_s=tokens / wall, rounds=len(rounds),
+                round_p50_ms=rounds[len(rounds) // 2] * 1e3,
+                round_p95_ms=rounds[int(0.95 * (len(rounds) - 1))] * 1e3)
+
+
+def decode_attention(cs):
+    """The tree's decode-step attention alone at B 8, H 32, Hkv 8, D 128,
+    bf16 (the 8B's), every row at the last of S keys: {S: median ms of 20
+    (CUDA events), the peak device memory in GB it adds, which function}.
+    """
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.nn import attention
+
+    fn = getattr(attention, "_decode_attention", None)
+    name = "_decode_attention" if fn else "_cache_attention"
+    fn = fn or attention._cache_attention
+    out = {"function": name}
+    g = torch.Generator("cuda").manual_seed(2)
+    for S in (256, 8192, 32768):
+        q = torch.randn((8, 1, 32, 128), generator=g, device="cuda").to(
+            torch.bfloat16)
+        k, v = (torch.randn((8, S, 8, 128), generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        mask = torch.ones((8, 1, S), dtype=torch.bool, device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cs.time_ms(lambda: fn(q, k, v, mask, torch.bfloat16), 20)
+        out[str(S)] = dict(
+            ms=ms, peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    return out
 
 
 def train(cs, build, out):

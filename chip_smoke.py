@@ -43,10 +43,26 @@ Phases (any failure exits non-zero and prints no result line):
               token must agree on every row where the plain top-2 margin is
               decisive.
 7. serve   -- the serving path: InferenceServer(ServingEngine(...)) with 8
-              slots answers 16 ragged requests (prompts 16-128 tokens, 32
-              new tokens each); launch counts are reset just before and
-              read just after; three requests' tokens must equal a solo
-              sequential generate() of their prompts.
+              slots, on the compute and then the int8 KV cache, answers a
+              mix of 14 ragged requests (prompts 16-128 tokens, 32 new
+              tokens each): 6 greedy, 4 sampled (temperature 0.8, top_k 50,
+              top_p 0.95, fixed seeds), one n-best (n 2, best_of 4) and 3
+              streamed; W8A16 counts reset just before and read just after
+              (129 a forward); every greedy request's tokens must equal a
+              solo generate() on the same cache; the sampled and n-best
+              requests again in another batch mix must give the same
+              streams; streamed chunks concatenate to the tokens; the
+              n-best winner has the highest cumulative log-probability and,
+              stepped by hand, its 4 branches hold the prompt's full blocks
+              once (refcount 4); the compute run's greedy tokens, fed
+              through both caches, give int8 logits within INT8_KV_TOL of
+              the compute cache's, an int8 cache with its scales dropped
+              or off by one position lies beyond it, and the greedy choices
+              agree wherever the compute margin exceeds twice it. Before
+              that, sample_rows on the card against the CPU at 8 rows of
+              vocab 128256: keys bit for bit, Gumbel noise within
+              GUMBEL_TOL, tokens where the perturbed margin exceeds
+              SAMPLE_MARGIN, and the sampling's device time a round.
 
 The data-parallel slice (run after phase 3, and after phase 5):
 
@@ -205,6 +221,23 @@ The expert axis (phase 27 runs after phase 26):
               device time by kernel family (the kernels line's
               ``at_moe``).
 
+Serving a trained checkpoint (phase 28 runs after phase 27):
+
+28. serve_ckpt -- (a) transformer_lm_pp with --mesh.pipe 1
+              --parallel.strategy dp at full width and depth (12 layers,
+              d 768, vocab 32000) trains 2 steps with a checkpoint; the
+              serve entry point (serve/__main__.main) serves it; the
+              restored params equal the trained ones bit for bit, the
+              engine's greedy tokens equal generate()'s on them, one
+              sampled request twice gives one stream. (b) llama3_8b_zero at
+              full width, zero_stage 3, cut to 2 of 32 layers, trains 1
+              step at batch 1 and saves; served with {"quantized": true,
+              "fused_proj": true}, quantized at load: the int8 params equal
+              the trained f32 params quantized in memory, the engine's
+              greedy tokens equal generate() on those, and W8A16 runs 9
+              times a forward (4 a layer plus the head). The flash
+              launches of both trainings are counted.
+
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit from nvidia-smi, and the result JSON line.
 """
@@ -212,6 +245,7 @@ card's name and power limit from nvidia-smi, and the result JSON line.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
 import os
@@ -267,6 +301,12 @@ INT8_MS = (1, 8, 16, 64, 128)
 # 9.8e-3 in f32 compute). The per-call check of phase 3 holds every launch
 # to TOL on the model's own activations, where that noise has not grown.
 LOGIT_TOL = {"bfloat16": 8e-2, "float32": 2e-2}
+# phase 7: the int8 KV cache's teacher-forced logits against the compute
+# cache's, max|d| / max|ref| of a request (int8_vs_compute). Measured on an
+# H100 at full width: 5.9e-3 to 8.4e-2 over phase 7's 8 greedy requests
+# (largest at the first steps, as the bf16 noise of LOGIT_TOL); the same
+# cache with its scales off by one position 0.28, with scales of 1 1.63.
+INT8_KV_TOL = 0.15
 
 
 def log(msg: str) -> None:
@@ -2558,14 +2598,15 @@ def _profiler_stop(prof) -> bool:
     return True
 
 
-def twin(model, compute_dtype):
+def twin(model, compute_dtype, cache_dtype="compute"):
     """The same 8B model (the same weight tensors, shared) computing in
-    ``compute_dtype``."""
+    ``compute_dtype`` with a ``cache_dtype`` KV cache."""
     from pytorch_distributed_nn_tpu_torch.config import get_config
     from pytorch_distributed_nn_tpu_torch.models import get_model
 
     cfg = get_config("llama3_8b_zero", **{
-        "model.extra": json.dumps(dict(quantized=True, fused_proj=True)),
+        "model.extra": json.dumps(dict(quantized=True, fused_proj=True,
+                                       cache_dtype=cache_dtype)),
         "model.compute_dtype": compute_dtype})
     out = get_model(cfg.model, device="meta")
     out.load_state_dict(model.state_dict(), assign=True)
@@ -2673,22 +2714,107 @@ def phase_forward(model):
     return result
 
 
-def phase_serve(model):
+SERVE_SLOTS, SERVE_NEW = 8, 32
+# the request mix of phase 7: name -> DecodeSpec fields (None: greedy) and
+# whether it streams; prompts 16-128 tokens from one seeded sampler
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+SERVE_MIX = (
+    [(f"greedy{i}", None, False) for i in range(6)]
+    + [(f"sampled{i}", dict(SAMPLED, seed=100 + i), False) for i in range(4)]
+    + [("nbest", dict(SAMPLED, n=2, best_of=4, seed=7), False)]
+    + [("streamed_greedy0", None, True), ("streamed_greedy1", None, True),
+       ("streamed_sampled", dict(SAMPLED, seed=300), True)])
+MIX_SPEC = {name: kw for name, kw, _ in SERVE_MIX}
+# card against CPU sampling: Gumbel noise |d| <= this * max(|ref|, 1), and
+# the tokens must agree where the perturbed top-2 margin exceeds the other
+GUMBEL_TOL, SAMPLE_MARGIN = 1e-6, 1e-4
+
+
+def mix_prompts(seed):
+    from pytorch_distributed_nn_tpu_torch.serve import ragged_prompt_sampler
+
+    sample = ragged_prompt_sampler(V, min_len=16, max_len=128, seed=seed)
+    return {name: sample() for name, _, _ in SERVE_MIX}
+
+
+def submit_mix(server, prompts, names, rate_hz=50.0):
+    """Submit ``names`` of :data:`SERVE_MIX` on an open loop at ``rate_hz``
+    and wait for all; returns {name: Request}."""
+    from pytorch_distributed_nn_tpu_torch.serve import DecodeSpec
+
+    spec = {name: (None if kw is None else DecodeSpec(**kw), stream)
+            for name, kw, stream in SERVE_MIX}
+    reqs, t0 = {}, time.monotonic()
+    for i, name in enumerate(names):
+        wait = t0 + i / rate_hz - time.monotonic()
+        if wait > 0:
+            time.sleep(wait)
+        decode, stream = spec[name]
+        reqs[name] = server.submit(prompts[name], SERVE_NEW, decode=decode,
+                                   stream=stream)
+    for name, r in reqs.items():
+        if not r.done.wait(600) or not r.ok:
+            raise AssertionError(f"{name}: {r.state} {r.reject_reason}")
+    return reqs
+
+
+def check_nbest_shares_blocks(model, prompt):
+    """One n-best request stepped by hand through a fresh engine: after its
+    admission the 4 branches hold the prompt's full blocks once (refcount
+    4) plus a tail each, and retirement returns every block."""
+    from pytorch_distributed_nn_tpu_torch.serve import (
+        DecodeSpec,
+        ServingEngine,
+    )
+    from pytorch_distributed_nn_tpu_torch.serve.scheduler import (
+        branch_seq_ids,
+    )
+
+    engine = ServingEngine(model, max_slots=SERVE_SLOTS, max_seq_len=256)
+    pool = engine.scheduler.pool
+    free0 = pool.free_blocks
+    spec = MIX_SPEC["nbest"]
+    req = engine.submit(prompt, SERVE_NEW, decode=DecodeSpec(**spec))
+    engine.step()
+    tables = [pool.block_table(s) for s in branch_seq_ids(req)]
+    full = len(prompt) // pool.block_size
+    shared = set(tables[0][:full])
+    held = {b for t in tables for b in t}
+    if not (all(set(t[:full]) == shared for t in tables)
+            and all(pool.refcount(b) == len(tables) for b in shared)
+            and len(held) == full + sum(len(t) - full for t in tables)):
+        raise AssertionError(f"n-best branches do not share the prompt's "
+                             f"blocks: {tables}")
+    engine.run_until_idle()
+    if not req.ok or pool.free_blocks != free0:
+        raise AssertionError("the n-best request leaked blocks")
+    return dict(branches=len(tables), prompt_blocks_shared=full,
+                blocks_held=len(held),
+                blocks_unshared=sum(len(t) for t in tables))
+
+
+def serve_one_cache(model, cache_dtype):
+    """Phase 7 on one cache dtype: the mix through the server (the main
+    path, W8A16 counted), then its sampled requests again in another batch
+    mix; returns (summary, {name: tokens}, launches)."""
     import numpy as np
     import torch
 
-    from pytorch_distributed_nn_tpu_torch.inference.generate import generate
+    from pytorch_distributed_nn_tpu_torch.inference.generate import (
+        cache_bytes,
+        generate,
+    )
     from pytorch_distributed_nn_tpu_torch.obs.stats import percentile
     from pytorch_distributed_nn_tpu_torch.ops import int8_matmul as tmm
     from pytorch_distributed_nn_tpu_torch.serve import (
+        DecodeSpec,
         InferenceServer,
         ServingEngine,
-        open_loop_client,
-        ragged_prompt_sampler,
     )
 
-    engine = ServingEngine(model, max_slots=8, max_seq_len=256,
+    engine = ServingEngine(model, max_slots=SERVE_SLOTS, max_seq_len=256,
                            max_queue=64, max_prefills_per_round=2)
+    prompts = mix_prompts(3)
     server = InferenceServer(engine).start()
     try:
         warm = np.random.default_rng(7)
@@ -2697,51 +2823,272 @@ def phase_serve(model):
                                 timeout=300)
             if not r.ok:
                 raise AssertionError(f"warm-up request {r.state}")
+        r = server.generate(warm.integers(0, V, size=(16,)), 2, timeout=300,
+                            decode=DecodeSpec(**MIX_SPEC["nbest"]))
+        if not r.ok:  # the sampled step, warm
+            raise AssertionError(f"warm-up request {r.state}")
         warm_done = len(engine.completed)
         warm_rounds = len(engine.round_seconds)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         tmm.int8_matmul.launches = 0  # the main path's count starts here
         t0 = time.monotonic()
-        reqs = open_loop_client(
-            server, num_requests=16, rate_hz=50.0, max_new_tokens=32,
-            prompt_sampler=ragged_prompt_sampler(V, min_len=16,
-                                                 max_len=128, seed=3))
+        reqs = submit_mix(server, prompts, [n for n, _, _ in SERVE_MIX])
         wall = time.monotonic() - t0
         launches = tmm.int8_matmul.launches
+        timed = engine.completed[warm_done:]
+        rounds = engine.round_seconds[warm_rounds:]
+        # the sampled requests again, in another batch: in reverse order,
+        # each after a greedy stranger with another prompt
+        greedy = [n for n, kw, _ in SERVE_MIX if kw is None]
+        again_names = [n for n, kw, _ in SERVE_MIX if kw is not None][::-1]
+        order = [n for pair in itertools.zip_longest(greedy, again_names)
+                 for n in pair if n is not None]
+        others = mix_prompts(11)
+        again = submit_mix(server, {**prompts, **{n: others[n]
+                                                  for n in greedy}}, order)
     finally:
         server.stop()
     peak = torch.cuda.max_memory_allocated()
-    for r in reqs:
-        if not r.ok or len(r.tokens) != 32 or not (
+    for name, r in reqs.items():
+        if len(r.tokens) != SERVE_NEW or not (
                 0 <= int(r.tokens.min()) and int(r.tokens.max()) < V):
-            raise AssertionError(f"request {r.request_id}: {r.state} "
-                                 f"{r.reject_reason} {r.tokens}")
-    timed = engine.completed[warm_done:]
-    rounds = engine.round_seconds[warm_rounds:]
+            raise AssertionError(f"{name}: {r.tokens}")
     if launches != 129 * (len(timed) + len(rounds)):
         raise AssertionError(
-            f"{launches} launches for {len(timed)} prefills and "
-            f"{len(rounds)} decode rounds, expected 129 per forward")
-    # the engine's contract: each request's tokens are those of a solo
-    # sequential generate() of its prompt (batch composition, bucket
-    # padding and slot reuse change nothing)
-    for r in reqs[:3]:
-        ref = generate(model, r.prompt[None], 32).cpu().numpy()
+            f"{cache_dtype}: {launches} launches for {len(timed)} prefills "
+            f"and {len(rounds)} decode rounds, expected 129 per forward")
+    for name in again_names:
+        a, b = again[name], reqs[name]
+        same = np.array_equal(a.tokens, b.tokens)
+        if name == "nbest":
+            same &= [(x["branch"], x["tokens"]) for x in a.n_best] == \
+                [(x["branch"], x["tokens"]) for x in b.n_best]
+            same &= all(abs(x["logprob"] - y["logprob"])
+                        <= 1e-5 * abs(y["logprob"])
+                        for x, y in zip(a.n_best, b.n_best))
+        if not same:
+            raise AssertionError(f"{cache_dtype}: {name} differs in "
+                                 "another batch mix")
+    for name in (n for n, kw, _ in SERVE_MIX if kw is None):
+        r = reqs[name]
+        ref = generate(model, r.prompt[None], SERVE_NEW).cpu().numpy()
         if not np.array_equal(r.tokens, ref[0, len(r.prompt):]):
-            raise AssertionError(f"request {r.request_id}: engine tokens "
+            raise AssertionError(f"{cache_dtype}: {name}: engine tokens "
                                  "differ from sequential generate")
+    for name, r in reqs.items():
+        if r.stream is not None and not np.array_equal(
+                np.concatenate(list(r.stream)), r.tokens):
+            raise AssertionError(f"{name}: streamed chunks != tokens")
+    nb = reqs["nbest"]
+    lps = [b["logprob"] for b in nb.n_best]
+    if not (len(nb.n_best) == 2 and lps == sorted(lps, reverse=True)
+            and nb.logprob == lps[0]
+            and list(nb.tokens) == nb.n_best[0]["tokens"]):
+        raise AssertionError(f"n-best ranking: {lps} winner {nb.logprob}")
+    sharing = check_nbest_shares_blocks(model, prompts["nbest"])
     tokens_out = sum(c["new_tokens"] for c in timed)
     summary = dict(
-        requests=len(reqs), completed=len(timed), tokens_out=tokens_out,
-        wall_s=wall, tokens_per_s=tokens_out / wall,
+        cache_dtype=cache_dtype, requests=len(reqs), completed=len(timed),
+        tokens_out=tokens_out, wall_s=wall, tokens_per_s=tokens_out / wall,
         ttft_p50_s=percentile([c["ttft_s"] for c in timed], 0.5),
+        ttft_p95_s=percentile([c["ttft_s"] for c in timed], 0.95),
         token_lat_p50_s=percentile(rounds, 0.5),
         token_lat_p95_s=percentile(rounds, 0.95),
         rounds=len(rounds), occupancy=engine.summary()["occupancy"],
-        peak_mem_gb=peak / 1e9, int8_matmul_launches=launches)
+        kv_cache_bytes=cache_bytes(engine._cache),
+        peak_mem_gb=peak / 1e9, int8_matmul_launches=launches,
+        nbest_logprobs=lps, nbest_sharing=sharing,
+        same_seed_other_mix=again_names)
     log(f"[serve] {json.dumps(summary)}")
-    return summary, launches
+    return summary, {n: r.tokens for n, r in reqs.items()}, launches
+
+
+def teacher_forced(model, prompts, tokens, spoil=None):
+    """(R, N, V) f32 logits of R requests decoded in one batch over the
+    model's KV cache with ``tokens`` (R, N) fed in (teacher forcing): the
+    ragged prefill's at each prompt's end, then N - 1 decode steps', each
+    row at its own position as the engine steps it. ``spoil(cache)`` runs
+    on the cache after the prefill."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.inference.generate import (
+        decode_step_ragged,
+        init_cache,
+        prefill_ragged,
+    )
+
+    lens = torch.tensor([len(p) for p in prompts], device="cuda")
+    x = torch.zeros((len(prompts), int(lens.max())), dtype=torch.int32,
+                    device="cuda")
+    for i, p in enumerate(prompts):
+        x[i, :len(p)] = torch.as_tensor(p)
+    toks = torch.as_tensor(tokens, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        cache = init_cache(model, len(prompts), x.shape[1] + toks.shape[1])
+        out = [prefill_ragged(model, cache, x, lens).float()]
+        if spoil is not None:
+            spoil(cache)
+        for i in range(toks.shape[1] - 1):
+            out.append(decode_step_ragged(model, cache, toks[:, i],
+                                          lens + i).float())
+        return torch.stack(out, 1)
+
+
+def _scales(cache, fn):
+    for layer in cache.values():
+        for key in ("cached_key_scale", "cached_value_scale"):
+            layer[key].copy_(fn(layer[key]))
+
+
+# the int8 cache spoiled after the prefill, as a fault would: the check of
+# phase 7 must tell each from a right int8 cache
+INT8_SPOILS = {
+    "scales_dropped": lambda c: _scales(c, lambda s: s.new_ones(s.shape)),
+    "scales_off_by_one": lambda c: _scales(
+        c, lambda s: s.roll(1, dims=1)),
+}
+
+
+def int8_vs_compute(model, prompts, tokens):
+    """The int8 KV cache against the compute cache on ``model``'s weights,
+    both teacher-forced with the compute run's greedy ``tokens``: the
+    largest |int8 - compute| logit of a request over its largest |compute|
+    logit (the worst request), the same for each of
+    :data:`INT8_SPOILS`, and the greedy choices of the int8 cache at every
+    step where the compute cache's top-1/top-2 margin exceeds twice the
+    int8 error bound (INT8_KV_TOL of the request's largest logit)."""
+    import torch
+
+    m8 = twin(model, "bfloat16", "int8")
+    ref = teacher_forced(model, prompts, tokens)
+    scale = ref.abs().amax((1, 2))
+
+    def rel(lg):
+        return float(((lg - ref).abs().amax((1, 2)) / scale).max())
+
+    got = teacher_forced(m8, prompts, tokens)
+    top2 = ref.topk(2, dim=-1).values
+    decisive = (top2[..., 0] - top2[..., 1]) > \
+        2 * INT8_KV_TOL * scale[:, None]
+    agree = got.argmax(-1) == ref.argmax(-1)
+    out = dict(rel_err=rel(got), steps=int(agree.numel()),
+               decisive=int(decisive.sum()),
+               decisive_disagree=int((decisive & ~agree).sum()),
+               agree=int(agree.sum()), tol=INT8_KV_TOL)
+    del got
+    for name, spoil in INT8_SPOILS.items():
+        out[name] = rel(teacher_forced(m8, prompts, tokens, spoil))
+    del m8, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8_cache_agreement(model, prompts, tokens_c, tokens_q):
+    """Phase 7's int8 cache against its compute cache
+    (:func:`int8_vs_compute` on the greedy requests): the logits within
+    INT8_KV_TOL, every spoiled cache beyond it, the greedy choices equal
+    wherever the compute margin is decisive. The first token where the
+    two served streams part is recorded."""
+    import numpy as np
+
+    names = [n for n, kw, _ in SERVE_MIX if kw is None]
+    out = int8_vs_compute(model, [prompts[n] for n in names],
+                          np.stack([tokens_c[n] for n in names]))
+    out["first_diff"] = {
+        n: (int(d[0]) if (d := np.flatnonzero(tokens_c[n] != tokens_q[n]))
+            .size else None) for n in names}
+    if not out["rel_err"] <= INT8_KV_TOL:
+        raise AssertionError(f"int8 cache logits {out['rel_err']} from the "
+                             f"compute cache's, limit {INT8_KV_TOL}")
+    for name in INT8_SPOILS:
+        if not out[name] > INT8_KV_TOL:
+            raise AssertionError(f"the int8 check cannot tell {name}: "
+                                 f"{out[name]} <= {INT8_KV_TOL}")
+    if out["decisive_disagree"]:
+        raise AssertionError(f"the int8 cache changes "
+                             f"{out['decisive_disagree']} decisive greedy "
+                             "choices")
+    return out
+
+
+def sampling_card_vs_cpu():
+    """sample_rows on the card against the same function on the CPU for
+    fixed seeded (8, 128256) logits: the keys bit for bit, the Gumbel noise
+    within GUMBEL_TOL, the tokens wherever the perturbed top-2 margin
+    exceeds SAMPLE_MARGIN; and the sampling's device time a round (CUDA
+    events around keys, sample_rows and token_logprobs at 8 rows)."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.serve import decoding
+    from pytorch_distributed_nn_tpu_torch.utils import threefry
+
+    B = SERVE_SLOTS
+    g = torch.Generator().manual_seed(5)
+    logits = torch.randn((B, V), generator=g) * 3
+    temps = torch.tensor([0.8, 1.0, 0.5, 1.3, 0.8, 0.0, 2.0, 0.8])
+    ks = torch.tensor([50, 0, 10, 0, 50, 0, 1000, V], dtype=torch.int32)
+    ps = torch.tensor([0.95, 0.0, 0.9, 1.0, 0.0, 0.0, 0.99, 0.5])
+    seeds = torch.arange(B, dtype=torch.int64) * 1000 + 3
+    branches = torch.arange(B, dtype=torch.int64) % 4
+    steps = torch.arange(B, dtype=torch.int64) * 7
+    args = [logits, temps, ks, ps]
+    keys = decoding.row_keys(seeds, branches, steps)
+    dkeys = decoding.row_keys(seeds.cuda(), branches.cuda(), steps.cuda())
+    if not torch.equal(dkeys.cpu(), keys):
+        raise AssertionError("threefry keys differ between card and CPU")
+    noise = threefry.gumbel(keys, (V,))
+    dnoise = threefry.gumbel(dkeys, (V,)).cpu()
+    gerr = float(((dnoise - noise).abs()
+                  / noise.abs().clamp(min=1.0)).max())
+    if not gerr <= GUMBEL_TOL:
+        raise AssertionError(f"Gumbel noise card vs CPU: {gerr}")
+    toks = decoding.sample_rows(*args, keys)
+    dtoks = decoding.sample_rows(*[a.cuda() for a in args], dkeys).cpu()
+    masked = decoding._mask_one(logits, ks, ps)
+    pert = noise + masked / temps.clamp(min=1e-6)[:, None]
+    top2 = pert.topk(2, dim=-1).values
+    sure = ((top2[:, 0] - top2[:, 1]) > SAMPLE_MARGIN) | (temps == 0)
+    bad = int((sure & (toks != dtoks)).sum())
+    if bad:
+        raise AssertionError(f"{bad} sampled tokens differ card vs CPU")
+    dl = logits.cuda()
+    dargs = [dl, temps.cuda(), ks.cuda(), ps.cuda()]
+    lanes = [seeds.cuda(), branches.cuda(), steps.cuda()]
+
+    def one_round():  # what the sampled step adds to a decode round
+        t = decoding.sample_rows(*dargs, decoding.row_keys(*lanes))
+        return decoding.token_logprobs(dl, t)
+
+    ms = time_ms(one_round, 20)
+    out = dict(rows=B, vocab=V, keys_bitwise=True, gumbel_rel_err=gerr,
+               tokens_agree=int((toks == dtoks).sum()), decisive=int(
+                   sure.sum()), sample_ms_per_round=ms)
+    log(f"[serve] sampling card vs CPU: {json.dumps(out)}")
+    return out
+
+
+def phase_serve(model):
+    """Phase 7 on the compute and the int8 KV cache, the int8 cache against
+    the compute cache, and the sampling on the card against the CPU."""
+    import torch
+
+    sampling = sampling_card_vs_cpu()
+    by_dtype, tokens, launches = {}, {}, {}
+    for cache_dtype in ("compute", "int8"):
+        m = model if cache_dtype == "compute" else twin(
+            model, "bfloat16", cache_dtype)
+        by_dtype[cache_dtype], tokens[cache_dtype], launches[cache_dtype] = \
+            serve_one_cache(m, cache_dtype)
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    agreement = int8_cache_agreement(model, mix_prompts(3),
+                                     tokens["compute"], tokens["int8"])
+    log(f"[serve] int8 cache against the compute cache: "
+        f"{json.dumps(agreement)}")
+    return dict(by_dtype, int8_vs_compute=agreement,
+                sampling=sampling), launches
 
 
 # ---------------------------------------------------------------------------
@@ -3656,6 +4003,198 @@ def phase_moe():
     return result, launches, profiled
 
 
+# ---------------------------------------------------------------------------
+# rule 3, slice 5: serve a checkpoint that the port's Trainer wrote
+# ---------------------------------------------------------------------------
+CK_NEW = 16  # tokens a request in phase 28's engine checks
+CK_8B_LAYERS = 2  # of 32: the checkpoint (f32 params + adamw) ~18 GB
+
+
+def serve_entry(argv):
+    """The serve entry point (``serve/__main__.main``) in this process: its
+    one summary line, parsed; it must exit 0."""
+    import contextlib
+    import io
+
+    from pytorch_distributed_nn_tpu_torch.serve import __main__ as serve_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve_main.main(argv)
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"serve {argv}: rc {rc}, {lines}")
+    return json.loads(lines[0])
+
+
+def engine_run(model, prompts, specs):
+    """``prompts`` through one 8-slot engine, each with its DecodeSpec (or
+    None); returns the Requests, their prefills plus decode rounds."""
+    from pytorch_distributed_nn_tpu_torch.serve import ServingEngine
+
+    eng = ServingEngine(model, max_slots=SERVE_SLOTS, max_seq_len=256,
+                        max_queue=64)
+    reqs = [eng.submit(p, CK_NEW, decode=d) for p, d in zip(prompts, specs)]
+    eng.run_until_idle()
+    for r in reqs:
+        if not r.ok:
+            raise AssertionError(f"{r.request_id}: {r.state}")
+    return reqs, len(eng.completed) + len(eng.round_seconds)
+
+
+def same_state(got, want):
+    import torch
+
+    return sorted(got) == sorted(want) and all(
+        torch.equal(got[k].cpu(), want[k].cpu()) for k in want)
+
+
+def phase_serve_ckpt():
+    """Phase 28. (a) transformer_lm_pp (--mesh.pipe 1 --parallel.strategy
+    dp) at full width and depth trains 2 steps with a checkpoint; the serve
+    entry point serves it; the restored params are the trained ones bit
+    for bit, the engine's greedy tokens on them equal generate()'s, and one
+    sampled request twice gives one stream. (b) llama3_8b_zero at full
+    width, zero_stage 3, cut to CK_8B_LAYERS layers, trains 1 step at batch
+    1 and saves; served with {"quantized": true, "fused_proj": true}, which
+    quantizes at load: the served int8 params equal the trained f32 params
+    quantized in memory bit for bit, the engine's greedy tokens equal
+    generate() on those, and W8A16 runs 4 a layer plus the head a forward.
+    The flash launches of both trainings and the W8A16 launches of (b)'s
+    engine are counted."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.inference.generate import generate
+    from pytorch_distributed_nn_tpu_torch.models import get_model
+    from pytorch_distributed_nn_tpu_torch.ops import int8_matmul as tmm
+    from pytorch_distributed_nn_tpu_torch.serve import DecodeSpec
+    from pytorch_distributed_nn_tpu_torch.serve import __main__ as serve_main
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    def train(preset, **ov):
+        cfg = get_config(preset, **ov)
+        t0 = time.monotonic()
+        trainer = Trainer(cfg, device="cuda")
+        reset_flash_counts()
+        trainer.train()
+        trainer.ckpt.wait()
+        flash = flash_counts()
+        trained = {k: v.detach().clone()
+                   for k, v in trainer.model.state_dict().items()}
+        save = dict(trainer.ckpt.last_save)
+        trainer.close()
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        return cfg, trained, flash, save, time.monotonic() - t0
+
+    rng = np.random.default_rng(28)
+    root = tempfile.mkdtemp(prefix="chip-smoke-serve-")
+    try:
+        # (a) config 4's transformer LM
+        d_lm = os.path.join(root, "lm")
+        cfg, trained, lm_flash, lm_save, lm_train_s = train(
+            "transformer_lm_pp", **LM_OVERRIDES, steps="2",
+            checkpoint_dir=d_lm, checkpoint_every="2")
+        t0 = time.monotonic()
+        lm_summary = serve_entry([
+            "--preset", "transformer_lm_pp", "--checkpoint-dir", d_lm,
+            "--mesh.pipe", "1", "--parallel.strategy", "dp", "--slots", "8",
+            "--requests", "16", "--rate", "50", "--max-new", str(CK_NEW)])
+        lm_serve_s = time.monotonic() - t0
+        params, step = serve_main.restore_params(d_lm)
+        if step != 2 or not same_state(params, trained):
+            raise AssertionError("the restored LM params are not the "
+                                 "trained ones bit for bit")
+        model = get_model(cfg.model, device="cuda")
+        serve_main.load_params(model, params)
+        model.eval()
+        vocab = model.vocab_size
+        prompts = [rng.integers(0, vocab, size=(n,)) for n in (24, 57, 100)]
+        sampled = DecodeSpec(**SAMPLED, seed=2)
+        reqs, _ = engine_run(model, prompts + [prompts[1]] * 2,
+                             [None] * 3 + [sampled] * 2)
+        for p, r in zip(prompts, reqs):
+            ref = generate(model, p[None], CK_NEW).cpu().numpy()
+            if not np.array_equal(r.tokens, ref[0, len(p):]):
+                raise AssertionError("LM: served tokens differ from "
+                                     "generate()")
+        if not np.array_equal(reqs[3].tokens, reqs[4].tokens):
+            raise AssertionError("LM: one sampled request twice gave two "
+                                 "streams")
+        lm = dict(flash_launches=lm_flash, save=lm_save,
+                  train_s=lm_train_s, serve_s=lm_serve_s,
+                  params=sum(v.numel() for v in params.values()),
+                  summary=lm_summary)
+        del model, params, trained
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[serve_ckpt] lm: {json.dumps(lm)}")
+
+        # (b) config 5's Llama, ZeRO-3, quantized at load
+        d_8b = os.path.join(root, "llama")
+        cfg, trained, z_flash, z_save, z_train_s = train(
+            "llama3_8b_zero", steps="1", checkpoint_dir=d_8b,
+            checkpoint_every="1", log_every="1", **{
+                "model.extra": json.dumps({"num_layers": CK_8B_LAYERS}),
+                "data.batch_size": "1", "parallel.zero_stage": "3"})
+        meta = json.loads(open(os.path.join(d_8b, "1", "meta.json")).read())
+        if meta.get("layout", {}).get("zero_stage") != 3:
+            raise AssertionError(f"not a ZeRO-3 layout: {meta}")
+        qextra = json.dumps({"num_layers": CK_8B_LAYERS, "quantized": True,
+                             "fused_proj": True})
+        t0 = time.monotonic()
+        z_summary = serve_entry([
+            "--preset", "llama3_8b_zero", "--checkpoint-dir", d_8b,
+            "--model.extra", qextra, "--slots", "8", "--requests", "8",
+            "--rate", "50", "--max-new", str(CK_NEW)])
+        z_serve_s = time.monotonic() - t0
+        qcfg = get_config("llama3_8b_zero", **{"model.extra": qextra})
+        params, _ = serve_main.restore_params(d_8b)
+        served = get_model(qcfg.model, device="cuda")
+        serve_main.load_params(served, params)
+        del params
+        ref = get_model(qcfg.model, device="cuda")
+        serve_main.load_params(ref, trained)
+        del trained
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not same_state(served.state_dict(), ref.state_dict()):
+            raise AssertionError("quantized at load differs from the "
+                                 "trained params quantized in memory")
+        prompts = [rng.integers(0, V, size=(n,)) for n in (20, 64, 111)]
+        tmm.int8_matmul.launches = 0  # (b)'s engine: the count starts here
+        reqs, forwards = engine_run(served, prompts, [None] * 3)
+        z_launches = tmm.int8_matmul.launches
+        if z_launches != (4 * CK_8B_LAYERS + 1) * forwards:
+            raise AssertionError(f"{z_launches} W8A16 launches in "
+                                 f"{forwards} forwards, expected "
+                                 f"{4 * CK_8B_LAYERS + 1} a forward")
+        for p, r in zip(prompts, reqs):
+            want = generate(ref, p[None], CK_NEW).cpu().numpy()
+            if not np.array_equal(r.tokens, want[0, len(p):]):
+                raise AssertionError("8B: served tokens differ from "
+                                     "generate() on the weights "
+                                     "quantized in memory")
+        z = dict(flash_launches=z_flash, save=z_save, train_s=z_train_s,
+                 serve_s=z_serve_s, layers=CK_8B_LAYERS,
+                 int8_matmul_launches=z_launches, forwards=forwards,
+                 summary=z_summary)
+        del served, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[serve_ckpt] llama3_8b_zero: {json.dumps(z)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    flash = {k: lm_flash[k] + z_flash[k] for k in lm_flash}
+    return dict(lm=lm, llama3_8b_zero=z), flash, z_launches
+
+
 def main() -> int:
     started = time.monotonic()
     import torch
@@ -3713,10 +4252,12 @@ def main() -> int:
     zero8b, zero8b_flash = phase_zero8b()
     pipe, pipe_flash = phase_pipe()
     moe, moe_flash, moe_profiled = phase_moe()
+    serve_ckpt, ckpt_flash, ckpt_int8 = phase_serve_ckpt()
 
     model = build_model(seed=0)
     forward = phase_forward(model)
-    serve, launches = phase_serve(model)
+    serve, serve_launches = phase_serve(model)
+    launches = sum(serve_launches.values()) + ckpt_int8
 
     at8 = {r["shape"]: r for r in rows if r["m"] == 8}
     at128 = {r["shape"]: r for r in rows if r["m"] == 128}
@@ -3732,6 +4273,9 @@ def main() -> int:
         bound_ms=per_forward("bound_ms"),
         bound_by=("bytes" if all(r["bound_by"] == "bytes"
                                  for r in at8.values()) else "operations"),
+        launches_by_path=dict(serve_compute=serve_launches["compute"],
+                              serve_int8_cache=serve_launches["int8"],
+                              serve_ckpt_8b=ckpt_int8),
         library_ms=per_forward("library_ms"), library=library_label,
         read_ms=per_forward("read_ms"),
         prefill_ms=per_forward("ms", at128),
@@ -3776,6 +4320,10 @@ def main() -> int:
             pipe="transformer_lm_pp on mesh.pipe 4 (one process, every "
                  "stage), 8 microbatches, 3 steps a schedule",
             launches_resume=ckpt["launches"][name],
+            launches_serve_ckpt=ckpt_flash[name],
+            serve_ckpt="phase 28's trainings: transformer_lm_pp 2 steps "
+                       "(B 64, T 1024, remat) and llama3_8b_zero at depth "
+                       f"{CK_8B_LAYERS} 1 step (B 1, T 4096, remat)",
             launches_offload=offload_flash[name],
             resume="llama3_longcontext, 2 steps + save + a resumed "
                    "Trainer's 2 steps",
@@ -3843,7 +4391,7 @@ def main() -> int:
                         flash64=flash64, lm_d64=lm_d64, bert=bert,
                         ckpt=ckpt, accum=accum, multistep=multistep,
                         offload=offload, flash8b=flash8b, zero8b=zero8b,
-                        pipe=pipe, moe=moe)))
+                        pipe=pipe, moe=moe, serve_ckpt=serve_ckpt)))
     from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
 
     bootstrap.shutdown()  # the NCCL group of the data-parallel phases

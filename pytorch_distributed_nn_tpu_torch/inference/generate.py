@@ -1,17 +1,24 @@
-"""Greedy autoregressive generation with a KV cache.
+"""Autoregressive generation with a KV cache.
 
-Counterpart of the JAX package's ``inference/generate.py``, greedy path:
+Counterpart of the JAX package's ``inference/generate.py``:
 
-- :func:`init_cache` sizes one ``{"cached_key", "cached_value",
-  "cache_index"}`` dict per layer (zeros, on the model's device);
-- the prompt is consumed in ONE prefill forward; the cache is updated in
+- :func:`init_cache` sizes the model's decode cache (``model.init_cache``:
+  one dict per attention layer, in the compute dtype or int8 with f32
+  scales, plus the transformer LM's ``pos_index``), zeros on the model's
+  device;
+- the prompt is consumed in ONE prefill forward, or in ``prefill_chunk``
+  pieces that each attend to the cache prefix; the cache is updated in
   place by every forward (the JAX code donates it instead);
-- the token loop is a Python loop of one-token decode forwards.
+- the token loop is a Python loop of one-token decode forwards; sampling
+  (``temperature``, ``top_k``, ``top_p`` from an ``rng`` key) draws with
+  JAX's threefry (``utils/threefry.py``), splitting the key every step as
+  the JAX loop does, so a seeded run gives the JAX run's tokens;
+- ``eos_token``: a row that emits it keeps it and pads with it.
 
 Ragged batches (``prompt_lengths``) are realigned left and decoded with
 per-row cache positions; each row's greedy output equals a solo run of
-that row. Sampling, ``eos_token``, ``mesh=`` and ``prefill_chunk`` are
-not ported yet (ROADMAP.md, serving features still to port).
+that row. ``mesh=`` (tensor-parallel decoding) waits for the tensor axis
+(ROADMAP.md §1 item 3.2).
 """
 
 from __future__ import annotations
@@ -19,21 +26,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pytorch_distributed_nn_tpu_torch.utils import threefry
+
+TENSOR_AXIS = "ROADMAP.md §1 item 3.2, the tensor axis"
+
 
 def init_cache(model, batch_size: int, max_len: int) -> dict:
-    """Per-layer KV caches for a (batch_size, max_len) stream, zeros in the
-    model's compute dtype on its device."""
-    shape = (batch_size, max_len, model.num_kv_heads, model.head_dim)
-    dev = model.device
-    return {
-        f"layer{i}": {
-            "cached_key": torch.zeros(shape, dtype=model.dtype, device=dev),
-            "cached_value": torch.zeros(shape, dtype=model.dtype,
-                                        device=dev),
-            "cache_index": torch.zeros((), dtype=torch.int32, device=dev),
-        }
-        for i in range(model.num_layers)
-    }
+    """The model's decode cache for a (batch_size, max_len) stream, zeros
+    on its device; raises ValueError for a model with no decode cache."""
+    make = getattr(model, "init_cache", None)
+    if make is None:
+        raise ValueError(f"{type(model).__name__} has no decode cache "
+                         "support")
+    return make(batch_size, max_len)
+
+
+def cache_bytes(cache) -> int:
+    """Bytes of every tensor in a decode cache."""
+    if isinstance(cache, torch.Tensor):
+        return cache.numel() * cache.element_size()
+    return sum(cache_bytes(v) for v in cache.values())
 
 
 def _last_real(logits: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -68,23 +80,71 @@ def decode_step_ragged(model, cache: dict, tokens: torch.Tensor,
     return logits[:, -1, :]
 
 
+def _sample(logits: torch.Tensor, *, temperature: float, top_k: int,
+            top_p: float, key: torch.Tensor) -> torch.Tensor:
+    """(B, V) f32 logits -> (B,) tokens, the JAX ``_sample`` with one key
+    for the batch: the top-k mask (keep the values >= the k-th largest),
+    then the nucleus over what stays (the smallest sorted prefix whose
+    mass before a token is below top_p), the logits over max(temperature,
+    1e-6), and ``categorical`` (Gumbel noise over every element of the
+    (B, V) array)."""
+    neg = torch.tensor(float("-inf"), device=logits.device)
+    if top_k > 0:
+        k = min(top_k, logits.shape[-1])
+        kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, neg, logits)
+    if top_p > 0.0:
+        desc = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(desc, dim=-1)
+        keep = torch.cumsum(probs, dim=-1) - probs < top_p
+        cutoff = torch.where(keep, desc, -neg).amin(-1, keepdim=True)
+        logits = torch.where(logits < cutoff, neg, logits)
+    t = torch.tensor(max(np.float32(temperature), np.float32(1e-6)),
+                     device=logits.device)
+    scaled = logits / t
+    return threefry.categorical(key, scaled)
+
+
 @torch.inference_mode()
 def generate(model, prompt, max_new_tokens: int, *,
-             prompt_lengths=None) -> torch.Tensor:
-    """Greedy continuations of ``prompt`` (B, P) int; returns (B, P +
+             temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+             rng=None, eos_token: int | None = None, mesh=None,
+             prefill_chunk: int = 0, prompt_lengths=None) -> torch.Tensor:
+    """Continuations of ``prompt`` (B, P) int; returns (B, P +
     max_new_tokens) int32 tokens on the model's device (prompt included).
+
+    ``temperature`` > 0 samples (``top_k``, ``top_p`` mask first) from
+    ``rng``: a (2,) threefry key (``utils.threefry.prng_key``) or an int
+    seed; each step splits it into the next key and the step's key, as the
+    JAX loop does. With ``eos_token`` set, a row that emits it keeps it and
+    then pads with it (the batch still runs max_new_tokens steps).
+
+    ``prefill_chunk``: consume the prompt in chunks of this many tokens,
+    each attending to the cache prefix (live scores (chunk, P) instead of
+    (P, P)); the same tokens.
 
     ``prompt_lengths`` (B,): row i's real prompt is the LAST
     prompt_lengths[i] columns (left padding, pad values don't-care)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "generate(mesh=...) lays the parameters out by the tensor-"
+            f"parallel rules, which are not ported yet ({TENSOR_AXIS})")
     dev = model.device
-    prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int32,
-                             device=dev)
+    prompt = torch.tensor(np.asarray(prompt), dtype=torch.int32, device=dev)
     if prompt.dim() != 2 or prompt.shape[1] < 1:
         raise ValueError(
             f"prompt must be (B, P>=1), got {tuple(prompt.shape)}")
     if max_new_tokens < 0:
         raise ValueError(
             f"max_new_tokens must be >= 0, got {max_new_tokens}")
+    if temperature < 0.0:
+        raise ValueError(f"temperature must be >= 0, got {temperature}")
+    if not 0.0 <= top_p <= 1.0:
+        raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+    if prefill_chunk < 0:
+        raise ValueError(f"prefill_chunk must be >= 0, got {prefill_chunk}")
+    if temperature > 0.0 and rng is None:
+        raise ValueError("sampling (temperature > 0) needs an rng key")
     B, P = prompt.shape
     if prompt_lengths is not None:
         lens = np.asarray(prompt_lengths, dtype=np.int64)
@@ -94,12 +154,22 @@ def generate(model, prompt, max_new_tokens: int, *,
         if lens.min() < 1 or lens.max() > P:
             raise ValueError(f"prompt_lengths must be in [1, {P}], got "
                              f"[{lens.min()}, {lens.max()}]")
+        if prefill_chunk:
+            raise ValueError("prompt_lengths and prefill_chunk are mutually "
+                             "exclusive (ragged prefill is one forward)")
     if max_new_tokens == 0:
         return prompt
+    if temperature > 0.0:
+        key = (threefry.prng_key(rng, device=dev) if isinstance(rng, int)
+               else torch.as_tensor(np.asarray(rng), dtype=torch.int64,
+                                    device=dev))
     cache = init_cache(model, B, P + max_new_tokens)
     if prompt_lengths is None:
         # uniform batch: the shared cache_index, last_only prefill
-        logits = model(prompt, cache=cache, last_only=True)[:, -1, :]
+        step = prefill_chunk if 0 < prefill_chunk < P else P
+        for start in range(0, P, step):
+            logits = model(prompt[:, start:start + step], cache=cache,
+                           last_only=True)[:, -1, :]
         pos = None
     else:
         lengths = torch.as_tensor(lens, device=dev)
@@ -109,9 +179,19 @@ def generate(model, prompt, max_new_tokens: int, *,
         aligned = torch.gather(prompt, 1, shift)
         logits = prefill_ragged(model, cache, aligned, lengths)
         pos = lengths.to(torch.int32)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
     out = []
     for step in range(max_new_tokens):
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        if temperature > 0.0:
+            key, step_key = threefry.split(key)
+            tok = _sample(logits, temperature=temperature, top_k=top_k,
+                          top_p=top_p, key=step_key)
+        else:  # greedy: the JAX loop's key is never read
+            tok = torch.argmax(logits, dim=-1)
+        if eos_token is not None:
+            tok = torch.where(done, eos_token, tok)
+            done = done | (tok == eos_token)
+        tok = tok.to(torch.int32)
         out.append(tok)
         if step == max_new_tokens - 1:
             break  # the JAX scan's last decode is dead compute

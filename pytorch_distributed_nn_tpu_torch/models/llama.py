@@ -183,6 +183,14 @@ class Llama(nn.Module):
     def head_dim(self) -> int:
         return self.d_model // self.num_heads
 
+    def init_cache(self, batch_size: int, max_len: int) -> dict:
+        """The decode cache: one dict a layer, ``layer{i}`` (see
+        ``MultiHeadAttention.init_cache``; int8 with f32 scales under
+        ``cache_dtype="int8"``), zeros on the model's device."""
+        return {f"layer{i}": getattr(self, f"layer{i}").attn.init_cache(
+            batch_size, max_len, device=self.device)
+            for i in range(self.num_layers)}
+
     def forward(self, tokens: torch.Tensor, cache: Optional[dict] = None,
                 cache_positions: Optional[torch.Tensor] = None,
                 last_only: bool = False,

@@ -12,8 +12,10 @@ MoE LM (``models/moe_lm.py``) puts its expert layers there, as
 (``torch.utils.checkpoint``, the JAX model's ``nn.remat`` per block).
 Attention's ``attn_impl="auto"`` takes the flash kernels on the card in
 bf16 from T = 128 at head_dim 64 or 128 (``nn/attention.py``), and the
-plain path elsewhere. The decode cache is not ported yet (ROADMAP.md,
-slice 5: the serving features). The pipeline (``parallel/pipeline.py``)
+plain path elsewhere. The decode cache (:meth:`TransformerLM.init_cache`)
+holds each block's K/V and the model's own ``pos_index``: the learned
+positions are taken at each row's cache position, from that counter or
+from per-row ``cache_positions``. The pipeline (``parallel/pipeline.py``)
 runs the model's three parts by themselves: :meth:`TransformerLM.embed`,
 :meth:`TransformerLM.run_block` and :meth:`TransformerLM.head`.
 """
@@ -68,8 +70,11 @@ class DecoderBlock(nn.Module):
             self.add_module(*ffn)
         self.drop_mlp = Dropout(dropout, salt + 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.drop_attn(self.attn(self.ln1(x)))
+    def forward(self, x: torch.Tensor, cache: Optional[dict] = None,
+                cache_positions: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        x = x + self.drop_attn(self.attn(self.ln1(x), cache=cache,
+                                         cache_positions=cache_positions))
         y = self.ln2(x)
         if self.ffn_name is None:
             y = self.mlp_out(gelu(self.mlp_in(y)))
@@ -80,10 +85,13 @@ class DecoderBlock(nn.Module):
 
 class TransformerLM(nn.Module):
     """``forward(tokens, positions=None, last_only=False,
-    return_hidden=False)`` returns f32 logits (B, T, V), or (B, 1, V) with
-    ``last_only``; ``return_hidden`` skips the LM head and returns the
-    ``ln_f``'d (B, T, D) trunk output (the chunked loss applies the head
-    blockwise). Built on ``device`` (default ``cuda``, which raises
+    return_hidden=False, cache=None, cache_positions=None)`` returns f32
+    logits (B, T, V), or (B, 1, V) with ``last_only``; ``return_hidden``
+    skips the LM head and returns the ``ln_f``'d (B, T, D) trunk output
+    (the chunked loss applies the head blockwise). With ``cache`` (from
+    :meth:`init_cache`) it decodes against the KV cache, writing the fed
+    tokens' K/V in place; ``cache_positions`` (B,) int gives each row its
+    own cache depth. Built on ``device`` (default ``cuda``, which raises
     without CUDA)."""
 
     # a subclass whose routing spans a whole group of tokens (the MoE LM)
@@ -98,6 +106,7 @@ class TransformerLM(nn.Module):
                  param_dtype=torch.float32, device="cuda") -> None:
         super().__init__()
         device = resolve_device(device)
+        self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.d_model = d_model
         self.num_heads = num_heads
@@ -130,25 +139,63 @@ class TransformerLM(nn.Module):
     def head_dim(self) -> int:
         return self.d_model // self.num_heads
 
-    def forward(self, tokens: torch.Tensor,
-                positions: Optional[torch.Tensor] = None,
-                last_only: bool = False, return_hidden: bool = False,
-                cache: Optional[dict] = None) -> torch.Tensor:
-        if cache is not None and not self.supports_decode:
+    @property
+    def device(self) -> torch.device:
+        return self.ln_f.scale.device
+
+    def _refuse_decode(self) -> None:
+        if not self.supports_decode:
             raise ValueError(
                 f"{type(self).__name__} does not support decode caching: "
                 "its routing spans a whole group of tokens")
-        if cache is not None:
-            raise NotImplementedError(
-                "the transformer LM's decode cache is not ported yet "
-                "(ROADMAP.md, slice 5: the serving features)")
+
+    def init_cache(self, batch_size: int, max_len: int) -> dict:
+        """The decode cache: ``block{i}``'s attention cache (see
+        ``MultiHeadAttention.init_cache``) and ``pos_index``, the 0-d int32
+        position counter of the shared-index mode; zeros on the model's
+        device."""
+        self._refuse_decode()
+        cache = {f"block{i}": getattr(self, f"block{i}").attn.init_cache(
+            batch_size, max_len, device=self.device)
+            for i in range(self.num_layers)}
+        cache["pos_index"] = torch.zeros((), dtype=torch.int32,
+                                         device=self.device)
+        return cache
+
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                last_only: bool = False, return_hidden: bool = False,
+                cache: Optional[dict] = None,
+                cache_positions: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         T = tokens.shape[1]
         if T > self.max_len:
             raise ValueError(
                 f"sequence length {T} exceeds max_len {self.max_len}")
+        if cache is not None:
+            self._refuse_decode()
+            if positions is not None:
+                raise ValueError(
+                    "decode mode derives positions from the cache counter; "
+                    "an explicit `positions` argument would be ignored")
+            ar = torch.arange(T, device=tokens.device)[None]
+            if cache_positions is not None:
+                # per-row depths; the shared counter stays untouched
+                positions = cache_positions.to(torch.int64)[:, None] + ar
+            else:
+                positions = cache["pos_index"].to(torch.int64) + ar
+                cache["pos_index"] += T  # in place, on the device
+        elif cache_positions is not None:
+            raise ValueError("cache_positions is a decode-cache feature "
+                             "(per-row cache indices); it needs a cache")
         x = self.embed(tokens, positions)
         for i in range(self.num_layers):
-            x = self.run_block(f"block{i}", x)
+            name = f"block{i}"
+            if cache is None:
+                x = self.run_block(name, x)
+            else:
+                x = getattr(self, name)(x, cache=cache[name],
+                                        cache_positions=cache_positions)
         if last_only:
             x = x[:, -1:]
         x = self.ln_f(x)

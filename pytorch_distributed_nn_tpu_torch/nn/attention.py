@@ -10,14 +10,18 @@ through ``apply``.
 Ported: ``impl="xla"`` (plain PyTorch), ``impl="flash"`` (the hand-written
 CUDA kernels of ``ops/flash_attention.py`` in both directions, their plain
 versions on the CPU), ``impl="auto"`` (:func:`_auto_impl`), the decode
-cache with a shared ``cache_index`` or per-row ``cache_positions``,
-grouped-query attention that never repeats the cached K/V,
+cache with a shared ``cache_index`` or per-row ``cache_positions``, in
+the compute dtype or (``cache_dtype="int8"``) as int8 payloads with
+per-(token, head) f32 scales (:func:`_quantize_kv`) that fold into the
+attention (:func:`_cache_attention`; a decode step by
+:func:`_decode_attention`, whose bits do not depend on the batch or the
+cache length), grouped-query attention that never
+repeats the cached K/V,
 :class:`MultiHeadAttention`'s sequence-parallel ``"ring"`` and
 ``"ulysses"`` (``parallel/sequence.py``) over the ``SeqGroup`` its model
 hands it, and the JAX module's ``causal``, ``rotary`` and ``use_bias``
 fields with a (B, S) padding ``mask`` (BERT, the transformer LM, ViT). Not
-yet: ``cache_dtype="int8"`` and LoRA deltas (ROADMAP.md, serving
-features).
+yet: LoRA deltas (ROADMAP.md §1 item 4.6).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from pytorch_distributed_nn_tpu_torch.ops.flash_attention import (
 from pytorch_distributed_nn_tpu_torch.runtime.mesh import SeqGroup
 
 _NEG = -1e30  # the JAX package's mask value, in f32
+CACHE_DTYPES = ("compute", "int8")
 
 
 def rotary_embedding(q: torch.Tensor, k: torch.Tensor, *,
@@ -142,9 +147,29 @@ def _row_update(buf: torch.Tensor, new: torch.Tensor,
     buf[rows, idx] = new.to(buf.dtype)
 
 
-def _cache_attention(q, k, v, pos_mask, dtype):
-    """Decode attention over the cache with GQA kept grouped: q reshapes to
+def _quantize_kv(x: torch.Tensor):
+    """(B, T, H, D) -> int8 values and (B, T, H) f32 scales: symmetric
+    per-(token, head) absmax over the head dim, rounded half to even. A
+    zero row gets scale 1, so its stored zeros come back exactly."""
+    xf = x.float()
+    absmax = xf.abs().amax(-1)
+    scale = torch.where(absmax > 0, absmax / 127.0,
+                        torch.ones_like(absmax))
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _cache_attention(q, k, v, pos_mask, dtype, kscale=None, vscale=None):
+    """Attention over the cache (a prefill chunk's; a decode step takes
+    :func:`_decode_attention`) with GQA kept grouped: q reshapes to
     (B, T, Hkv, G, D) and the cached K/V are never repeated.
+
+    With ``kscale``/``vscale`` (both (B, S, Hkv) f32) k and v are the int8
+    cache, never dequantized into a copy: each logit is linear in one
+    cached K row, so K's scale multiplies the logits after QK^T; the
+    output is linear in each cached V row, so V's scale multiplies the
+    probabilities before PV. The int8 values enter the products as they
+    are (exact in bf16, |v| <= 127).
 
     q: (B, T, H, D); k/v: (B, S, Hkv, D); pos_mask: (B|1, T, S) bool.
     Logits and softmax in f32; probabilities cast to ``dtype`` before PV.
@@ -155,11 +180,78 @@ def _cache_attention(q, k, v, pos_mask, dtype):
     logits = torch.einsum("btkgd,bskd->bkgts", q5.float(),
                           k.to(dtype).float())
     logits = logits * D ** -0.5
+    if kscale is not None:
+        logits = logits * kscale.transpose(1, 2)[:, :, None, None, :]
     logits = logits.masked_fill(~pos_mask[:, None, None], _NEG)
     probs = torch.softmax(logits, dim=-1)
+    if vscale is not None:
+        probs = probs * vscale.transpose(1, 2)[:, :, None, None, :]
     out = torch.einsum("bkgts,bskd->btkgd", probs.to(dtype).float(),
                        v.to(dtype).float())
     return out.reshape(B, T, H, D).to(dtype)
+
+
+def _pairwise_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over ``dim`` by a fixed pairwise tree (``x[0::2] +
+    x[1::2]`` until one element is left, the length zero-padded to a power
+    of two first): elementwise adds only. Each output's bits then depend on
+    its own elements alone, not on how many rows there are (a library
+    reduction or product picks its order by the shapes), and trailing zeros
+    (masked keys) do not change them."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    if n & (n - 1):
+        x = torch.nn.functional.pad(x, (0, (1 << n.bit_length()) - n))
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+# the most bytes of one f32 product that _decode_attention materializes:
+# longer caches are reduced in chunks of keys (a power of two)
+DECODE_CHUNK_BYTES = 1 << 28
+
+
+def _decode_attention(q, k, v, pos_mask, dtype, kscale=None, vscale=None):
+    """:func:`_cache_attention` (the same arguments and math: f32 logits of
+    the ``dtype``-cast operands, scaled, K's and V's int8 scales folded in,
+    masked, softmax, probabilities cast to ``dtype`` before PV) with every
+    sum taken by :func:`_pairwise_sum` and the maximum by ``amax``, so a
+    row's output is the same bits whatever the batch around it and however
+    long the cache: a decode step of the serving engine (8 rows, the
+    engine's cache length) gives a row what ``generate()`` (1 row, its own
+    cache length) gives it.
+
+    The elementwise products are (B, Hkv, G, T, c, D) f32 for ``c`` keys at
+    a time, ``c`` the largest power of two that keeps one within
+    :data:`DECODE_CHUNK_BYTES`. The chunks are aligned subtrees of the pairwise tree
+    over all S keys, so the bits do not depend on ``c``."""
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    c = max(1, DECODE_CHUNK_BYTES // (B * H * T * D * 4))
+    c = min(1 << (c.bit_length() - 1), 1 << max(S - 1, 0).bit_length())
+    starts = range(0, S, c)
+    q6 = q.float().reshape(B, T, Hkv, H // Hkv, D).permute(0, 2, 3, 1, 4)
+
+    def rows(x, s):  # cache rows [s, s + c) as (B, Hkv, 1, 1, c, D) f32
+        return x[:, s:s + c].to(dtype).float().permute(0, 2, 1, 3)[
+            :, :, None, None]
+
+    logits = torch.cat([_pairwise_sum(q6[..., None, :] * rows(k, s), -1)
+                        for s in starts], -1) * D ** -0.5
+    if kscale is not None:
+        logits = logits * kscale.transpose(1, 2)[:, :, None, None, :]
+    logits = logits.masked_fill(~pos_mask[:, None, None], _NEG)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = e / _pairwise_sum(e, -1)[..., None]
+    if vscale is not None:
+        probs = probs * vscale.transpose(1, 2)[:, :, None, None, :]
+    probs = probs.to(dtype).float()[..., None]
+    parts = [_pairwise_sum(probs[..., s:s + c, :] * rows(v, s), -2)
+             for s in starts]
+    out = parts[0] if len(parts) == 1 else _pairwise_sum(
+        torch.stack(parts, -2), -2)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D).to(dtype)
 
 
 class _DenseGeneral(nn.Module):
@@ -223,12 +315,10 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         if quantized and use_bias:
             raise ValueError("quantized attention is bias-free")
-        if cache_dtype == "int8":
-            raise NotImplementedError(
-                "cache_dtype='int8' is not ported yet (ROADMAP.md, serving "
-                "features still to port: int8 KV cache)")
-        if cache_dtype != "compute":
-            raise ValueError(f"unknown cache_dtype {cache_dtype!r}")
+        if cache_dtype not in CACHE_DTYPES:
+            raise ValueError(f"unknown cache_dtype {cache_dtype!r}; have "
+                             f"{CACHE_DTYPES}")
+        self.cache_dtype = cache_dtype
         self.num_heads = num_heads
         self.head_dim = head_dim
         self.num_kv_heads = num_kv_heads or num_heads
@@ -256,6 +346,28 @@ class MultiHeadAttention(nn.Module):
             self.key = dense((d_model,), (hkv, head_dim))
             self.value = dense((d_model,), (hkv, head_dim))
         self.out = dense((h, head_dim), (d_model,))
+
+    def init_cache(self, batch_size: int, max_len: int,
+                   device=None) -> dict:
+        """This layer's decode cache for a (batch_size, max_len) stream,
+        zeros: ``cached_key`` and ``cached_value`` (B, S, Hkv, D) in the
+        compute dtype, or int8 with ``cached_key_scale`` and
+        ``cached_value_scale`` (B, S, Hkv) f32 under ``cache_dtype="int8"``;
+        ``cache_index`` a 0-d int32."""
+        kv = (batch_size, max_len, self.num_kv_heads, self.head_dim)
+        int8 = self.cache_dtype == "int8"
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        cache = {"cached_key": zeros(kv, torch.int8 if int8 else self.dtype),
+                 "cached_value": zeros(kv, torch.int8 if int8
+                                       else self.dtype)}
+        if int8:
+            cache["cached_key_scale"] = zeros(kv[:3], torch.float32)
+            cache["cached_value_scale"] = zeros(kv[:3], torch.float32)
+        cache["cache_index"] = zeros((), torch.int32)
+        return cache
 
     def forward(self, x: torch.Tensor, cache: Optional[dict] = None,
                 cache_positions: Optional[torch.Tensor] = None,
@@ -307,11 +419,33 @@ class MultiHeadAttention(nn.Module):
                 q, k = rotary_embedding(q, k, theta=self.rope_theta,
                                         positions=positions)
                 q, k = q.to(self.dtype), k.to(self.dtype)
+            if self.cache_dtype == "int8":
+                kq, ks = _quantize_kv(k)
+                vq, vs = _quantize_kv(v)
+                bufs = (ck, cv, cache["cached_key_scale"],
+                        cache["cached_value_scale"])
+                for buf, new in zip(bufs, (kq, vq, ks, vs)):
+                    _row_update(buf, new, starts)
+            else:
+                bufs = (ck, cv)
+                _row_update(ck, k, starts)
+                _row_update(cv, v, starts)
+            if T == 1:
+                # decode: one fixed computation whatever the batch and the
+                # cache length (_decode_attention)
+                attend = _decode_attention
+            else:
+                # a prefill chunk reads the keys up to its last position
+                # only, so that its products have the same shapes however
+                # long the cache is (a host read of the positions: the
+                # prefill is not the per-token loop)
+                S = int(positions.max()) + 1
+                bufs = tuple(b[:, :S] for b in bufs)
+                attend = _cache_attention
             pos_mask = (torch.arange(S, device=x.device)[None, None, :]
                         <= positions[:, :, None])  # (B|1, T, S)
-            _row_update(ck, k, starts)
-            _row_update(cv, v, starts)
-            out = _cache_attention(q, ck, cv, pos_mask, self.dtype)
+            scales = dict(zip(("kscale", "vscale"), bufs[2:]))
+            out = attend(q, bufs[0], bufs[1], pos_mask, self.dtype, **scales)
         else:
             if self.rotary:
                 q, k = rotary_embedding(q, k, theta=self.rope_theta)

@@ -11,7 +11,8 @@ Parameters keep the JAX names, shapes and layout: ``kernel_q`` (Kp, Np)
 int8 and ``scale`` (1, Np) f32, padded by :func:`padded_kn`;
 ``embedding_q`` (V, D) int8 with ``scale`` (V, 1) f32. They are created
 as zeros and hold no gradient; fill them with :func:`synthetic_int8_params`
-or ``load_state_dict``.
+or ``load_state_dict`` (a float model's ``state_dict``, a trained
+checkpoint's, converts with :func:`quantize_state_dict`).
 """
 
 from __future__ import annotations
@@ -183,3 +184,34 @@ def quantize_model_params(params: dict, target: dict) -> dict:
             out[name] = leaf
     return out
 
+
+
+def _nested(flat: dict) -> dict:
+    out: dict = {}
+    for key, value in flat.items():
+        node = out
+        *path, leaf = key.split(".")
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = value
+    return out
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_flat(value, f"{prefix}{name}."))
+        else:
+            out[f"{prefix}{name}"] = value
+    return out
+
+
+def quantize_state_dict(params: dict, model: nn.Module) -> dict:
+    """A float model's flax-named ``state_dict`` ``params`` as the
+    ``state_dict`` of the quantized ``model`` (:func:`quantize_model_params`
+    of the nested params against the model's parameter shapes, on the
+    params' device)."""
+    target = _nested({k: tuple(v.shape)
+                      for k, v in model.state_dict().items()})
+    return _flat(quantize_model_params(_nested(dict(params)), target))

@@ -1,6 +1,10 @@
-"""Serving stack: KV pool, scheduler, continuous-batching engine and the
-loopback server (greedy path)."""
+"""Serving stack: decoding policy, KV pool, scheduler, continuous-batching
+engine and the loopback server."""
 
+from pytorch_distributed_nn_tpu_torch.serve.decoding import (
+    DecodeSpec,
+    TokenStream,
+)
 from pytorch_distributed_nn_tpu_torch.serve.engine import ServingEngine
 from pytorch_distributed_nn_tpu_torch.serve.kv_pool import KVPool
 from pytorch_distributed_nn_tpu_torch.serve.scheduler import Request, Scheduler
@@ -14,7 +18,8 @@ from pytorch_distributed_nn_tpu_torch.serve.server import (
 )
 
 __all__ = [
-    "InferenceServer", "KVPool", "Request", "Scheduler", "ServingEngine",
+    "DecodeSpec", "InferenceServer", "KVPool", "Request", "Scheduler",
+    "ServingEngine", "TokenStream",
     "arrival_offsets", "closed_loop_client", "open_loop_client",
     "ragged_prompt_sampler", "wait_all",
 ]

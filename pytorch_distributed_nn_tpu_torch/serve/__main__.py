@@ -3,14 +3,23 @@
 Usage:
     python -m pytorch_distributed_nn_tpu_torch.serve --preset llama3_8b_zero \\
         --model.extra '{"quantized": true, "fused_proj": true}' \\
-        [--device cuda] [--slots 4] [--max-seq-len 256] [--requests 32] \\
-        [--rate 20] [--max-new 16] [--closed-loop] [--users 4]
+        [--checkpoint-dir DIR] [--device cuda] [--slots 4] \\
+        [--max-seq-len 256] [--requests 32] [--rate 20] [--max-new 16] \\
+        [--closed-loop] [--users 4]
 
 Runs the loopback server against a synthetic ragged workload and prints
 one JSON summary line (requests, rejects, tokens/s, TTFT and per-token
 latency percentiles, batch occupancy, KV utilization), as the JAX
-package's ``scripts/serve.py`` does. Weights are random and seeded
-(``--seed``): synthetic int8 weights when the preset's ``model.extra``
+package's ``scripts/serve.py`` does.
+
+Weights: with ``--checkpoint-dir``, the newest step that the port's
+Trainer wrote there, read whole by ``train.checkpoint.read_full_params``
+(a replicated or a ZeRO layout); float weights are quantized
+at load (``nn.quantized.quantize_state_dict``) where the preset's
+``model.extra`` says ``quantized``. A directory with no checkpoint exits 1,
+and so does a pipeline layout: its stacked stage parameters are not a
+model the engine serves (the JAX script fails on them too). Without it,
+random seeded weights (``--seed``): synthetic int8 weights when the preset
 says ``quantized``, seeded normal floats otherwise.
 """
 
@@ -27,9 +36,47 @@ import torch
 from pytorch_distributed_nn_tpu_torch.obs.stats import percentile
 
 
+def restore_params(directory: str) -> tuple[dict, int]:
+    """The float parameters (a flax-named ``state_dict`` on the CPU) of the
+    newest checkpoint under ``directory``, and its step, read whole by
+    ``read_full_params`` whatever the layout (replicated or ZeRO). Raises
+    FileNotFoundError where there is none, and ValueError for a pipeline
+    layout."""
+    from pytorch_distributed_nn_tpu_torch.train.checkpoint import (
+        checkpoint_meta,
+        read_full_params,
+    )
+
+    step, meta = checkpoint_meta(directory)
+    if meta.get("layout", {}).get("strategy") == "pipeline":
+        raise ValueError(
+            f"{directory} step {step} holds the pipeline layout (stage "
+            "parameters): the engine serves a whole model, and serving "
+            "stage parameters is not a feature of the JAX package either "
+            "(its scripts/serve.py fails on them)")
+    return read_full_params(directory, step), step
+
+
+def load_params(model, params: dict) -> None:
+    """Load float ``params`` into ``model``, quantizing them first where
+    the model is the int8 one."""
+    from pytorch_distributed_nn_tpu_torch.nn.quantized import (
+        quantize_state_dict,
+    )
+
+    dev = next(model.parameters()).device
+    params = {k: v.to(dev) for k, v in params.items()}
+    if getattr(model, "quantized", False):
+        params = quantize_state_dict(params, model)
+    model.load_state_dict(params)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--preset", default="llama3_longcontext")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="serve the newest checkpoint the port's Trainer "
+                         "wrote here (default: random seeded weights)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--slots", type=int, default=4,
                     help="decode batch slots (concurrent sequences)")
@@ -78,12 +125,27 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     cfg = get_config(args.preset, **parse_overrides(rest))
     model = get_model(cfg.model, device=device)
-    if cfg.model.extra.get("quantized", False):
-        synthetic_int8_params(model, seed=args.seed)
+    if args.checkpoint_dir:
+        try:
+            params, step = restore_params(args.checkpoint_dir)
+        except FileNotFoundError:
+            print(f"no checkpoint found in {args.checkpoint_dir}",
+                  file=sys.stderr)
+            return 1
+        except ValueError as e:
+            print(f"[serve] {e}", file=sys.stderr)
+            return 1
+        load_params(model, params)
+        print(f"[serve] {args.preset} on {device}: checkpoint step {step} "
+              f"of {args.checkpoint_dir}", file=sys.stderr)
     else:
-        init_float_params(model, seed=args.seed)
-    print(f"[serve] {args.preset} on {device}: random weights "
-          f"(seed {args.seed}, load test only)", file=sys.stderr)
+        if cfg.model.extra.get("quantized", False):
+            synthetic_int8_params(model, seed=args.seed)
+        else:
+            init_float_params(model, seed=args.seed)
+        print(f"[serve] {args.preset} on {device}: random weights "
+              f"(seed {args.seed}, load test only)", file=sys.stderr)
+    model.eval()
 
     engine = ServingEngine(
         model, max_slots=args.slots, max_seq_len=args.max_seq_len,

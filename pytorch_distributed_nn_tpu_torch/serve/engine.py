@@ -1,4 +1,4 @@
-"""Continuous-batching decode engine, greedy path.
+"""Continuous-batching decode engine.
 
 Counterpart of the JAX package's ``serve/engine.py``: a dense batched KV
 cache of ``max_slots`` rows, stepped one token per round for every active
@@ -11,16 +11,35 @@ Correctness contract: greedy decode through the engine gives, for every
 request, the tokens of a solo sequential ``inference.generate.generate``
 of its prompt. Every row's attention is masked to its own filled cache
 prefix and masked slots contribute exact zeros after the softmax, so
-sharing a batch with strangers does not change a row's tokens.
+sharing a batch with strangers does not change a row's tokens. On the card
+the bits also need each op to reduce a row in an order that the other
+rows and the cache length do not change: the W8A16 kernel does so by
+design, and the attention's products and the norms' row reductions do at
+the decode shapes (``chip_smoke.py`` phase 7 holds the tokens); a
+reduction's order does follow the number of rows from some count up, so
+the prefill runs the prompt's own L rows with ``last_only``, as
+``generate()`` does, not a padded bucket.
 
 Hot loop: :meth:`ServingEngine._decode_round` keeps slot state (last
-token, per-row depth, active mask) on the device across rounds, makes no
-host->device copy, and fetches one (slots,) array of tokens to the host
-per round. Admission and retirement push the refreshed slot arrays once.
+token, per-row depth, active mask, and the sampling rows: temperature,
+top_k, top_p, seed, branch, step and cumulative log-probability) on the
+device across rounds, makes no host->device copy, and fetches one (slots,)
+array of tokens to the host per round. Admission and retirement push the
+refreshed slot arrays once.
 
-Not ported yet (ROADMAP.md, serving features still to port): the prefix
-cache, LoRA adapters, sampled decoding, streaming, metering, audit and
-chaos hooks.
+Decoding policy (``serve/decoding.py``): a batch of greedy rows runs
+:func:`_serve_step`, the greedy step as it always was, so default requests
+keep their tokens bit for bit; a batch with any sampled row runs
+:func:`_serve_step_sample`, the same forward with per-row seeded sampling
+(a greedy row in it still takes exactly its argmax). A best-of-n request
+decodes its branches in ordinary rows from one prefill, each retiring at
+its own eos or budget (:meth:`ServingEngine._retire_branch`), and is
+ranked by cumulative log-probability. Streaming requests get their tokens
+through the one :meth:`ServingEngine._emit_chunk` funnel, in chunks of
+``stream_chunk_tokens``.
+
+Not ported yet: the prefix cache (ROADMAP.md §1 item 4.5), LoRA adapters
+(4.6), metering, audit and chaos hooks.
 """
 
 from __future__ import annotations
@@ -32,25 +51,46 @@ import numpy as np
 import torch
 
 from pytorch_distributed_nn_tpu_torch.inference.generate import (
-    _last_real,
     decode_step_ragged,
     init_cache,
 )
+from pytorch_distributed_nn_tpu_torch.serve import decoding
 from pytorch_distributed_nn_tpu_torch.serve.kv_pool import KVPool
 from pytorch_distributed_nn_tpu_torch.serve.scheduler import (
     Request,
     Scheduler,
+    branch_seq_ids,
 )
 
 
-def _serve_prefill(model, cache: dict, tokens: torch.Tensor,
-                   lengths: torch.Tensor, starts: torch.Tensor
-                   ) -> torch.Tensor:
-    """Batch-of-one prefill + greedy first token: fills ``cache`` (the
-    (1, pad) row cache) in place, returns the (1,) int32 token. Full
-    logits, then each row's last real position."""
-    logits = model(tokens, cache=cache, cache_positions=starts)
-    return torch.argmax(_last_real(logits, lengths), dim=-1).to(torch.int32)
+def _serve_prefill(model, cache: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Batch-of-one prefill of the (1, L) prompt: fills ``cache`` (the
+    (1, pad) row cache) in place from slot 0 and returns the (1, V)
+    next-token logits (``last_only``, as ``generate()``'s prefill)."""
+    starts = torch.zeros((1,), dtype=torch.int32, device=tokens.device)
+    return model(tokens, cache=cache, cache_positions=starts,
+                 last_only=True)[:, -1]
+
+
+def _sample_first(next_logits: torch.Tensor, n: int, spec):
+    """The first token of each of a request's ``n`` branches from one
+    prefill's (1, V) logits: branch k draws with the key of (seed, k, 0),
+    the derivation every decode step uses. Returns ((n,) int32
+    tokens, (n,) f32 log-probabilities under the model's distribution)."""
+    dev = next_logits.device
+    logits = next_logits[:1].expand(n, -1)
+
+    def full(v, dtype):
+        return torch.full((n,), v, dtype=dtype, device=dev)
+
+    keys = decoding.row_keys(full(spec.seed, torch.int64),
+                             torch.arange(n, device=dev),
+                             full(0, torch.int64))
+    toks = decoding.sample_rows(
+        logits, full(spec.temperature, torch.float32),
+        full(spec.top_k, torch.int32), full(spec.top_p, torch.float32),
+        keys).to(torch.int32)
+    return toks, decoding.token_logprobs(logits, toks)
 
 
 def _serve_step(model, cache: dict, last_tok: torch.Tensor,
@@ -68,19 +108,42 @@ def _serve_step(model, cache: dict, last_tok: torch.Tensor,
     return nxt, lengths
 
 
+def _serve_step_sample(model, cache: dict, last_tok, lengths, active,
+                       temps, top_ks, top_ps, seeds, branches, steps,
+                       logprob):
+    """The sampled twin of :func:`_serve_step`: the same forward (a greedy
+    row of the batch sees the same logits and takes its argmax), then
+    per-row seeded sampling. Each active row's step and cumulative
+    log-probability advance on the device, so the round needs no other
+    host transfer."""
+    logits = decode_step_ragged(model, cache, last_tok, lengths)
+    keys = decoding.row_keys(seeds, branches, steps)
+    drawn = decoding.sample_rows(logits, temps, top_ks, top_ps,
+                                 keys).to(torch.int32)
+    logprob = torch.where(
+        active, logprob + decoding.token_logprobs(logits, drawn), logprob)
+    nxt = torch.where(active, drawn, last_tok)
+    lengths = torch.where(active, lengths + 1, lengths)
+    steps = torch.where(active, steps + 1, steps)
+    return nxt, lengths, steps, logprob
+
+
 def _insert_row(batch_cache: dict, row_cache: dict, slot: int) -> None:
     """Copy a prefilled batch-of-one cache into batch row ``slot`` (rows
-    [0, pad) of it), in place. The shared ``cache_index`` is untouched:
-    per-row mode never reads it."""
-    for name, layer in batch_cache.items():
-        for key in ("cached_key", "cached_value"):
-            r = row_cache[name][key]
-            layer[key][slot:slot + 1, :r.shape[1]].copy_(r)
+    [0, pad) of it), in place: every per-row tensor (K/V and, for the int8
+    cache, their scales). The 0-d counters (``cache_index``,
+    ``pos_index``) are untouched: per-row mode never reads them."""
+    for key, b in batch_cache.items():
+        r = row_cache[key]
+        if isinstance(b, dict):
+            _insert_row(b, r, slot)
+        elif b.dim() >= 2:
+            b[slot:slot + 1, :r.shape[1]].copy_(r)
 
 
 def _bucket_len(n: int, floor: int = 16) -> int:
-    """Round a prompt length up to a power of two (>= ``floor``): prefill
-    shapes then take O(log max_seq_len) values."""
+    """Round a prompt length up to a power of two (>= ``floor``): the row
+    cache a prefill fills then takes O(log max_seq_len) shapes."""
     b = floor
     while b < n:
         b *= 2
@@ -88,15 +151,22 @@ def _bucket_len(n: int, floor: int = 16) -> int:
 
 
 class _Slot:
-    """Host-side mirror of one batch row."""
+    """Host-side mirror of one batch row (one decode branch)."""
 
-    __slots__ = ("req", "emitted", "tokens", "depth")
+    __slots__ = ("req", "emitted", "tokens", "depth", "seq_id", "branch",
+                 "streamed")
 
-    def __init__(self, req: Request, first_token: int, depth: int) -> None:
+    def __init__(self, req: Request, first_token: int, depth: int,
+                 seq_id: str = "", branch: int = 0) -> None:
         self.req = req
         self.tokens = [int(first_token)]
         self.emitted = 1
         self.depth = depth  # cache rows filled (prompt + emitted - 1)
+        # the pool sequence this row extends (the request id for branch
+        # 0) and the branch's RNG lane
+        self.seq_id = seq_id or req.request_id
+        self.branch = branch
+        self.streamed = 0  # tokens already pushed to req.stream
 
 
 class ServingEngine:
@@ -106,7 +176,8 @@ class ServingEngine:
     def __init__(self, model, *, max_slots: int = 4,
                  max_seq_len: int = 256, block_size: int = 16,
                  max_queue: int = 64, max_prefills_per_round: int = 2,
-                 eos_token: Optional[int] = None) -> None:
+                 eos_token: Optional[int] = None,
+                 stream_chunk_tokens: int = 1) -> None:
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         self.model = model
@@ -125,6 +196,23 @@ class ServingEngine:
         self._h_last = np.zeros((max_slots,), np.int32)
         self._h_depth = np.zeros((max_slots,), np.int32)
         self._h_active = np.zeros((max_slots,), bool)
+        # the sampling rows, synced with the three above; the sampled step
+        # reads them as per-row tensors, and advances the steps and the
+        # cumulative log-probabilities on the device
+        self._h_temp = np.zeros((max_slots,), np.float32)
+        self._h_topk = np.zeros((max_slots,), np.int32)
+        self._h_topp = np.zeros((max_slots,), np.float32)
+        self._h_seed = np.zeros((max_slots,), np.int64)
+        self._h_branch = np.zeros((max_slots,), np.int64)
+        self._h_step = np.zeros((max_slots,), np.int64)
+        self._d_logprob = torch.zeros((max_slots,), device=self.device)
+        # prefill-drawn first-token log-probabilities, merged into
+        # _d_logprob at the next sync (slot -> value)
+        self._pending_logprob: dict[int, float] = {}
+        self._n_sampled = 0  # active rows that need the sampled step
+        # best-of-n: request_id -> {branch: (tokens, logprob)}
+        self._branch_done: dict[str, dict[int, tuple]] = {}
+        self.stream_chunk_tokens = max(int(stream_chunk_tokens), 1)
         self._sync_slots()
         # bench/report feed: per-round wall seconds + finished requests
         self.round_seconds: list[float] = []
@@ -134,6 +222,12 @@ class ServingEngine:
     # -- client surface ----------------------------------------------------
 
     def submit(self, prompt, max_new_tokens: int, **kw) -> Request:
+        spec = kw.get("decode")
+        if spec is not None \
+                and getattr(spec, "branches", 1) > self.max_slots:
+            raise ValueError(
+                f"best_of={getattr(spec, 'branches', 1)} branches can "
+                f"never fit a {self.max_slots}-slot engine")
         return self.scheduler.submit(prompt, max_new_tokens, **kw)
 
     @property
@@ -185,41 +279,70 @@ class ServingEngine:
         if not admitted:
             return False
         for req in admitted:
-            self._prefill_into(free.pop(0), req)
+            # a branched request takes one row a branch (the scheduler
+            # counted them against the free slots)
+            self._prefill_into([free.pop(0) for _ in range(req.branches)],
+                               req)
         # a budget-1 (or instant-eos) request retires in the same pass
         self._retire_finished()
         self._sync_slots()
         return True
 
-    def _prefill_into(self, slot: int, req: Request) -> None:
-        """Prefill one request into batch row ``slot``: the prompt, padded
-        to a power-of-two bucket, runs through a batch-of-one row cache of
-        that length, which is then copied into the batch cache."""
+    def _prefill_into(self, slots: list, req: Request) -> None:
+        """Prefill ONE request into ``len(slots)`` batch rows: the prompt
+        runs once, unpadded (``generate()``'s rows: on the card a row
+        reduction's order follows the number of rows), through a
+        batch-of-one row cache of a power-of-two length, which is copied
+        into every branch's row; each branch draws its first token from
+        the same logits with its own RNG lane."""
         L = len(req.prompt)
-        t_pad = min(_bucket_len(L), self.max_seq_len)
-        pad = min(_bucket_len(t_pad), self.max_seq_len)
-        tokens = np.zeros((1, t_pad), np.int32)
-        tokens[0, :L] = req.prompt  # left-ALIGNED (pad tail is masked)
-        row_cache = init_cache(self.model, 1, pad)
-        dev = self.device
-        tok0 = _serve_prefill(
-            self.model, row_cache, torch.as_tensor(tokens, device=dev),
-            torch.tensor([L], dtype=torch.int32, device=dev),
-            torch.zeros((1,), dtype=torch.int32, device=dev))
-        first = int(tok0.cpu()[0])
+        spec = req.decode
+        sampled = spec is not None and spec.sampled
+        row_cache = init_cache(self.model, 1,
+                               min(_bucket_len(L), self.max_seq_len))
+        logits = _serve_prefill(self.model, row_cache, torch.tensor(
+            req.prompt[None], device=self.device))
+        logps = None
+        if not sampled:  # the greedy first token
+            firsts = [int(torch.argmax(logits, dim=-1).cpu()[0])]
+        else:
+            toks, lps = _sample_first(logits, len(slots), spec)
+            firsts = toks.cpu().tolist()
+            logps = lps.cpu().tolist()
         req.t_first_token = time.monotonic()
-        _insert_row(self._cache, row_cache, slot)
-        self._slots[slot] = _Slot(req, first, depth=L)
-        self._h_last[slot] = first
-        self._h_depth[slot] = L
-        self._h_active[slot] = True
+        sids = branch_seq_ids(req)
+        for k, slot in enumerate(slots):
+            _insert_row(self._cache, row_cache, slot)
+            s = _Slot(req, firsts[k], depth=L, seq_id=sids[k], branch=k)
+            self._slots[slot] = s
+            self._h_last[slot] = firsts[k]
+            self._h_depth[slot] = L
+            self._h_active[slot] = True
+            # slots are reused: a greedy row on a retired sampled row must
+            # read temperature 0 (the sampled step's per-row greedy arm)
+            self._h_temp[slot] = spec.temperature if sampled else 0.0
+            self._h_topk[slot] = spec.top_k if sampled else 0
+            self._h_topp[slot] = spec.top_p if sampled else 0.0
+            self._h_seed[slot] = spec.seed if sampled else 0
+            self._h_branch[slot] = k
+            self._pending_logprob[slot] = logps[k] if sampled else 0.0
+            if k == 0:
+                self._emit_chunk(s)  # the first chunk: the TTFT event
 
     def _decode_round(self):
         """THE hot loop body: no host->device copies, device-resident slot
         state, one (slots,) device->host fetch."""
         t0 = time.monotonic()
-        nxt, depth = _serve_step(self.model, self._cache, self._d_last,
-                                 self._d_depth, self._d_active)
+        if self._n_sampled == 0:
+            # an all-greedy batch: the greedy step as it always was
+            nxt, depth = _serve_step(self.model, self._cache, self._d_last,
+                                     self._d_depth, self._d_active)
+        else:
+            nxt, depth, self._d_step, self._d_logprob = _serve_step_sample(
+                self.model, self._cache, self._d_last, self._d_depth,
+                self._d_active, self._d_temp, self._d_topk, self._d_topp,
+                self._d_seed, self._d_branch, self._d_step,
+                self._d_logprob)
         self._d_last, self._d_depth = nxt, depth
         host_tok = nxt.cpu().numpy()
         return host_tok, time.monotonic() - t0
@@ -236,7 +359,10 @@ class ServingEngine:
             s.depth += 1
             self._h_last[i] = tok
             self._h_depth[i] = s.depth
-            self.scheduler.pool.extend(s.req.request_id, s.depth)
+            self.scheduler.pool.extend(s.seq_id, s.depth)
+            if s.req.stream is not None and \
+                    len(s.tokens) - s.streamed >= self.stream_chunk_tokens:
+                self._emit_chunk(s)
         return self._retire_finished()
 
     def _done(self, s: _Slot) -> bool:
@@ -253,21 +379,78 @@ class ServingEngine:
             self._slots[i] = None
             self._h_active[i] = False
             retired += 1
+            if s.req.branches > 1:
+                self._retire_branch(i, s)
+                continue
+            # the closing chunk is in the stream before done wakes the
+            # client
+            self._emit_chunk(s, final=True)
             self.scheduler.retire(s.req, np.asarray(s.tokens, np.int32))
             self._finish_record(s)
         return retired
 
+    def _retire_branch(self, slot: int, s: _Slot) -> None:
+        """Retire ONE branch of a best-of-n request at its own eos or
+        budget: bank its tokens and cumulative log-probability and free
+        its KV tail while its siblings decode on. The request retires with
+        its last branch: ranked by log-probability (branch index breaking
+        ties), the top ``n`` handed to the client."""
+        req = s.req
+        # the retirement path may fetch; a branch that retires in the
+        # pass that prefilled it has its value still pending
+        lp = self._pending_logprob.pop(slot, None)
+        if lp is None:
+            lp = float(self._d_logprob[slot].cpu())
+        self.scheduler.release_branch(req, s.seq_id)
+        done = self._branch_done.setdefault(req.request_id, {})
+        done[s.branch] = (list(s.tokens), lp)
+        if len(done) < req.branches:
+            return
+        del self._branch_done[req.request_id]
+        order = sorted(done.items(), key=lambda kv: (-kv[1][1], kv[0]))
+        n_best = [dict(branch=k, tokens=list(t), logprob=v)
+                  for k, (t, v) in order][:req.decode.n]
+        win_tokens, win_lp = done[order[0][0]]
+        s.tokens = win_tokens  # the record carries the winner
+        s.emitted = len(win_tokens)
+        self.scheduler.finish_branches(
+            req, np.asarray(win_tokens, np.int32), n_best, win_lp)
+        self._finish_record(s)
+
+    def _emit_chunk(self, s: _Slot, final: bool = False) -> None:
+        """THE streaming funnel: every token chunk a client sees goes
+        through this one ``TokenStream._feed`` call. No-op for a request
+        that does not stream."""
+        stream = s.req.stream
+        if stream is None:
+            return
+        chunk = s.tokens[s.streamed:]
+        if chunk:
+            s.streamed = len(s.tokens)
+            stream._feed(chunk)
+        if final:
+            stream.close()
+
     def _finish_record(self, s: _Slot) -> None:
         req = s.req
         decode = req.t_done - req.t_first_token
-        self.completed.append(dict(
+        rec = dict(
             request_id=req.request_id, prompt_len=len(req.prompt),
             new_tokens=s.emitted, ttft_s=req.t_first_token - req.t_submit,
             total_s=req.t_done - req.t_submit,
             per_token_s=decode / max(s.emitted - 1, 1),
             rounds_waited=req.round_admitted - req.round_submitted,
             kv_util=self.scheduler.pool.utilization(),
-        ))
+        )
+        # absent for default requests, as in the JAX records
+        if req.decode is not None:
+            rec["decode"] = req.decode.to_wire()
+        if req.n_best is not None:
+            rec["branches"] = req.branches
+            rec["logprob"] = round(req.logprob, 6)
+        if req.stream is not None:
+            rec["stream_chunks"] = req.stream.chunks
+        self.completed.append(rec)
 
     def _sync_slots(self) -> None:
         """Push the host slot mirrors to the device (admission/retirement
@@ -277,6 +460,28 @@ class ServingEngine:
         self._d_last = torch.tensor(self._h_last, device=dev)
         self._d_depth = torch.tensor(self._h_depth, device=dev)
         self._d_active = torch.tensor(self._h_active, device=dev)
+        # each row's RNG step is recomputed host-side (emitted tokens)
+        self._n_sampled = 0
+        for i, s in enumerate(self._slots):
+            if s is None:
+                continue
+            self._h_step[i] = s.emitted
+            if s.req.decode is not None and s.req.decode.sampled:
+                self._n_sampled += 1
+        if self._n_sampled or self._pending_logprob:
+            # the log-probabilities accumulate on the device: overlay the
+            # prefill's first-token values
+            h_logprob = self._d_logprob.cpu().numpy().copy()
+            for slot, v in self._pending_logprob.items():
+                h_logprob[slot] = v
+            self._pending_logprob.clear()
+            self._d_logprob = torch.tensor(h_logprob, device=dev)
+        self._d_temp = torch.tensor(self._h_temp, device=dev)
+        self._d_topk = torch.tensor(self._h_topk, device=dev)
+        self._d_topp = torch.tensor(self._h_topp, device=dev)
+        self._d_seed = torch.tensor(self._h_seed, device=dev)
+        self._d_branch = torch.tensor(self._h_branch, device=dev)
+        self._d_step = torch.tensor(self._h_step, device=dev)
 
     def summary(self) -> dict:
         """Engine-lifetime aggregates."""

@@ -1,9 +1,8 @@
 """KV-cache pool: block allocator + per-sequence block table.
 
 Counterpart of the JAX package's ``serve/kv_pool.py`` without its metric
-and metering hooks, and without the prefix-sharing parts (shared and
-forked reservations, the cached-block ring), which wait for the prefix
-cache (ROADMAP.md, serving features still to port).
+and metering hooks, and without the cached-block ring and its LRU, which
+belong to the prefix cache (ROADMAP.md §1 item 4.5).
 
 A sequence admitted with prompt length L and budget n reserves
 ``ceil((L + n) / block_size)`` blocks up front and holds them until it is
@@ -11,12 +10,19 @@ freed, so a running sequence never runs out of blocks mid-decode. The
 engine keeps K/V rows in a dense ``(slots, S_max)`` cache; the table
 governs admission and accounting, not the physical layout.
 
+Shared blocks: :meth:`KVPool.fork` starts an n-best branch off a live
+reservation with the parent's full prompt blocks in its table by
+reference (refcounted, :meth:`KVPool.refcount`), so n branches hold one
+prompt block set plus n tails; a shared block returns to the free list
+when its last holder frees it.
+
 Thread-safety: one lock around every mutation.
 """
 
 from __future__ import annotations
 
 import threading
+from typing import Iterable
 
 
 class KVPool:
@@ -32,24 +38,57 @@ class KVPool:
         self._lock = threading.Lock()
         self._free: list[int] = list(range(num_blocks - 1, -1, -1))
         self._tables: dict[str, list[int]] = {}  # seq_id -> block ids
+        # block -> live holders, for blocks entered through ``shared``
+        # (an exclusively owned block has no entry)
+        self._ref: dict[int, int] = {}
 
     def blocks_for(self, tokens: int) -> int:
         """ceil(tokens / block_size)."""
         return -(-max(int(tokens), 0) // self.block_size)
 
-    def reserve(self, seq_id: str, tokens: int) -> bool:
+    def reserve(self, seq_id: str, tokens: int,
+                shared: Iterable[int] = ()) -> bool:
         """Reserve blocks for a sequence's worst-case ``tokens`` rows.
         False (and no state change) when the pool can't cover it; a second
-        reserve for a live ``seq_id`` raises."""
-        n = self.blocks_for(tokens)
+        reserve for a live ``seq_id`` raises. ``shared`` live blocks head
+        the table by reference (each gains a holder); only the rest comes
+        off the free list."""
+        shared = list(shared)
+        n_fresh = self.blocks_for(tokens) - len(shared)
+        if n_fresh < 0:
+            raise ValueError(
+                f"sequence {seq_id!r}: {len(shared)} shared blocks exceed "
+                f"the reservation for {tokens} tokens")
         with self._lock:
             if seq_id in self._tables:
                 raise ValueError(f"sequence {seq_id!r} already holds a "
                                  f"reservation")
-            if n > len(self._free):
+            live = {b for t in self._tables.values() for b in t}
+            for b in shared:
+                if b not in live:
+                    raise ValueError(f"shared block {b} is not live")
+            if n_fresh > len(self._free):
                 return False
-            self._tables[seq_id] = [self._free.pop() for _ in range(n)]
+            for b in shared:
+                self._ref[b] = self._ref.get(b, 1) + 1
+            self._tables[seq_id] = shared + [
+                self._free.pop() for _ in range(n_fresh)]
         return True
+
+    def fork(self, parent_id: str, child_id: str, tokens: int, *,
+             shared_tokens: int) -> bool:
+        """Start an n-best branch ``child_id`` off the live ``parent_id``:
+        the parent's full blocks covering ``shared_tokens`` prompt rows
+        join the child's table by reference, and only the child's tail
+        (the partial prompt block and its own tokens) comes off the free
+        list. False (and no state change) when the tail does not fit."""
+        with self._lock:
+            table = self._tables.get(parent_id)
+            if table is None:
+                raise KeyError(
+                    f"fork parent {parent_id!r} has no reservation")
+            shared = table[:max(int(shared_tokens), 0) // self.block_size]
+        return self.reserve(child_id, tokens, shared=shared)
 
     def extend(self, seq_id: str, tokens: int) -> None:
         """Check that a sequence's ``tokens`` written rows stay inside its
@@ -64,14 +103,29 @@ class KVPool:
                     f"{len(table)}-block reservation")
 
     def free(self, seq_id: str) -> int:
-        """Return a sequence's blocks; an unknown id is a no-op. Returns
-        the number of blocks freed."""
+        """Return a sequence's blocks; an unknown id is a no-op. A block
+        another holder shares only drops a holder. Returns the number of
+        blocks that reached the free list."""
         with self._lock:
             table = self._tables.pop(seq_id, None)
             if not table:
                 return 0
-            self._free.extend(reversed(table))
-            return len(table)
+            released = []
+            for b in table:
+                if b in self._ref:
+                    self._ref[b] -= 1
+                    if self._ref[b] > 0:
+                        continue  # another holder keeps it live
+                    del self._ref[b]
+                released.append(b)
+            self._free.extend(reversed(released))
+            return len(released)
+
+    def refcount(self, block: int) -> int:
+        """Live holders of a shared block (0: free or exclusively
+        owned)."""
+        with self._lock:
+            return self._ref.get(block, 0)
 
     def block_table(self, seq_id: str) -> tuple[int, ...]:
         with self._lock:

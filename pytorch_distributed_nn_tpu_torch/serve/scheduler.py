@@ -1,7 +1,8 @@
 """Request scheduler: bounded admission queue + prefill/decode policy.
 
 Counterpart of the JAX package's ``serve/scheduler.py`` for one tenant,
-without its observability, chaos, metering and decoding hooks. Clients
+without its observability, chaos and metering hooks (tenants and LoRA
+adapters come with ROADMAP.md §1 item 4.6). Clients
 call :meth:`Scheduler.submit` from any thread; the engine loop (one
 thread) calls :meth:`next_admissions` once per round. Policy:
 
@@ -13,6 +14,9 @@ thread) calls :meth:`next_admissions` once per round. Policy:
   be starved by small ones; with reservation at admission every running
   sequence finishes within its budget;
 - **interleave**: at most ``max_prefills_per_round`` admissions a round;
+- **branches**: a best-of-n request (``decode``, a
+  :class:`~serve.decoding.DecodeSpec`) needs one free slot a branch and
+  reserves its primary plus one forked tail a branch, all or nothing;
 - **deadlines**: a request whose deadline passes while queued is
   rejected (``deadline``) at the next round;
 - **drain**: queued requests are rejected (``draining``) and so is every
@@ -33,6 +37,10 @@ from typing import Optional
 
 import numpy as np
 
+from pytorch_distributed_nn_tpu_torch.serve.decoding import (
+    DecodeSpec,
+    TokenStream,
+)
 from pytorch_distributed_nn_tpu_torch.serve.kv_pool import KVPool
 
 QUEUED = "queued"
@@ -65,14 +73,36 @@ class Request:
     t_done: float = 0.0
     round_submitted: int = -1
     round_admitted: int = -1
+    # how this request's tokens are chosen; None is greedy with one branch
+    decode: Optional[DecodeSpec] = None
+    # the TokenStream the engine's _emit_chunk feeds; None: no streaming
+    stream: Optional[TokenStream] = None
+    # a branched request's results, best first: [{"branch", "tokens",
+    # "logprob"}]; ``tokens`` is then the winner's and ``logprob`` its
+    # cumulative log-probability
+    n_best: Optional[list] = None
+    logprob: float = 0.0
 
     @property
     def total_tokens(self) -> int:
         return len(self.prompt) + self.max_new_tokens
 
     @property
+    def branches(self) -> int:
+        """Batch rows and KV tails this request decodes in parallel."""
+        return self.decode.branches if self.decode is not None else 1
+
+    @property
     def ok(self) -> bool:
         return self.state == DONE
+
+
+def branch_seq_ids(req: Request) -> list[str]:
+    """Pool sequence ids of a request's branches: branch 0 is the request
+    id (an unbranched request's accounting is unchanged), branch k
+    ``{id}#b{k}``."""
+    rid = req.request_id
+    return [rid] + [f"{rid}#b{k}" for k in range(1, req.branches)]
 
 
 class Scheduler:
@@ -104,21 +134,45 @@ class Scheduler:
             req.reject_reason = reason
         if state in _TERMINAL:
             req.t_done = time.monotonic()
+            if req.stream is not None:
+                # idempotent: the engine's final chunk closed a DONE
+                # stream; a rejected or failed one ends empty here
+                req.stream.close()
             req.done.set()
 
     def submit(self, prompt, max_new_tokens: int, *,
-               deadline_s: Optional[float] = None) -> Request:
+               deadline_s: Optional[float] = None,
+               request_id: Optional[str] = None,
+               decode: Optional[DecodeSpec] = None,
+               stream: bool = False) -> Request:
         """Thread-safe admission attempt. Always returns a Request; a
-        rejected one is already terminal (``reject_reason`` says why)."""
+        rejected one is already terminal (``reject_reason`` says why).
+        ``decode`` chooses sampling and branches (an all-default spec is
+        the greedy path and is dropped); ``stream`` attaches a
+        :class:`TokenStream` (one branch only)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if decode is not None and not isinstance(decode, DecodeSpec):
+            raise ValueError(
+                f"decode must be a serve.decoding.DecodeSpec, got "
+                f"{type(decode).__name__}")
+        if decode == DecodeSpec():
+            decode = None  # the greedy path, exactly
+        if stream and decode is not None and decode.branches > 1:
+            raise ValueError(
+                "stream=True requires a single branch (best_of/n == 1): "
+                "n-best ranking needs every full stream before it can pick "
+                "a winner")
         req = Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
-                      request_id=f"req-{next(_ids)}",
-                      deadline_s=deadline_s, t_submit=time.monotonic())
+                      request_id=request_id or f"req-{next(_ids)}",
+                      deadline_s=deadline_s, t_submit=time.monotonic(),
+                      decode=decode)
+        if stream:
+            req.stream = TokenStream(req.request_id)
         with self._lock:
             req.round_submitted = self.round
             if self.draining:
@@ -132,10 +186,28 @@ class Scheduler:
                 self._transition(req, QUEUED)
         return req
 
+    def _reserve_locked(self, head: Request) -> bool:
+        """One admission's KV reservation: the primary, then one forked
+        tail a further branch sharing the primary's full prompt blocks,
+        all or nothing (a tail that does not fit rolls the whole admission
+        back). False is backpressure."""
+        if not self.pool.reserve(head.request_id, head.total_tokens):
+            return False
+        sids = branch_seq_ids(head)
+        for k, sid in enumerate(sids[1:], start=1):
+            if self.pool.fork(head.request_id, sid, head.total_tokens,
+                              shared_tokens=len(head.prompt)):
+                continue
+            for forked in sids[1:k]:
+                self.pool.free(forked)
+            self.pool.free(head.request_id)
+            return False
+        return True
+
     def next_admissions(self, free_slots: int) -> list[Request]:
         """Pop the requests admitted this round, strict FIFO. Each must fit
-        a free batch slot AND reserve its worst-case KV blocks; a head that
-        cannot reserve ends the round (no bypass)."""
+        a free batch slot a branch AND reserve its worst-case KV blocks; a
+        head that cannot ends the round (no bypass)."""
         admitted: list[Request] = []
         now = time.monotonic()
         with self._lock:
@@ -146,14 +218,16 @@ class Scheduler:
                     self._queue.popleft()
                     self._transition(head, REJECTED, reason="deadline")
                     continue
-                if not self.pool.reserve(head.request_id, head.total_tokens):
+                if head.branches > free_slots:
+                    break  # n branches need n rows now: no bypass
+                if not self._reserve_locked(head):
                     break  # no bypass: wait for blocks to free
                 self._queue.popleft()
                 head.t_admit = now
                 head.round_admitted = self.round
                 self._transition(head, RUNNING)
                 admitted.append(head)
-                free_slots -= 1
+                free_slots -= head.branches
         return admitted
 
     def retire(self, req: Request, tokens: np.ndarray) -> None:
@@ -164,10 +238,29 @@ class Scheduler:
         with self._lock:
             self._transition(req, DONE)
 
+    def release_branch(self, req: Request, seq_id: str) -> None:
+        """Free ONE branch's reservation of a best-of-n request when it
+        hits eos or its budget, while its siblings decode on (shared
+        prompt blocks stay live until their last holder frees them)."""
+        self.pool.free(seq_id)
+
+    def finish_branches(self, req: Request, tokens, n_best: list,
+                        logprob: float) -> None:
+        """The terminal transition of a branched request, whose branches
+        were all released: ``tokens`` are the winner's, ``n_best`` the
+        ranked results."""
+        req.tokens = np.asarray(tokens, np.int32)
+        req.n_best = n_best
+        req.logprob = float(logprob)
+        with self._lock:
+            self._transition(req, DONE)
+
     def fail(self, req: Request, reason: str) -> None:
-        """Evict a running sequence (engine error path): blocks freed, the
-        client sees FAILED, not a hang."""
-        self.pool.free(req.request_id)
+        """Evict a running sequence (engine error path): every branch's
+        blocks freed (a branch already released is a no-op), the client
+        sees FAILED, not a hang."""
+        for sid in branch_seq_ids(req):
+            self.pool.free(sid)
         with self._lock:
             req.reject_reason = reason
             self._transition(req, FAILED)

@@ -83,9 +83,22 @@ class InferenceServer:
             raise RuntimeError("serve loop failed") from self.error
 
     def submit(self, prompt, max_new_tokens: int, **kw) -> Request:
+        """Submit a request (``decode=`` a
+        :class:`~serve.decoding.DecodeSpec`, ``stream=True`` for a
+        :class:`~serve.decoding.TokenStream` on ``req.stream``)."""
         req = self.engine.submit(prompt, max_new_tokens, **kw)
         self._wake.set()
         return req
+
+    def stream(self, prompt, max_new_tokens: int, **kw):
+        """Submit with streaming and return the request's
+        :class:`~serve.decoding.TokenStream`: the first chunk is the
+        prefill's token, and iteration ends when the request retires, is
+        rejected or fails (a terminal transition closes the stream). The
+        Request rides on ``stream.request``."""
+        req = self.submit(prompt, max_new_tokens, stream=True, **kw)
+        req.stream.request = req
+        return req.stream
 
     def generate(self, prompt, max_new_tokens: int,
                  timeout: float = 120.0, **kw) -> Request:

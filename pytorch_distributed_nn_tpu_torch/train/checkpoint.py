@@ -346,6 +346,23 @@ def _verified_meta(path: Path) -> dict:
     return meta
 
 
+def checkpoint_meta(directory: str | Path,
+                    step: int | None = None) -> tuple[int, dict]:
+    """``(step, meta)`` of a checkpoint's newest step (or ``step``), its
+    files verified against the manifest; ``meta["layout"]`` names a sharded
+    layout (absent for a replicated state). Raises FileNotFoundError where
+    there is no step."""
+    directory = Path(directory)
+    if step is None:
+        steps = sorted(int(p.name) for p in directory.iterdir()
+                       if p.name.isdigit() and p.is_dir()) \
+            if directory.is_dir() else []
+        if not steps:
+            raise FileNotFoundError(f"no checkpoint under {directory}")
+        step = steps[-1]
+    return step, _verified_meta(directory / str(step))
+
+
 def read_full_params(directory: str | Path,
                      step: int | None = None) -> dict[str, torch.Tensor]:
     """The whole parameters of a checkpoint (the newest step, or ``step``)
@@ -354,15 +371,8 @@ def read_full_params(directory: str | Path,
     ``fsdp`` order along their dim, the expert slices in ``expert`` order
     along E, the pipeline's stages merged (the counterpart of the JAX
     ``restore_unstacked_params``)."""
-    directory = Path(directory)
-    if step is None:
-        steps = sorted(int(p.name) for p in directory.iterdir()
-                       if p.name.isdigit() and p.is_dir())
-        if not steps:
-            raise FileNotFoundError(f"no checkpoint under {directory}")
-        step = steps[-1]
-    path = directory / str(step)
-    meta = _verified_meta(path)
+    step, meta = checkpoint_meta(directory, step)
+    path = Path(directory) / str(step)
 
     def model_of(fname):
         return {k[len("model."):]: v for k, v in torch.load(

@@ -125,8 +125,13 @@ def test_unported_impls_name_the_roadmap():
     torch.testing.assert_close(
         ta.dot_product_attention(x, x, x, causal=True, impl="flash"),
         ta.dot_product_attention(x, x, x, causal=True, impl="xla"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ta.MultiHeadAttention(8, 2, 4, cache_dtype="int8")
+    # the int8 KV cache is ported (tests/test_torch_kv_cache.py holds it
+    # against the JAX package); an unknown cache dtype raises, as there
+    cache = ta.MultiHeadAttention(8, 2, 4, cache_dtype="int8").init_cache(
+        1, 4)
+    assert cache["cached_key"].dtype == torch.int8
+    with pytest.raises(ValueError, match="cache_dtype"):
+        ta.MultiHeadAttention(8, 2, 4, cache_dtype="fp4")
 
 
 D_MODEL, H, HKV, HD = 32, 4, 2, 8

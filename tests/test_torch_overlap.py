@@ -251,6 +251,10 @@ def test_a_step_on_another_wire_replaces_the_reducer_and_its_hooks(
     assert second is not first and model.overlap_reducer is second
     first.arm()
     second.arm()
+    if dist.is_initialized():
+        # the one-process group an in-process Trainer of another test in
+        # this worker may have left behind
+        dist.destroy_process_group()
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
                             rank=0, world_size=1)
     try:

@@ -19,13 +19,19 @@ the CPU, each a ``torchrun`` worker (``torch.distributed.run
   evaluation after them to 1e-5, as ``tests/test_torch_train.py`` holds
   the one-process run.
 
-Every subprocess has a hard timeout, so a hang fails the test.
+Every subprocess has a hard timeout, so a hang fails the test. Its
+environment is the test worker's without any rendezvous, elastic or
+collective-library variable (``_env``), and each gang's output carries the
+nonce its fixture passed and the world it ran in, so a file of another or
+an earlier gang, or a gang that did not form as 4 distinct ranks, fails
+loudly instead of being compared.
 """
 
 import json
 import os
 import subprocess
 import sys
+import uuid
 from pathlib import Path
 
 import jax
@@ -65,13 +71,23 @@ def _inputs(hkv):
     return q, k, v, g
 
 
+# what the gang's rendezvous and collectives read from the environment:
+# none of it may leak in from the test worker (an earlier test in the same
+# worker, or the worker's own launcher)
+_RANK_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+              "GROUP_RANK", "ROLE_RANK", "ROLE_WORLD_SIZE", "MASTER_ADDR",
+              "MASTER_PORT", "NUM_PROCESSES", "PROCESS_ID",
+              "COORDINATOR_ADDRESS")
+_RENDEZVOUS_PREFIXES = ("TORCHELASTIC_", "PET_", "TORCH_DISTRIBUTED",
+                        "TORCH_NCCL", "NCCL_", "GLOO_", "OMP_", "MKL_")
+
+
 def _env():
-    env = dict(os.environ, OMP_NUM_THREADS="1",
+    env = {k: v for k, v in os.environ.items()
+           if k not in _RANK_VARS and not k.startswith(_RENDEZVOUS_PREFIXES)}
+    env.update(OMP_NUM_THREADS="1",
                PYTHONPATH=str(ROOT) + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
-              "MASTER_PORT", "NUM_PROCESSES", "PROCESS_ID"):
-        env.pop(k, None)
     return env
 
 
@@ -103,11 +119,14 @@ from pytorch_distributed_nn_tpu_torch.parallel.sequence import (
 from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
 from pytorch_distributed_nn_tpu_torch.runtime.mesh import MeshSpec, process_mesh
 
-out_dir, cases = sys.argv[1], json.loads(sys.argv[2])
+out_dir, cases, nonce = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3]
 proc = bootstrap.initialize("cpu")
 mesh = process_mesh(MeshSpec(seq=4, data=1), proc.rank, proc.world_size)
 seq = mesh.seq
-res = {"seq_index": seq.index}
+ranks = [None] * proc.world_size
+torch.distributed.all_gather_object(ranks, (proc.rank, nonce))
+res = {"seq_index": seq.index, "nonce": nonce, "world": proc.world_size,
+       "gang": json.dumps(ranks)}
 for name, (impl, hkv) in cases.items():
     data = np.load(f"{out_dir}/inputs_hkv{hkv}.npz")
     Tl = data["q"].shape[1] // seq.size
@@ -138,8 +157,15 @@ def gang(tmp_path_factory):
         np.savez(d / f"inputs_hkv{hkv}.npz", q=q, k=k, v=v, g=g)
     script = d / "worker.py"
     script.write_text(_ATTN_WORKER)
-    _torchrun(script, d, json.dumps(CASES))
+    nonce = uuid.uuid4().hex
+    _torchrun(script, d, json.dumps(CASES), nonce)
     ranks = [dict(np.load(d / f"rank{r}.npz")) for r in range(SEQ)]
+    # every file is this gang's, and the gang was 4 distinct ranks that
+    # all saw the same nonce
+    want = [[r, nonce] for r in range(SEQ)]
+    for r in ranks:
+        assert str(r["nonce"]) == nonce and int(r["world"]) == SEQ
+        assert json.loads(str(r["gang"])) == want
     order = sorted(range(SEQ), key=lambda r: int(ranks[r]["seq_index"]))
     assert [int(ranks[r]["seq_index"]) for r in order] == list(range(SEQ))
 

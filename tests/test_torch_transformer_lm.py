@@ -127,9 +127,18 @@ def test_preset_and_its_limits():
         Trainer(tconfig.get_config("transformer_lm_pp", **pp,
                                    **{"mesh.tensor": "2"}), device="cpu")
     tm = get_model(tconfig.get_config("transformer_lm_pp", **_overrides(
-        "float32")).model, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tm(torch.zeros((1, 4), dtype=torch.int32), cache={})
+        "float32")).model, device="cpu").init_params(seed=0)
+    # the decode cache: a prefill through it gives the full forward's
+    # logits (tests/test_torch_kv_cache.py holds it against the JAX LM)
+    from pytorch_distributed_nn_tpu_torch.inference.generate import (
+        init_cache,
+    )
+
+    toks = torch.arange(1, 5, dtype=torch.int32)[None]
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            tm(toks, cache=init_cache(tm, 1, 4)).numpy(), tm(toks).numpy(),
+            rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="exceeds max_len"):
         tm(torch.zeros((1, 33), dtype=torch.int32))
 
