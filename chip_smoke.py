@@ -238,6 +238,40 @@ Serving a trained checkpoint (phase 28 runs after phase 27):
               times a forward (4 a layer plus the head). The flash
               launches of both trainings are counted.
 
+Training from the user's files and the MoE LM under the pipeline (phases
+29 and 30 run after phase 28):
+
+29. files    -- a 16M-token uint16 token file (vocab 32000), an MNIST idx
+              pair (10k train, 2k t10k rows) and CIFAR-10's data_batch_1.bin
+              and test_batch.bin (10k and 2k records) written from a numpy
+              seed in a temporary directory; transformer_lm_pp with
+              --mesh.pipe 1 --parallel.strategy dp at full width (B 64,
+              T 1024, remat) from the token file with holdout_frac 0.05:
+              the device batches of two training steps and an evaluation
+              step bit for bit the memmap's windows; a warm-up and 3 steps
+              with the flash counts reset just before and read just after
+              (24 forward, 12 dq, 12 dk/dv a step), one evaluation on the
+              held-out tail, one profiled step with the kernels counted by
+              name; step time, tokens/s, peak memory and the loader's wait
+              against phase 18's synthetic-data step; then mlp_mnist from
+              the idx files and lenet_cifar10 from the binaries, 20 steps
+              each (the loss falls) and one evaluation on the test split.
+              image_folder is not decoded here: its decode is PIL host
+              code, held against the JAX reader by the CPU tests.
+30. pipe_moe -- moe_lm_ep at full width (12 layers, d 768, 8 experts of
+              3072, top-2, B 32, T 1024, no remat) under the pipeline with 8
+              microbatches, every stage in this process: 1f1b on mesh.pipe
+              4 with moe_every 1, and interleaved on pipe 2 x 3 chunks with
+              moe_every 2 (pipe 4 would split its dense + MoE pairs), a
+              warm-up and 2 steps each with the flash counts reset just
+              before and read just after (96 forward, dq and dk/dv a
+              step); the first loss,
+              load-balance terms included, against the dp step's from the
+              same weights and batch (PIPE_MOE_LOSS_TOL); a routing group
+              within a microbatch's rows; step time, peak memory, the most
+              microbatches a stage held, a profiled step with the flash
+              kernels counted by name.
+
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit from nvidia-smi, and the result JSON line.
 """
@@ -4195,6 +4229,359 @@ def phase_serve_ckpt():
     return dict(lm=lm, llama3_8b_zero=z), flash, z_launches
 
 
+# ---------------------------------------------------------------------------
+# rule 3: training from the user's files, and the MoE LM under the pipeline
+# ---------------------------------------------------------------------------
+FILES_SEED = 0  # the files' numpy seed
+FILES_TOKENS = 16 * 2 ** 20  # uint16 tokens of the token file (32 MiB)
+FILES_VOCAB = 32000
+FILES_HOLDOUT = 0.05
+FILES_STEPS = 3  # timed LM steps (after one warm-up step)
+FILES_SMALL_STEPS = 20  # mlp_mnist and lenet_cifar10 from their files
+MNIST_ROWS, CIFAR_ROWS = (10000, 2000), (10000, 2000)  # (train, test)
+_IDX_CODES = {"uint8": 0x08, "int32": 0x0C}
+
+
+def write_idx(path, arr):
+    """``arr`` as an idx file: the header, then the big-endian array."""
+    import struct
+
+    head = struct.pack(">HBB", 0, _IDX_CODES[arr.dtype.name], arr.ndim)
+    head += struct.pack(f">{arr.ndim}I", *arr.shape)
+    with open(path, "wb") as f:
+        f.write(head + arr.astype(arr.dtype.newbyteorder(">")).tobytes())
+
+
+def striped_images(rng, n, shape, row_axis):
+    """n uint8 images with a saturated stripe at rows 2y..2y+3 of class y
+    (learnable), labels y = i mod 10."""
+    import numpy as np
+
+    y = (np.arange(n) % 10).astype(np.uint8)
+    x = rng.integers(0, 256, (n, *shape), dtype=np.uint8)
+    rows = np.arange(shape[row_axis - 1])
+    hit = (rows >= 2 * y[:, None]) & (rows < 2 * y[:, None] + 3)
+    view = [n] + [1] * len(shape)
+    view[row_axis] = shape[row_axis - 1]
+    x[np.broadcast_to(hit.reshape(view), x.shape)] = 255
+    return x, y
+
+
+def write_files(root):
+    """The token file, an MNIST idx pair and CIFAR-10 binaries under
+    ``root``, from FILES_SEED."""
+    import numpy as np
+
+    rng = np.random.default_rng(FILES_SEED)
+    paths = dict(tokens=os.path.join(root, "tokens.bin"),
+                 mnist=os.path.join(root, "mnist"),
+                 cifar=os.path.join(root, "cifar10"))
+    rng.integers(0, FILES_VOCAB, FILES_TOKENS, dtype=np.uint16).tofile(
+        paths["tokens"])
+    os.makedirs(paths["mnist"])
+    for split, n in zip(("train", "t10k"), MNIST_ROWS):
+        x, y = striped_images(rng, n, (28, 28), 1)
+        write_idx(os.path.join(paths["mnist"], f"{split}-images-idx3-ubyte"),
+                  x)
+        write_idx(os.path.join(paths["mnist"], f"{split}-labels-idx1-ubyte"),
+                  y)
+    os.makedirs(paths["cifar"])
+    for name, n in zip(("data_batch_1.bin", "test_batch.bin"), CIFAR_ROWS):
+        x, y = striped_images(rng, n, (3, 32, 32), 2)  # CHW records
+        rec = np.concatenate([y[:, None], x.reshape(n, -1)], axis=1)
+        with open(os.path.join(paths["cifar"], name), "wb") as f:
+            f.write(rec.tobytes())
+    return paths
+
+
+def memmap_windows(path, seed, step, batch, seq_len, holdout):
+    """The (inputs, targets) windows of a token file's step, read from the
+    memmap by the sampler's contract: ``batch`` starts drawn by
+    default_rng(SeedSequence([seed, step])) from the head region (the
+    tail ``holdout`` from the eval offset on)."""
+    import numpy as np
+
+    from pytorch_distributed_nn_tpu_torch.data.datasets import (
+        EVAL_STEP_OFFSET,
+    )
+
+    tokens = np.memmap(path, dtype=np.uint16, mode="r")
+    n = len(tokens)
+    tail = n - int(n * holdout)
+    lo, hi = ((tail, n - seq_len) if step >= EVAL_STEP_OFFSET
+              else (0, tail - seq_len))
+    starts = np.random.default_rng(
+        np.random.SeedSequence([seed, step])).integers(lo, hi, size=batch)
+    rows = np.stack([tokens[s:s + seq_len + 1] for s in starts]).astype(
+        np.int32)
+    return rows[:, :-1], rows[:, 1:]
+
+
+def small_from_files(preset, dataset, path, n_test):
+    """``preset`` trained FILES_SMALL_STEPS steps on the card from its
+    files, one evaluation on the files' test split."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+    from pytorch_distributed_nn_tpu_torch.utils.flops import input_spec
+
+    cfg = get_config(preset, **{"data.dataset": dataset, "data.path": path,
+                                "log_every": "1"})
+    t0 = time.monotonic()
+    with Trainer(cfg, device="cuda") as trainer:
+        ds = trainer.dataset
+        if (input_spec(cfg) != (ds.spec.x_shape, ds.spec.x_dtype)
+                or len(ds._eval_rows) != n_test):
+            raise AssertionError(f"{preset} from {dataset}: spec "
+                                 f"{ds.spec}, {len(ds._eval_rows)} eval "
+                                 "rows")
+        trainer.train(steps=FILES_SMALL_STEPS)
+        ev = trainer.evaluate(num_batches=2)
+        losses = trainer.losses()
+        torch.cuda.synchronize()
+    if not (all(math.isfinite(v) for v in losses)
+            and math.isfinite(ev.loss) and losses[-1] < losses[0]):
+        raise AssertionError(f"{preset} from {dataset}: losses {losses}, "
+                             f"eval {ev}")
+    return dict(steps=len(losses), first_loss=losses[0],
+                last_loss=losses[-1], eval_loss=ev.loss,
+                eval_accuracy=ev.accuracy, eval_rows=n_test,
+                seconds=time.monotonic() - t0)
+
+
+def phase_files(lm_ref):
+    """Training from the user's files (phase 29): the token file, MNIST
+    idx files and CIFAR-10 binaries written from FILES_SEED in a temporary
+    directory. config 4's transformer LM (--mesh.pipe 1
+    --parallel.strategy dp) at full width from the token file with
+    holdout_frac 0.05: the device batches of two training steps and an
+    evaluation step bit for bit the memmap's windows; a warm-up and
+    FILES_STEPS steps with the flash counts reset just before and read
+    just after (24 forward, 12 dq, 12 dk/dv a step), one evaluation on the
+    held-out tail, one profiled step with the kernels counted by name;
+    step time, tokens/s, peak memory and the loader's wait against
+    ``lm_ref`` (phase 18's synthetic-data step). Then mlp_mnist from the
+    idx files and lenet_cifar10 from the binaries, each with one
+    evaluation on the real test split."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.data.datasets import (
+        EVAL_STEP_OFFSET,
+        TokenFileDataset,
+    )
+    from pytorch_distributed_nn_tpu_torch.utils.flops import (
+        transformer_train_flops_per_token,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    try:
+        t0 = time.monotonic()
+        paths = write_files(root)
+        write_s = time.monotonic() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = lm_trainer(**{"data.dataset": "token_file",
+                                "data.path": paths["tokens"],
+                                "data.holdout_frac": str(FILES_HOLDOUT)})
+        model, cfg = trainer.model, trainer.cfg
+        L = model.num_layers
+        if not (isinstance(trainer.dataset, TokenFileDataset)
+                and model.head_dim == LM_D and cfg.model.remat
+                and (cfg.data.batch_size, cfg.data.seq_len,
+                     cfg.data.vocab_size) == (LM_B, LM_T, FILES_VOCAB)):
+            raise AssertionError("transformer_lm_pp from the token file is "
+                                 "not the preset at full width")
+        for step in (0, 1, EVAL_STEP_OFFSET):
+            x, y = trainer.loader.batch_at(step)
+            wx, wy = memmap_windows(paths["tokens"], cfg.seed, step, LM_B,
+                                    LM_T, FILES_HOLDOUT)
+            if not (x.is_cuda and torch.equal(x.cpu(), torch.from_numpy(wx))
+                    and torch.equal(y.cpu(), torch.from_numpy(wy))):
+                raise AssertionError(f"step {step}: the device batch is not "
+                                     "the memmap's windows")
+        trainer.train(steps=1)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()  # the path's count starts here
+        trainer.train(steps=FILES_STEPS)
+        launches = flash_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = {"flash_fwd": 2 * L * FILES_STEPS,
+                "flash_bwd_dq": L * FILES_STEPS,
+                "flash_bwd_dkv": L * FILES_STEPS}
+        if launches != want:
+            raise AssertionError(f"flash launches {launches}, want {want}")
+        losses = trainer.losses()[-FILES_STEPS:]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"losses {losses}")
+        per_token = transformer_train_flops_per_token(model, LM_T,
+                                                      causal=True)
+        report = train_report(trainer, FILES_STEPS, per_token, LM_B * LM_T,
+                              peak, count=FLASH_RX)
+        prof = report["profile"]
+        if prof is None:
+            raise AssertionError("the profiled step recorded no device time")
+        profiled = prof["counted"]
+        if profiled != {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                        "flash_bwd_dkv": L}:
+            raise AssertionError(f"flash kernels in a profiled step: "
+                                 f"{profiled}")
+        ev = trainer.evaluate(num_batches=2)  # the held-out tail
+        if not math.isfinite(ev.loss):
+            raise AssertionError(f"eval {ev}")
+        trainer.close()
+        lm = dict(launches=launches, profiled_launches=profiled,
+                  losses=losses, eval_loss=ev.loss,
+                  eval_accuracy=ev.accuracy,
+                  tokens_file_mb=FILES_TOKENS * 2 / 2 ** 20,
+                  write_files_s=write_s,
+                  step_s_vs_synthetic=(report["median_step_s"]
+                                       / lm_ref["median_step_s"]),
+                  synthetic=dict((k, lm_ref[k]) for k in (
+                      "median_step_s", "tokens_per_s", "peak_mem_gb",
+                      "loader_wait_s_per_step")),
+                  **{k: v for k, v in report.items() if k != "losses"})
+        log(f"[files] transformer_lm_pp from the token file: "
+            f"{json.dumps(lm)}")
+        del trainer, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        small = dict(
+            mlp_mnist=small_from_files("mlp_mnist", "mnist_idx",
+                                       paths["mnist"], MNIST_ROWS[1]),
+            lenet_cifar10=small_from_files("lenet_cifar10", "cifar10_bin",
+                                           paths["cifar"], CIFAR_ROWS[1]))
+        log(f"[files] {json.dumps(small)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(card=card_line(), lm=lm, **small), launches, profiled
+
+
+# the MoE LM under the pipeline: (schedule, pipe, pipe_chunks, moe_every).
+# 12 layers at pipe 4 give 3 a stage, which splits moe_every 2's pairs:
+# the interleaved run takes pipe 2 x 3 chunks, 2 layers (one pair) a chunk
+PIPE_MOE_RUNS = (("1f1b", 4, 1, 1), ("interleaved", 2, 3, 2))
+PIPE_MOE_M = 8  # microbatches: 4 rows of 1024 tokens each
+PIPE_MOE_STEPS = 2
+# the pipeline's first loss against the dp step's from the same weights and
+# batch: bf16 products over other row counts, and a routing choice that
+# flips on a tie-close pair moves a few tokens' terms of the mean
+PIPE_MOE_LOSS_TOL = 1e-3  # relative
+MOE_WIDTH = dict(layers=12, d_model=768, experts=8)  # moe_lm_ep as it is
+
+
+def phase_pipe_moe():
+    """The MoE LM under the pipeline (phase 30): moe_lm_ep at full width
+    (12 layers, d 768, 8 experts of 3072, top-2, B 32, T 1024, no remat)
+    with 8 microbatches, every stage in this process: 1f1b on mesh.pipe 4
+    with moe_every 1, and interleaved on pipe 2 x 3 chunks with moe_every
+    2. Each: the dp step of the same model (phase 27's path) from the same
+    weights and batch gives the reference first loss, the load-balance
+    terms included; a warm-up step, whose loss is the first, within
+    PIPE_MOE_LOSS_TOL of the dp step's; PIPE_MOE_STEPS steps with the
+    flash counts reset just before and read just after (L M forward, L M
+    dq, L M dk/dv a step); step time, peak memory, the most microbatches
+    a stage held, one profiled step with the flash kernels counted by
+    name."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.parallel.expert import MoEMLP
+    from pytorch_distributed_nn_tpu_torch.parallel.pipeline import (
+        PipelineStages,
+    )
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+    from pytorch_distributed_nn_tpu_torch.utils.flops import (
+        transformer_train_flops_per_token,
+    )
+
+    out, launches, profiled = {}, {}, {}
+    for schedule, S, v, every in PIPE_MOE_RUNS:
+        ov = {"log_every": "1", "model.extra": json.dumps(
+            {"moe_every": every})}
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = Trainer(get_config("moe_lm_ep", **ov), device="cuda")
+        init = {k: v_.detach().cpu().clone()
+                for k, v_ in ref.model.state_dict().items()}
+        ref.train(steps=1)
+        dp_loss = ref.losses()[0]
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = Trainer(get_config("moe_lm_ep", **ov, **{
+            "parallel.strategy": "pipeline", "mesh.pipe": str(S),
+            "mesh.expert": "1", "parallel.microbatches": str(PIPE_MOE_M),
+            "parallel.pipeline_schedule": schedule,
+            "parallel.pipe_chunks": str(v)}), device="cuda", params=init)
+        del init
+        model, cfg, st = trainer.model, trainer.cfg, trainer.state.sharding
+        layers = [m for m in model.modules() if isinstance(m, MoEMLP)]
+        L = model.num_layers
+        rows = MOE_B // PIPE_MOE_M
+        if not (isinstance(st, PipelineStages) and st.S == S and st.v == v
+                and st.devices == list(range(S)) and st.part.period == every
+                and (L, model.d_model, layers[0].num_experts)
+                == tuple(MOE_WIDTH.values())
+                and model.head_dim == MOE_D and len(layers) == L // every
+                and not cfg.model.remat
+                and (cfg.data.batch_size, cfg.data.seq_len)
+                == (MOE_B, MOE_T)):
+            raise AssertionError(f"moe_lm_ep under {schedule} is not the "
+                                 "preset at full width")
+        if (rows * MOE_T) % layers[0].group_size:
+            raise AssertionError("a routing group would span microbatches")
+        n_params = sum(p.numel() for p in model.parameters())
+        trainer.train(steps=1)  # warm-up: its loss is the first step's
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()  # the path's count starts here
+        trainer.train(steps=PIPE_MOE_STEPS)
+        got = flash_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: L * PIPE_MOE_M * PIPE_MOE_STEPS for k in FLASH_KERNELS}
+        if got != want:
+            raise AssertionError(f"{schedule}: flash launches {got}, want "
+                                 f"{want}")
+        losses = trainer.losses()
+        err = abs(losses[0] - dp_loss) / abs(dp_loss)
+        log(f"[pipe_moe] {schedule}: first loss {losses[0]:.6f} against the "
+            f"dp step's {dp_loss:.6f} (rel {err:.3e}, limit "
+            f"{PIPE_MOE_LOSS_TOL})")
+        if not (all(math.isfinite(x) for x in losses)
+                and err <= PIPE_MOE_LOSS_TOL):
+            raise AssertionError(f"{schedule}: losses {losses} against the "
+                                 f"dp step's {dp_loss}")
+        per_token = transformer_train_flops_per_token(model, MOE_T,
+                                                      causal=True)
+        report = train_report(trainer, PIPE_MOE_STEPS, per_token,
+                              MOE_B * MOE_T, peak, count=FLASH_RX)
+        prof = report["profile"]
+        if prof is None:
+            raise AssertionError("the profiled step recorded no device time")
+        if prof["counted"] != {k: L * PIPE_MOE_M for k in FLASH_KERNELS}:
+            raise AssertionError(f"{schedule}: flash kernels in a profiled "
+                                 f"step: {prof['counted']}")
+        out[schedule] = dict(
+            pipe=S, pipe_chunks=v, moe_every=every,
+            microbatches=PIPE_MOE_M, params=n_params,
+            dp_first_loss=dp_loss, loss_rel_err_vs_dp=err,
+            limit=PIPE_MOE_LOSS_TOL, launches=got,
+            profiled_launches=prof["counted"],
+            most_live_microbatches=dict(st.peak_live), losses=losses,
+            **{k: v_ for k, v_ in report.items() if k != "losses"})
+        launches[schedule], profiled[schedule] = got, prof["counted"]
+        log(f"[pipe_moe] {schedule}: {json.dumps(out[schedule])}")
+        del trainer, model, st, layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(card=card_line(), **out), launches, profiled
+
+
 def main() -> int:
     started = time.monotonic()
     import torch
@@ -4253,6 +4640,8 @@ def main() -> int:
     pipe, pipe_flash = phase_pipe()
     moe, moe_flash, moe_profiled = phase_moe()
     serve_ckpt, ckpt_flash, ckpt_int8 = phase_serve_ckpt()
+    files, files_flash, files_profiled = phase_files(lm_d64)
+    pipe_moe, pipe_moe_flash, pipe_moe_profiled = phase_pipe_moe()
 
     model = build_model(seed=0)
     forward = phase_forward(model)
@@ -4325,6 +4714,23 @@ def main() -> int:
                        "(B 64, T 1024, remat) and llama3_8b_zero at depth "
                        f"{CK_8B_LAYERS} 1 step (B 1, T 4096, remat)",
             launches_offload=offload_flash[name],
+            launches_files=files_flash[name],
+            profiled_launches_files=files_profiled[name],
+            files="transformer_lm_pp from a 16M-token uint16 token file "
+                  "(B 64, T 1024, remat, holdout_frac 0.05): its 3 timed "
+                  "steps; profiled: the kernels of this name in one "
+                  "profiled step's device trace",
+            launches_pipe_moe={sched: pipe_moe_flash[sched][name]
+                               for sched in pipe_moe_flash},
+            profiled_launches_pipe_moe={
+                sched: pipe_moe_profiled[sched][name]
+                for sched in pipe_moe_profiled},
+            pipe_moe="moe_lm_ep at full width under the pipeline, every "
+                     "stage in one process, 8 microbatches (B 32, T 1024, "
+                     "no remat): 1f1b on pipe 4 with moe_every 1, "
+                     "interleaved on pipe 2 x 3 chunks with moe_every 2, "
+                     "2 timed steps each; profiled: one step's device "
+                     "trace",
             resume="llama3_longcontext, 2 steps + save + a resumed "
                    "Trainer's 2 steps",
             offload="llama3_longcontext_96k with remat_offload, 2 steps"))
@@ -4391,7 +4797,8 @@ def main() -> int:
                         flash64=flash64, lm_d64=lm_d64, bert=bert,
                         ckpt=ckpt, accum=accum, multistep=multistep,
                         offload=offload, flash8b=flash8b, zero8b=zero8b,
-                        pipe=pipe, moe=moe, serve_ckpt=serve_ckpt)))
+                        pipe=pipe, moe=moe, serve_ckpt=serve_ckpt,
+                        files=files, pipe_moe=pipe_moe)))
     from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
 
     bootstrap.shutdown()  # the NCCL group of the data-parallel phases

@@ -4,8 +4,8 @@ the ported slices read.
 Typed dataclasses with dotted CLI overrides (``--optim.lr=0.1``,
 ``--model.extra '{"quantized": true}'``) and the named presets the port
 runs. A field the port does not read yet is not declared, so an override
-naming it (``--metrics_path``, ``--profile_dir``, ``--data.path``)
-fails as an unknown field instead of being ignored.
+naming it (``--metrics_path``, ``--profile_dir``) fails as an unknown
+field instead of being ignored.
 """
 
 from __future__ import annotations
@@ -46,11 +46,32 @@ class OptimConfig:
 @dataclass
 class DataConfig:
     # mnist | cifar10 | imagenet_synthetic | lm_synthetic | mlm_synthetic
+    # | token_file (causal LM from a memory-mapped .bin/.npy token dump)
+    # | array_file (classification from a .npz with arrays x, y)
+    # | mnist_idx (LeCun idx files; a t10k-* pair is the eval split)
+    # | cifar10_bin (data_batch_*.bin; test_batch.bin is the eval split)
+    # | image_folder (root/<class>/<image>, decoded lazily with PIL;
+    #   train/ + val/ directories are taken as the split)
     dataset: str = "mnist"
+    path: str = ""  # file or directory of the file-backed datasets
+    # image_folder: the decoded size (short side scaled, then a center
+    # crop: torchvision's eval transform)
+    image_size: int = 224
+    token_dtype: str = "uint16"  # a raw .bin token file's integer type
+    # the finite datasets' sampling: "shuffle" (a permutation an epoch,
+    # torch DistributedSampler semantics) or "replacement" (i.i.d.)
+    sample: str = "shuffle"
+    # token_file/array_file (and the readers without a test split): the
+    # fraction held out for evaluation (0 = none: the evaluation then
+    # draws from the training examples, in-sample)
+    holdout_frac: float = 0.0
     batch_size: int = 128  # global batch size
     seq_len: int = 512
     vocab_size: int = 32000
     prefetch: int = 2  # background batches kept ready (0 = sync)
+    # image_folder's decode threads a batch (torch DataLoader num_workers:
+    # 0 = inline, -1 = one a core, at most 16)
+    num_workers: int = -1
 
 
 @dataclass

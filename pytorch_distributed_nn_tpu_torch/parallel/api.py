@@ -29,6 +29,8 @@ from pytorch_distributed_nn_tpu_torch.train.state import TrainState
 log = logging.getLogger(__name__)
 
 _STRATEGIES = ("single", "dp", "dp_explicit", "zero", "pipeline")
+# the datasets of (B, T) token batches of a causal LM
+TOKEN_DATASETS = ("lm_synthetic", "token_file")
 
 
 def make_chunked_loss(chunk: int) -> Callable:
@@ -52,7 +54,7 @@ def _check_seq(cfg: TrainConfig, seq: int) -> None:
     """The JAX package's ``mesh.seq > 1`` validations. Where it warns and
     lets XLA all-gather the sequence around a non-sequence-parallel
     attention, the port, which has no compiler to do that, raises."""
-    if cfg.data.dataset != "lm_synthetic":
+    if cfg.data.dataset not in TOKEN_DATASETS:
         raise ValueError(
             "mesh.seq > 1 shards the sequence dim of (B, T) token batches; "
             f"dataset {cfg.data.dataset!r} has no sequence dim to shard")
@@ -120,10 +122,10 @@ def make_train_step(cfg: TrainConfig, loss_fn: Callable,
             raise ValueError(
                 f"xent_chunk is not supported under strategy {strategy!r} "
                 "(needs the shared dp/zero step)")
-        if cfg.data.dataset != "lm_synthetic":
+        if cfg.data.dataset not in TOKEN_DATASETS:
             raise ValueError(
                 "xent_chunk is a causal-LM loss option (datasets "
-                f"('lm_synthetic',)), got {cfg.data.dataset!r}")
+                f"{TOKEN_DATASETS}), got {cfg.data.dataset!r}")
         local_len = cfg.data.seq_len // max(seq, 1)  # a rank's tokens a row
         if local_len > cfg.xent_chunk:
             if local_len % cfg.xent_chunk:

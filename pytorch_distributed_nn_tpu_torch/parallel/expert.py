@@ -228,6 +228,39 @@ class MoEMLP(nn.Module):
         return out.reshape(B, S, d)
 
 
+def expert_split_leaves(model: nn.Module, n: int
+                        ) -> dict[str, tuple[int, ...]]:
+    """The stacked expert kernels (``<layer>.wi``, ``<layer>.wo``) that the
+    EP rules (``sharding_rules.spec_for``) split ``n`` ways, by name, with
+    their whole shapes: those of every MoE layer whose two kernels split."""
+    from pytorch_distributed_nn_tpu_torch.parallel.sharding_rules import (
+        EXPERT,
+        spec_for,
+    )
+
+    out: dict[str, tuple[int, ...]] = {}
+    if n <= 1:
+        return out
+    for name, m in model.named_modules():
+        if isinstance(m, MoEMLP):
+            leaves = {f"{name}.{leaf}": tuple(getattr(m, leaf).shape)
+                      for leaf in ("wi", "wo")}
+            if all(EXPERT in spec_for(k, shape, expert=n)
+                   for k, shape in leaves.items()):
+                out.update(leaves)
+    return out
+
+
+def split_expert_layers(model: nn.Module, expert: AxisGroup,
+                        leaves) -> None:
+    """:meth:`MoEMLP.split_experts` over ``expert`` on each MoE layer of
+    ``model`` whose kernels are among ``leaves``
+    (:func:`expert_split_leaves`)."""
+    for name, m in model.named_modules():
+        if isinstance(m, MoEMLP) and f"{name}.wi" in leaves:
+            m.split_experts(expert)
+
+
 @contextlib.contextmanager
 def collect_aux_losses(model: nn.Module):
     """``with collect_aux_losses(model) as aux:`` -- each MoE layer run

@@ -2,8 +2,8 @@
 BASELINE.json config 4, "Transformer-LM pipeline-parallel
 (torch.distributed send/recv p2p)".
 
-The model splits into embed | blocks | head (:func:`partition_for`, the
-transformer LM and the float Llama). Stage s of S owns the layers
+The model splits into embed | blocks | head (:func:`partition_for`: the
+transformer LM, the MoE LM and the float Llama). Stage s of S owns the layers
 ``[s L / S, (s + 1) L / S)``; stage 0 also owns the embeddings and the
 last stage the final norm and ``lm_head`` (the JAX package replicates
 those over ``pipe``; their gradients come from one stage either way, and
@@ -48,6 +48,20 @@ and 1f1b draw the same masks. Stage gradients are averaged over data x
 fsdp; the loss is summed over ``pipe`` (only the last stage's is not 0)
 and averaged over data x fsdp. Evaluation (:meth:`PipelineStages.evaluate`)
 is a forward-only fill-drain over the virtual stages in order.
+
+The MoE LM (the JAX ``moe_block``/``period`` stacks): its MoE layers must
+fall every ``moe_every``-th block, and a stage (or chunk) must hold whole
+groups of ``moe_every`` blocks, as the JAX package demands of its two
+stacks. Each forward unit collects the load-balance terms of the MoE
+layers it runs (``expert.collect_aux_losses``); its objective adds their
+sum over M, and its backward differentiates that too, so the step's loss
+is the JAX one: the data loss plus the aux terms summed over the stages
+and the M microbatches, over M, averaged over data x fsdp (fill and drain
+run no unit and add nothing). Evaluation leaves the terms out. Under
+``mesh.expert > 1`` a stage's MoE layers keep their E/n experts
+(``expert.split_expert_layers``) and run over the stage's expert group;
+the pipe group joins the same expert coordinate of every stage, and a
+checkpoint's part is ``pipe<d>-expert<e>``.
 """
 
 from __future__ import annotations
@@ -59,6 +73,13 @@ import torch
 
 from pytorch_distributed_nn_tpu_torch.nn.layers import dropout_stream, fold_in
 from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+from pytorch_distributed_nn_tpu_torch.parallel.expert import (
+    MoEMLP,
+    add_aux_losses,
+    collect_aux_losses,
+    expert_split_leaves,
+    split_expert_layers,
+)
 from pytorch_distributed_nn_tpu_torch.parallel.pipeline_schedule import (
     NO_OP,
     interleaved_1f1b,
@@ -84,12 +105,14 @@ class StagePartition:
     block_names: list[str]
     embed_names: tuple[str, ...]
     head_names: tuple[str, ...]
+    period: int = 1  # blocks of a dense + MoE group (the MoE LM's moe_every)
 
 
 def partition_for(model) -> StagePartition:
-    """The partition of the dense transformer LM (``block{i}``) or the
-    float Llama (``layer{i}``); anything else raises, the MoE LM
-    included."""
+    """The partition of the transformer LM and the MoE LM (``block{i}``)
+    or the float Llama (``layer{i}``); anything else raises. The MoE LM's
+    MoE layers must be every ``moe_every``-th block's FFN, the last of each
+    group, as the JAX stacking assumes."""
     from pytorch_distributed_nn_tpu_torch.models.llama import Llama
     from pytorch_distributed_nn_tpu_torch.models.moe_lm import (
         MoETransformerLM,
@@ -98,10 +121,19 @@ def partition_for(model) -> StagePartition:
         TransformerLM,
     )
 
-    if isinstance(model, TransformerLM) and not isinstance(
-            model, MoETransformerLM):
-        return StagePartition([f"block{i}" for i in range(model.num_layers)],
-                              ("tok_embed", "pos_embed"), ("ln_f", "lm_head"))
+    if isinstance(model, TransformerLM):
+        names = [f"block{i}" for i in range(model.num_layers)]
+        period = 1
+        if isinstance(model, MoETransformerLM):
+            e = model.moe_every
+            mask = [getattr(model, n).ffn_name is not None for n in names]
+            if mask != [i % e == e - 1 for i in range(model.num_layers)]:
+                raise ValueError(
+                    f"MoE placement {mask} is not the (e-1 dense, 1 MoE) "
+                    f"period-{e} pattern the stage partition assumes")
+            period = e
+        return StagePartition(names, ("tok_embed", "pos_embed"),
+                              ("ln_f", "lm_head"), period=period)
     if isinstance(model, Llama):
         if model.quantized:
             raise ValueError("the pipeline trains the float Llama; the "
@@ -114,20 +146,24 @@ def partition_for(model) -> StagePartition:
                               ("tok_embed",), ("final_norm", "lm_head"))
     raise ValueError(
         f"pipeline parallelism supports TransformerLM/Llama, got "
-        f"{type(model).__name__} (the MoE LM's moe_block/period stacks "
-        "under the pipeline are ROADMAP.md §1 item 3.8, pipeline x MoE)")
+        f"{type(model).__name__}")
 
 
 def stage_blocks(part: StagePartition, n_stages: int, n_chunks: int,
                  k: int) -> list[str]:
     """The blocks of virtual stage ``k`` of ``n_stages * n_chunks``:
     ``[k Kc, (k + 1) Kc)`` with ``Kc = L / (S v)``; raises where L does
-    not divide."""
+    not divide, or where Kc would split a dense + MoE group."""
     L, sv = len(part.block_names), n_stages * n_chunks
     if L % sv:
         raise ValueError(f"{L} blocks not divisible by {n_stages} stages x "
                          f"{n_chunks} chunks")
     per = L // sv
+    if per % part.period:
+        raise ValueError(
+            f"each pipeline stage/chunk holds {per} layers, not divisible "
+            f"by moe_every={part.period}, so stages would split a "
+            "dense+MoE group; choose stages/chunks aligned to whole groups")
     return part.block_names[k * per:(k + 1) * per]
 
 
@@ -302,7 +338,16 @@ class PipelineStages:
         # the most microbatches whose activations a stage held at once
         # in the last step (per device)
         self.peak_live = {d: 0 for d in self.devices}
+        self.moe = any(isinstance(m, MoEMLP) for m in model.modules())
+        # the expert-split leaves of the whole model, with their whole
+        # shapes (every rank's meta names them all); this rank splits the
+        # layers of its stages
+        self.expert = mesh.expert
+        self.expert_leaves = expert_split_leaves(model, self.expert.size)
         self._prune()
+        split_expert_layers(model, self.expert, self.expert_leaves)
+        self.experts = {k for k, _ in model.named_parameters()
+                        if k in self.expert_leaves}
 
     def holds(self, k: int) -> bool:
         return k % self.S in self.devices
@@ -327,31 +372,66 @@ class PipelineStages:
         return {}  # the pruned module holds exactly this rank's tensors
 
     def meta(self) -> dict:
-        return {"strategy": "pipeline", "pipeline_schedule": self.schedule,
-                "pipe_chunks": self.v, "microbatches": self.M,
-                "mesh": self.mesh.spec.sizes(),
-                "pipe_local": self.mesh.pipe_local}
+        out = {"strategy": "pipeline", "pipeline_schedule": self.schedule,
+               "pipe_chunks": self.v, "microbatches": self.M,
+               "mesh": self.mesh.spec.sizes(),
+               "pipe_local": self.mesh.pipe_local}
+        if self.expert_leaves:
+            out["experts"] = {k: list(v) for k, v in
+                              sorted(self.expert_leaves.items())}
+        return out
+
+    def _part(self, d: int | None, e: int) -> str:
+        base = "local" if d is None else f"pipe{d}"
+        return f"{base}-expert{e}" if self.expert_leaves else base
+
+    @property
+    def _device(self) -> int | None:
+        """This rank's stage, None where it holds every stage."""
+        return None if self.mesh.pipe_local else self.devices[0]
 
     @property
     def part_name(self) -> str:
         """This rank's piece of a checkpoint."""
-        return "local" if self.mesh.pipe_local else f"pipe{self.devices[0]}"
+        return self._part(self._device, self.expert.index)
 
     def parts(self) -> list[str]:
-        return (["local"] if self.mesh.pipe_local
-                else [f"pipe{d}" for d in range(self.S)])
+        stages = [None] if self.mesh.pipe_local else range(self.S)
+        experts = self.expert.size if self.expert_leaves else 1
+        return [self._part(d, e) for d in stages for e in range(experts)]
 
     @property
     def writes(self) -> bool:
         return self.mesh.data.index == 0
 
-    def layout(self, n_params: int, shapes) -> ShardLayout | None:
-        """The optimizer's: the global norm sums over the other stages."""
-        if self.mesh.pipe_local:
+    def keeps(self, param: str) -> bool:
+        """Whether this rank's piece holds ``param``'s tensors: its expert
+        slices, and on expert 0 everything else of its stages."""
+        return self.expert.index == 0 or param in self.experts
+
+    def restore_parts(self) -> list[str]:
+        """The pieces a rank reads back: its own, and off expert 0 also
+        expert 0's for the tensors its own does not hold."""
+        if self.expert_leaves and self.expert.index:
+            return [self.part_name, self._part(self._device, 0)]
+        return [self.part_name]
+
+    def layout(self, names: list[str], shapes) -> ShardLayout | None:
+        """The optimizer's, over the parameters ``names``: the global norm
+        sums over the other stages and the expert slices over the expert
+        group (None where one process holds the whole model)."""
+        local = self.mesh.pipe_local
+        if local and not self.experts:
             return None
-        return ShardLayout(dims=[None] * n_params, shapes=shapes,
-                           norm_group=self.mesh.pipe.group,
-                           norm_size=self.S)
+        n = self.expert.size
+        return ShardLayout(
+            dims=[None] * len(names),
+            shapes=[(s[0] * n, *s[1:]) if k in self.experts else tuple(s)
+                    for k, s in zip(names, shapes)],
+            norm_group=None if local else self.mesh.pipe.group,
+            norm_size=1 if local else self.S,
+            experts=[k in self.experts for k in names],
+            expert_group=self.expert.group, expert_size=n)
 
     # -- the units ---------------------------------------------------------
 
@@ -359,6 +439,18 @@ class PipelineStages:
         for name in self.blocks[k]:
             x = self.model.run_block(name, x)
         return x
+
+    def _forward_unit(self, k: int, x: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """Virtual stage ``k``'s blocks on ``x``, and the sum of the
+        load-balance terms of the MoE layers among them over M (None
+        without MoE layers)."""
+        if not self.moe:
+            return self._run_blocks(k, x), None
+        with collect_aux_losses(self.model) as aux:
+            y = self._run_blocks(k, x)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return y, add_aux_losses(zero, aux) / self.M
 
     def _like(self, rows: int, T: int) -> Callable:
         model = self.model
@@ -410,13 +502,15 @@ class PipelineStages:
                             x_in = inbox.pop(("f", u.k, u.m))
                             x_in.requires_grad_()
                         with stream(u.k, u.m):
-                            y = self._run_blocks(u.k, x_in)
+                            y, aux = self._forward_unit(u.k, x_in)
                             if u.k == sv - 1 and not gpipe:
                                 logits = self.model.head(y)
                                 y = loss_fn(logits, tgt_mb[u.m]) \
                                     * weights[u.m] / M
                                 loss_sum = loss_sum + y.detach()
-                        saved[(u.k, u.m)] = (x_in, y)
+                        if aux is not None:
+                            loss_sum = loss_sum + aux.detach()
+                        saved[(u.k, u.m)] = (x_in, y, aux)
                         if u.k < sv - 1:
                             produced[("f", u.k + 1, u.m)] = y.detach()
                         live = sum(1 for k, _ in saved if k % S == d)
@@ -425,13 +519,16 @@ class PipelineStages:
                         loss_sum = loss_sum + self._whole_batch_loss(
                             saved, inbox, targets, loss_fn, n_data)
                     else:
-                        x_in, out = saved.pop((u.k, u.m))
+                        x_in, out, aux = saved.pop((u.k, u.m))
+                        if u.k == sv - 1 and not gpipe:
+                            outs, cots = [out], [torch.ones_like(out)]
+                        else:
+                            outs, cots = [out], [inbox.pop(("b", u.k, u.m))]
+                        if aux is not None:
+                            outs.append(aux)
+                            cots.append(torch.ones_like(aux))
                         with stream(u.k, u.m):
-                            if u.k == sv - 1 and not gpipe:
-                                torch.autograd.backward(out)
-                            else:
-                                torch.autograd.backward(
-                                    out, inbox.pop(("b", u.k, u.m)))
+                            torch.autograd.backward(outs, cots)
                         if u.k > 0:
                             produced[("b", u.k - 1, u.m)] = x_in.grad
             msgs = messages([u for d in range(S) for u in row.get(d, ())],
@@ -541,11 +638,13 @@ def make_pipeline_train_step(cfg, loss_fn: Callable, mesh_of: Callable):
                 for t in (*state.model.parameters(),
                           *state.model.buffers()):
                     cc.broadcast(t.data, src=src, group=mesh.data.group)
-        params = [p for p in state.model.parameters() if p.requires_grad]
+        named = [(k, p) for k, p in state.model.named_parameters()
+                 if p.requires_grad]
         state.sharding = stages
         state.optimizer = make_optimizer(
-            cfg.optim, params, total_steps=cfg.steps,
-            layout=stages.layout(len(params), [p.shape for p in params]))
+            cfg.optim, [p for _, p in named], total_steps=cfg.steps,
+            layout=stages.layout([k for k, _ in named],
+                                 [p.shape for _, p in named]))
         if not mesh.pipe_local:
             cc.barrier(mesh.pipe.group)  # the group's first collective
         return state

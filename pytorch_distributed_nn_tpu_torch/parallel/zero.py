@@ -93,12 +93,13 @@ import torch.distributed as dist
 from pytorch_distributed_nn_tpu_torch.nn.batchnorm import TpuBatchNorm
 from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
 from pytorch_distributed_nn_tpu_torch.parallel import dp
-from pytorch_distributed_nn_tpu_torch.parallel.expert import MoEMLP
+from pytorch_distributed_nn_tpu_torch.parallel.expert import (
+    expert_split_leaves,
+    split_expert_layers,
+)
 from pytorch_distributed_nn_tpu_torch.parallel.sharding_rules import (
-    EXPERT,
     fsdp_dim,
     shard_slice,
-    spec_for,
 )
 from pytorch_distributed_nn_tpu_torch.runtime.mesh import (
     AXES,
@@ -282,16 +283,8 @@ class ZeroShards:
         self.expert = mesh.expert
         n, ne = self.fsdp.size, self.expert.size
         # the expert split first: each MoE layer keeps its E/n experts
-        self.experts: set[str] = set()  # the expert-split leaves
-        if ne > 1:
-            for name, m in model.named_modules():
-                if isinstance(m, MoEMLP) and all(
-                        EXPERT in spec_for(f"{name}.{leaf}",
-                                           tuple(getattr(m, leaf).shape),
-                                           expert=ne)
-                        for leaf in ("wi", "wo")):
-                    m.split_experts(self.expert)
-                    self.experts |= {f"{name}.wi", f"{name}.wo"}
+        self.experts = set(expert_split_leaves(model, ne))  # their leaves
+        split_expert_layers(model, self.expert, self.experts)
         self.named = {k: p for k, p in model.named_parameters()
                       if p.requires_grad}
         # whole shapes (an expert slice's E is n times its own)

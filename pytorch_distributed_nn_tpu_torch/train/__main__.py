@@ -28,7 +28,9 @@ Runs on ``cuda`` unless ``--device cpu`` is given, and raises where CUDA
 is missing. Under ``torchrun`` (or with ``WORLD_SIZE``/``RANK`` set) each
 process is one rank of the process group: NCCL on the card, one card a
 rank (``LOCAL_RANK``), gloo on the CPU. Weights are seeded (``--seed``),
-data is the preset's synthetic stream. Rank 0 prints the per-step losses
+data is the preset's synthetic stream or the user's files
+(``--data.dataset token_file --data.path corpus.bin``, ``mnist_idx``,
+``cifar10_bin``, ``image_folder``, ``array_file``). Rank 0 prints the per-step losses
 as a JSON line (``{"losses": [...]}``, each the mean over every rank's
 rows, exact) and ``final: step=... loss=...`` at the end. With
 ``TPUNN_PREEMPT=1`` a SIGTERM ends the run at the next step boundary after

@@ -34,11 +34,12 @@ A sharded state (ZeRO's slices, the pipeline's stages) is saved
 synchronously by every rank that owns a piece (the first data replica):
 ``model-<part>.pt``, ``optim-<part>.pt`` and ``train-<part>.pt`` with the
 part named by the layout (``fsdp<i>``, ``expert<e>-fsdp<i>`` under an
-expert split, ``pipe<d>``, or ``local`` where one process holds every
-stage), between barriers; the coordinator then writes ``meta.json``,
-which names the layout (strategy, mesh sizes, ``zero_stage``, schedule,
-``pipe_chunks``, the split of each leaf, the expert-split leaves), and the
-manifest over every file, and renames the step into place. Under an
+expert split, ``pipe<d>``, ``pipe<d>-expert<e>`` under an expert split,
+or ``local`` where one process holds every stage), between barriers;
+the coordinator then writes ``meta.json``, which names the layout
+(strategy, mesh sizes, ``zero_stage``, schedule, ``pipe_chunks``, the
+split of each leaf, the expert-split leaves), and the manifest over every
+file, and renames the step into place. Under an
 expert split the ranks off expert 0 write only their expert slices and
 those slices' moments (the layout's ``keeps``), so a replicated tensor is
 written once, and read the rest back from expert 0's piece. A rank
@@ -383,9 +384,13 @@ def read_full_params(directory: str | Path,
     parts = [model_of(f"model-{part}.pt") for part in meta["parts"]]
     layout = meta["layout"]
     if layout["strategy"] == "pipeline":
+        # each stage's pieces in expert order: the expert slices
+        # concatenated along E, the rest from the pieces that hold it
         out = {}
         for part in parts:
             out.update(part)
+        for name in layout.get("experts", {}):
+            out[name] = torch.cat([p[name] for p in parts if name in p])
         return out
     nf = layout["mesh"]["fsdp"]
     # the pieces of each expert coordinate, in fsdp order

@@ -1,5 +1,6 @@
 """Losses: the JAX package's ``train/losses.py`` for classification (the
-vision datasets), the causal LM (``lm_synthetic``) and BERT's masked LM
+vision datasets, synthetic or read from files), the causal LM
+(``lm_synthetic``, ``token_file``) and BERT's masked LM
 (``mlm_synthetic``). f32 logits, mean over the batch (over the valid
 positions for the masked LM); the chunked LM forms never build the
 (B, T, V) logits. ``get_loss_fn(label_smoothing=)`` smooths the dense
@@ -129,7 +130,8 @@ def chunked_lm_eval(hidden: torch.Tensor, kernel: torch.Tensor,
     return loss / (B * T), hits.float() / (B * T)
 
 
-_CLASSIFICATION = ("mnist", "cifar10", "imagenet_synthetic")
+_CLASSIFICATION = ("mnist", "cifar10", "imagenet_synthetic", "array_file",
+                   "mnist_idx", "cifar10_bin", "image_folder")
 
 
 def _smoothed(base, eps: float):
@@ -161,16 +163,14 @@ def _smoothed(base, eps: float):
 def get_loss_fn(dataset_name: str, *, label_smoothing: float = 0.0):
     """The dataset's loss; with ``label_smoothing`` in (0, 1) its smoothed
     form (:func:`_smoothed`)."""
-    if dataset_name == "lm_synthetic":
+    if dataset_name in ("lm_synthetic", "token_file"):
         base = lm_xent
     elif dataset_name == "mlm_synthetic":
         base = masked_lm_xent
     elif dataset_name in _CLASSIFICATION:
         base = softmax_xent
     else:
-        raise NotImplementedError(
-            f"loss for dataset {dataset_name!r} is not ported yet "
-            "(ROADMAP.md: the file readers)")
+        raise KeyError(f"unknown dataset {dataset_name!r}")
     if label_smoothing == 0.0:
         return base
     if not 0.0 <= label_smoothing < 1.0:

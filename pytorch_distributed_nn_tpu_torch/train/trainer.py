@@ -6,7 +6,8 @@ device, under ``torchrun`` or alone) and the mesh over it
 (``runtime/mesh.py``: data, sequence, ZeRO and pipeline parallelism, each
 rank loading the rows of its data coordinate and the tokens of its seq
 coordinate, every stage of a pipeline the same rows, the model built with
-the rank's seq ring), initialisation from the model's own
+the rank's seq ring), the synthetic datasets and those read from the
+user's files (``data/datasets.py``, ``data/readers.py``), initialisation from the model's own
 seeded init or given weights, the per-step loop with its logging cadence
 (on rank 0), the held-out evaluation, checkpoints (``train/checkpoint.py``:
 restored at construction when ``resume`` is set, saved every
@@ -98,7 +99,11 @@ class Trainer:
         self.dataset = get_dataset(
             cfg.data.dataset, seed=cfg.seed,
             batch_size=cfg.data.batch_size, seq_len=cfg.data.seq_len,
-            vocab_size=cfg.data.vocab_size)
+            vocab_size=cfg.data.vocab_size, path=cfg.data.path,
+            token_dtype=cfg.data.token_dtype, sample=cfg.data.sample,
+            holdout_frac=cfg.data.holdout_frac,
+            image_size=cfg.data.image_size,
+            num_workers=cfg.data.num_workers)
         self.loader = DataLoader(self.dataset, self.device,
                                  data_index=self.mesh.data_index,
                                  data_degree=spec.data_degree(),
@@ -150,10 +155,13 @@ class Trainer:
         return False
 
     def close(self) -> None:
-        """Drain the checkpoint writer and remove the SIGTERM handler."""
+        """Drain the checkpoint writer, remove the SIGTERM handler and stop
+        the dataset's decode threads (an image folder's)."""
         if self._preemptible:
             failure.uninstall_preemption_handler()
             self._preemptible = False
+        if hasattr(self.dataset, "close"):
+            self.dataset.close()
         if self.ckpt is not None:
             self.ckpt.close()
 

@@ -3,10 +3,14 @@ step time / 989 TFLOP/s, the H100 SXM's dense bf16 rate): the JAX
 package's ``utils/flops.py`` closed form for the transformer families
 (Llama, the transformer LM, BERT, ViT), ResNet's from its geometry, and
 the MoE LM's from its routing geometry (the JAX package asks XLA's cost
-analysis for those two)."""
+analysis for those two), and the datasets' example shapes from the config
+(:func:`input_spec`)."""
 
 from __future__ import annotations
 
+from pathlib import Path
+
+import numpy as np
 import torch
 
 from pytorch_distributed_nn_tpu_torch.parallel.expert import (
@@ -120,3 +124,48 @@ def resnet_train_flops_per_example(**geometry) -> float:
     two products (input and weight gradients) of each layer. Standard
     ResNet-50 at 224x224: 24.5 GFLOP."""
     return 3.0 * resnet_forward_flops(**geometry)
+
+
+# the example shapes of the synthetic and token datasets, from the config
+# alone: counting FLOPs must not read a data file for its ``spec``
+_IMAGE_SPECS = {"mnist": (28, 28), "cifar10": (32, 32, 3),
+                "imagenet_synthetic": (224, 224, 3)}
+_TOKEN_DATASETS = ("lm_synthetic", "mlm_synthetic", "token_file")
+
+
+def input_spec(cfg) -> tuple[tuple[int, ...], np.dtype]:
+    """(per-example shape, dtype) of ``cfg.data``'s batches without
+    building the dataset where the format or the config fixes them (the
+    JAX ``utils/flops._input_spec``): an MNIST idx header is read for its
+    dims, an image folder is not scanned; ``array_file`` is loaded for its
+    arrays' shape."""
+    data = cfg.data
+    if data.dataset in _IMAGE_SPECS:
+        return _IMAGE_SPECS[data.dataset], np.dtype(np.float32)
+    if data.dataset in _TOKEN_DATASETS:
+        return (data.seq_len,), np.dtype(np.int32)
+    if data.dataset == "cifar10_bin":
+        return (32, 32, 3), np.dtype(np.float32)
+    if data.dataset == "mnist_idx":
+        # idx files may hold any dims: the header says which
+        if data.path:
+            from pytorch_distributed_nn_tpu_torch.data.readers import (
+                find_one,
+                read_idx_header,
+            )
+
+            imgs = find_one(Path(data.path), "train-images-idx3-ubyte")
+            if imgs is not None:
+                return tuple(read_idx_header(imgs)[1][1:]), \
+                    np.dtype(np.float32)
+        return (28, 28), np.dtype(np.float32)  # the standard layout
+    if data.dataset == "image_folder":
+        s = data.image_size
+        return (s, s, 3), np.dtype(np.float32)
+    from pytorch_distributed_nn_tpu_torch.data.datasets import get_dataset
+
+    spec = get_dataset(data.dataset, seed=0, batch_size=1,
+                       seq_len=data.seq_len, vocab_size=data.vocab_size,
+                       path=data.path, token_dtype=data.token_dtype,
+                       image_size=data.image_size).spec
+    return spec.x_shape, spec.x_dtype

@@ -827,3 +827,89 @@ def test_lm_steps_as_a_graph_are_bitwise_the_eager_steps(cuda, preset):
     assert losses["2"] == losses["1"]
     for name, v in states["1"].items():
         assert torch.equal(states["2"][name].cpu(), v.cpu()), name
+
+
+def test_token_file_batches_on_the_card_are_the_memmap_windows(cuda,
+                                                                tmp_path):
+    """The transformer LM from a uint16 token file (holdout 0.1): the
+    loader's device batches of two training steps and an evaluation step
+    equal the memmap's windows bit for bit (the starts drawn by
+    default_rng(SeedSequence([seed, step])), the eval ones from the tail);
+    two steps on the flash kernels, finite losses."""
+    import json
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.data.datasets import (
+        EVAL_STEP_OFFSET,
+    )
+    from pytorch_distributed_nn_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    B, T, n, holdout = 4, 192, 50000, 0.1
+    tokens = np.random.default_rng(0).integers(0, 512, n, dtype=np.uint16)
+    path = tmp_path / "tokens.bin"
+    tokens.tofile(path)
+    extra = dict(num_layers=2, d_model=128, num_heads=2, mlp_dim=256,
+                 vocab_size=512, max_len=256)
+    t = Trainer(get_config("transformer_lm_pp", **{
+        "model.extra": json.dumps(extra), "data.vocab_size": "512",
+        "data.seq_len": str(T), "data.batch_size": str(B),
+        "data.dataset": "token_file", "data.path": str(path),
+        "data.holdout_frac": str(holdout), "log_every": "1",
+        "mesh.pipe": "1", "parallel.strategy": "dp"}), device=cuda)
+    tail = n - int(n * holdout)
+    for step in (0, 1, EVAL_STEP_OFFSET):
+        lo, hi = ((tail, n - T) if step >= EVAL_STEP_OFFSET
+                  else (0, tail - T))
+        starts = np.random.default_rng(np.random.SeedSequence(
+            [t.cfg.seed, step])).integers(lo, hi, size=B)
+        rows = np.stack([tokens[s:s + T + 1] for s in starts]).astype(
+            np.int32)
+        x, y = t.loader.batch_at(step)
+        assert x.is_cuda and y.is_cuda
+        assert torch.equal(x.cpu(), torch.from_numpy(rows[:, :-1]))
+        assert torch.equal(y.cpu(), torch.from_numpy(rows[:, 1:]))
+    before = fa.flash_fwd.launches
+    t.train(steps=2)
+    assert fa.flash_fwd.launches - before == 8  # 2 layers, remat, 2 steps
+    assert all(np.isfinite(t.losses()))
+    assert np.isfinite(t.evaluate(num_batches=2).loss)
+
+
+@pytest.mark.parametrize("schedule,pipe,chunks,moe_every", [
+    ("1f1b", 4, 1, 1), ("interleaved", 2, 2, 2)])
+def test_moe_pipeline_first_loss_matches_the_dp_step(cuda, schedule, pipe,
+                                                     chunks, moe_every):
+    """A tiny MoE LM (head_dim 64, T 256: flash in bf16) under the
+    pipeline, every stage in this process, against the dp step from the
+    same weights and batch: the first loss, load-balance terms included,
+    within 1e-3 relative (bf16 products over other row counts); one flash
+    forward, dq and dk/dv a layer a microbatch."""
+    import json
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    L, M = 8, 4
+    extra = dict(num_layers=L, d_model=128, num_heads=2, mlp_dim=256,
+                 vocab_size=512, max_len=256, num_experts=4,
+                 group_size=256, moe_every=moe_every)
+    ov = {"model.extra": json.dumps(extra), "data.vocab_size": "512",
+          "data.seq_len": "256", "data.batch_size": "8", "log_every": "1"}
+    ref = Trainer(get_config("moe_lm_ep", **ov), device=cuda)
+    init = {k: v.detach().clone() for k, v in ref.model.state_dict().items()}
+    ref.train(steps=1)
+    t = Trainer(get_config("moe_lm_ep", **ov, **{
+        "parallel.strategy": "pipeline", "mesh.pipe": str(pipe),
+        "mesh.expert": "1", "parallel.microbatches": str(M),
+        "parallel.pipeline_schedule": schedule,
+        "parallel.pipe_chunks": str(chunks)}), device=cuda, params=init)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    t.train(steps=1)
+    after = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+             fa.flash_bwd_dkv.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (L * M,) * 3
+    got, want = t.losses()[0], ref.losses()[0]
+    assert np.isfinite(got) and abs(got - want) <= 1e-3 * abs(want)

@@ -185,7 +185,7 @@ def test_config_overrides_match_jax():
         == jconfig.get_config("llama3_8b_zero", **{
             "parallel.zero_stage": "1"}).parallel.zero_stage == 1)
     with pytest.raises(AttributeError, match="unknown config field"):
-        tconfig.get_config("llama3_8b_zero", **{"data.path": "x"})
+        tconfig.get_config("llama3_8b_zero", **{"data.paths": "x"})
     with pytest.raises(ValueError):
         tconfig.parse_overrides(["positional"])
 
