@@ -2,13 +2,14 @@
 """Time the long-context attention kernels and the W8A16 matmul of one
 checkout, to compare two commits on one card.
 
-    python3 chip_ab.py ROOT [all|attention|int8|serve|train]
+    python3 chip_ab.py ROOT [all|attention|int8|serve|train|prefill]
 
 imports ``chip_smoke`` and ``pytorch_distributed_nn_tpu_torch`` from the
 checkout at ROOT, builds its kernels and times them with
 ``chip_smoke.time_ms``, the median of 20 launches with the L2 cache flushed
 before each, twice each (the second argument picks the kernels; all by
-default; ``serve`` and ``train`` are run only when asked). Prints one line
+default; ``serve``, ``train`` and ``prefill`` are run only when asked).
+Prints one line
 ``AB {...}`` of milliseconds, keys ``<kernel>_<rep>``. The int8 keys:
 
 - ``int8_m8`` and ``int8_m128``: one Llama-3-8B forward's 129 W8A16 calls
@@ -28,6 +29,20 @@ at B 8, H 32, Hkv 8, D 128, bf16, every row at the end of a cache of
 256, 8192 and 32768 keys (:func:`decode_attention`: median ms and the
 peak device memory it adds). The serving numbers are set largely by the
 host, so compare trees only within one call.
+
+The prefill keys (``prefill``), on the full-width int8 Llama-3-8B of
+``chip_smoke.build_model`` with TF32 off as ``chip_smoke.py`` sets it:
+``prefill``, the tree's prefill alone (:func:`prefill_times`: one forward
+of B x T rows into an empty cache at B 8, T 64 (phase 6's), B 1 at T 129
+and 320, median ms of 5 after one warm-up, synchronized host clock; and
+one ``generate()`` of an 8192-token prompt with ``prefill_chunk`` 2048 and
+one new token, median ms of 3 after one warm-up, with the peak device
+memory it adds); ``phase6``, the tree's ``chip_smoke.phase_forward``
+(the B 8 decode steps' ms per dtype); ``phase7``, the tree's
+``chip_smoke.phase_serve`` (per KV cache: tokens/s, TTFT p50/p95, the
+per-token latency p50/p95, i.e. one decode round, and the wall seconds).
+The calls are the same in every tree; the engine runs with its own
+defaults. Host clock: compare trees only within one call.
 
 The train keys (``train``): the tree's own training phases, each as
 ``chip_smoke.py`` runs it, reported by median step seconds, tokens or
@@ -117,7 +132,8 @@ def int8_forward_ms(cs, tmm, m, flush):
 def main() -> int:
     root = os.path.abspath(sys.argv[1])
     which = sys.argv[2] if len(sys.argv) > 2 else "all"
-    if which not in ("all", "attention", "int8", "serve", "train"):
+    if which not in ("all", "attention", "int8", "serve", "train",
+                     "prefill"):
         raise SystemExit(f"unknown kernel set {which!r}")
     sys.path.insert(0, root)
     import torch
@@ -154,6 +170,23 @@ def main() -> int:
     if which == "train":
         del flush
         train(cs, build, out)
+    if which == "prefill":
+        del flush
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.load_library("int8_matmul.cu")
+        t0 = time.monotonic()
+        model = cs.build_model(seed=0)
+        out["prefill"] = prefill_times(cs, model)
+        fwd = cs.phase_forward(model)
+        out["phase6"] = {k: v["decode_step_ms"] for k, v in fwd.items()
+                         if isinstance(v, dict) and "decode_step_ms" in v}
+        serve = cs.phase_serve(model)[0]
+        keys = ("tokens_per_s", "ttft_p50_s", "ttft_p95_s",
+                "token_lat_p50_s", "token_lat_p95_s", "wall_s")
+        out["phase7"] = {c: {k: serve[c][k] for k in keys}
+                         for c in ("compute", "int8")}
+        out["seconds"] = time.monotonic() - t0
     print("AB " + json.dumps(out))
     return 0
 
@@ -183,6 +216,58 @@ def greedy_serve(cs, model):
                 tokens_per_s=tokens / wall, rounds=len(rounds),
                 round_p50_ms=rounds[len(rounds) // 2] * 1e3,
                 round_p95_ms=rounds[int(0.95 * (len(rounds) - 1))] * 1e3)
+
+
+def prefill_times(cs, model):
+    """{"b8_t64", "b1_t129", "b1_t320": median ms of 5 forwards of B x T
+    rows into an empty cache; "long_8k": median ms of 3 ``generate()``
+    calls on an 8192-token prompt with ``prefill_chunk`` 2048 and one new
+    token, and "long_8k_peak_gb", the device memory it adds}: each after
+    one warm-up call, timed on the host clock between synchronizations.
+    Only calls every tree has."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.inference.generate import (
+        generate,
+        init_cache,
+    )
+
+    g = torch.Generator("cuda").manual_seed(4)
+
+    def median_ms(fn, n):
+        fn()
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[n // 2]
+
+    out = {}
+    with torch.inference_mode():
+        for B, T in ((8, 64), (1, 129), (1, 320)):
+            toks = torch.randint(0, cs.V, (B, T),
+                                 generator=g, device="cuda",
+                                 dtype=torch.int32)
+            zeros = torch.zeros((B,), dtype=torch.int32, device="cuda")
+
+            def forward():
+                model(toks, cache=init_cache(model, B, T),
+                      cache_positions=zeros, last_only=True)
+
+            out[f"b{B}_t{T}"] = median_ms(forward, 5)
+        prompt = torch.randint(0, cs.V, (1, 8192), generator=g,
+                               device="cuda", dtype=torch.int32).cpu().numpy()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out["long_8k"] = median_ms(
+            lambda: generate(model, prompt, 1, prefill_chunk=2048), 3)
+        out["long_8k_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                  - base) / 1e9
+    return out
 
 
 def decode_attention(cs):

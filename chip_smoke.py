@@ -51,7 +51,9 @@ Phases (any failure exits non-zero and prints no result line):
               (129 a forward); every greedy request's tokens must equal a
               solo generate() on the same cache; the sampled and n-best
               requests again in another batch mix must give the same
-              streams; streamed chunks concatenate to the tokens; the
+              streams (the engine's prefix cache is on, as by default:
+              a sampled request again restores its prompt's rows but the
+              last two; an n-best request donates nothing); streamed chunks concatenate to the tokens; the
               n-best winner has the highest cumulative log-probability and,
               stepped by hand, its 4 branches hold the prompt's full blocks
               once (refcount 4); the compute run's greedy tokens, fed
@@ -271,6 +273,42 @@ Training from the user's files and the MoE LM under the pipeline (phases
               within a microbatch's rows; step time, peak memory, the most
               microbatches a stage held, a profiled step with the flash
               kernels counted by name.
+
+The prefix cache and LoRA adapters (phase 31 runs after phase 7, on its
+model):
+
+31. prefix_lora -- the full-width int8 Llama-3-8B of phase 6 serving
+              through InferenceServer(ServingEngine(...)) with 8 slots and
+              blocks of 16 rows, on the compute and then the int8 KV
+              cache: 4 system prompts of 256 tokens, 24 requests each a
+              system prompt and a suffix of its own (16-64 tokens), 32 new
+              tokens (every fourth sampled, one n-best of 4), the first 4
+              (one a system prompt) finished before the other 20 arrive
+              at 50 a second; the same with the prefix cache off. Every
+              request's tokens (and the n-best's streams) equal across the
+              two (else the largest logit gap of the first parted request
+              and a failure); at least 20 hits; hits, misses, evictions,
+              prompt tokens saved, TTFT and prefill time of hits and
+              misses; W8A16 counts reset just before and read just after
+              each run (129 a forward); a hit's restore (16 blocks) and a
+              retire's save (20 blocks) timed against their bound; the
+              w8a16 kernels counted by name in one profiled round of a
+              hit. Before each cache's runs, a 300-token prompt's last T
+              rows (T in PL_ROWS) prefilled over the whole prefill's
+              other rows: logits and K/V bit for bit the whole prefill's
+              for T >= 2 (the prefill's attention on fixed blocks of query
+              rows). An eviction run (compute cache, 352
+              rows a slot: 176 blocks): wave 1, 8 requests, 4 cold
+              320-token prompts, 8 more requests; evictions > 0, tokens
+              equal the cache-off run's. LoRA: a bank of 4 adapters of
+              rank 16 at scale 0.3 (adapter 0 the base); one prompt on
+              every adapter and one of its own on each, 8 new tokens, in
+              one batch: adapter
+              0's rows equal the engine's without a bank, each adapter's
+              rows its rows served alone, an adapter moves the shared
+              prompt's tokens; one new prompt on adapters 2, 3, 2: miss,
+              miss, hit. Last, one W8A16 call at the stream's median
+              suffix rows against its plain version.
 
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit from nvidia-smi, and the result JSON line.
@@ -3126,6 +3164,511 @@ def phase_serve(model):
 
 
 # ---------------------------------------------------------------------------
+# rule 3: the prefix cache and per-request LoRA adapters on the 8B int8
+# serving path (phase 31)
+# ---------------------------------------------------------------------------
+PL_BLOCK, PL_SYSTEMS, PL_SYSTEM_LEN, PL_REQUESTS = 16, 4, 256, 24
+PL_SUFFIX = (16, 64)  # each request's own suffix, tokens
+PL_SEQ = 384  # 256 + 64 + 32 = 352 rows at most
+# the eviction run: 8 slots x 22 blocks; wave 1, 8 requests of wave 2,
+# 4 cold prompts of 320 tokens whose reservations the cached ring must
+# make room for, then 8 more requests of wave 2
+PL_EVICT_SEQ, PL_COLD = 352, 4
+PL_MIN_HITS = 20
+PL_NBEST_AT = 13  # the stream's n-best of 4 (2 returned)
+PL_LORA = dict(num_adapters=4, rank=16, scale=0.3)
+PL_LORA_NEW = 8
+PL_RATE_HZ = 50.0
+PL_ROWS = (1, 2, 4, 8, 16, 44)  # suffix rows of pl_rows
+W8A16_A_FORWARD = 129  # the 8B: 32 layers x (qkv, out, gate_up, down) + head
+
+
+def pl_stream(seed=31):
+    """Phase 31's 24 requests: request i is system prompt i % 4 (256
+    tokens) and a suffix of its own (16-64 tokens); every fourth is
+    sampled (seed 100 + i), request 13 an n-best of 4, the rest greedy.
+    Requests 0-3 (one a system prompt) are wave 1, the rest wave 2.
+    Returns [(prompt, DecodeSpec fields or None)]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    systems = [rng.integers(0, V, size=PL_SYSTEM_LEN)
+               for _ in range(PL_SYSTEMS)]
+    out = []
+    for i in range(PL_REQUESTS):
+        suffix = rng.integers(0, V, size=int(rng.integers(
+            PL_SUFFIX[0], PL_SUFFIX[1] + 1)))
+        kw = (dict(SAMPLED, n=2, best_of=4, seed=100 + i)
+              if i == PL_NBEST_AT else dict(SAMPLED, seed=100 + i)
+              if i % 4 == 3 else None)
+        out.append((np.concatenate([systems[i % PL_SYSTEMS], suffix])
+                    .astype(np.int32), kw))
+    return out
+
+
+def pl_submit(server, stream, rate_hz=PL_RATE_HZ):
+    """Submit ``stream`` on an open loop at ``rate_hz`` and wait for all;
+    returns the requests."""
+    from pytorch_distributed_nn_tpu_torch.serve import DecodeSpec
+
+    reqs, t0 = [], time.monotonic()
+    for i, (prompt, kw) in enumerate(stream):
+        wait = t0 + i / rate_hz - time.monotonic()
+        if wait > 0:
+            time.sleep(wait)
+        reqs.append(server.submit(prompt, SERVE_NEW, decode=None if kw is None
+                                  else DecodeSpec(**kw)))
+    for r in reqs:
+        if not r.done.wait(600) or not r.ok:
+            raise AssertionError(f"{r.request_id}: {r.state} "
+                                 f"{r.reject_reason}")
+    return reqs
+
+
+def pl_serve(model, waves, *, prefix_cache=True, max_seq_len=PL_SEQ):
+    """``waves`` (lists of :func:`pl_stream` entries) through
+    InferenceServer(ServingEngine(...)) with 8 slots, each wave submitted
+    once the one before finished; the W8A16 count reset just before and
+    read just after. Returns (engine, requests, launches, wall seconds)."""
+    from pytorch_distributed_nn_tpu_torch.ops import int8_matmul as tmm
+    from pytorch_distributed_nn_tpu_torch.serve import (
+        InferenceServer,
+        ServingEngine,
+    )
+
+    engine = ServingEngine(model, max_slots=SERVE_SLOTS,
+                           max_seq_len=max_seq_len, block_size=PL_BLOCK,
+                           max_queue=64, max_prefills_per_round=2,
+                           prefix_cache=prefix_cache)
+    server = InferenceServer(engine).start()
+    try:
+        tmm.int8_matmul.launches = 0  # the main path's count starts here
+        t0 = time.monotonic()
+        reqs = []
+        for wave in waves:
+            reqs += pl_submit(server, wave)
+        wall = time.monotonic() - t0
+        launches = tmm.int8_matmul.launches
+    finally:
+        server.stop()
+    forwards = len(engine.completed) + len(engine.round_seconds)
+    if launches != W8A16_A_FORWARD * forwards:
+        raise AssertionError(f"{launches} W8A16 launches for {forwards} "
+                             "forwards, expected 129 a forward")
+    return engine, reqs, launches, wall
+
+
+def pl_rows(model, cache_dtype, L=300):
+    """A prefill's rows against the same rows prefilled after the rest
+    was restored, bit for bit: the last position's logits and every
+    layer's K/V of a 300-token prompt, prefilled whole, against the
+    last T rows prefilled at offset 300 - T over the whole prefill's
+    own rows [0, 300 - T), for T in PL_ROWS. T = 1 is a decode step's
+    forward (the engine prefills 2 rows then, nn.attention.
+    suffix_prefill_start). Fails unless every T >= 2 is equal."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.inference.generate import (
+        init_cache,
+    )
+
+    dev = model.device
+    toks = torch.as_tensor(np.random.default_rng(34).integers(
+        0, V, size=(1, L)), dtype=torch.int32, device=dev)
+
+    def prefill(cache, start):
+        return model(toks[:, start:], cache=cache, cache_positions=torch.full(
+            (1,), start, dtype=torch.int32, device=dev),
+            last_only=True)[0, -1].float()
+
+    def kv(cache):
+        return [layer[k][:, :L] for layer in cache.values()
+                for k in ("cached_key", "cached_value")]
+
+    out = {}
+    with torch.inference_mode():
+        full = init_cache(model, 1, 512)
+        ref = prefill(full, 0)
+        for T in PL_ROWS:
+            part = init_cache(model, 1, 512)
+            for name, layer in part.items():
+                for k, v in layer.items():
+                    if v.dim() >= 2:
+                        v[:, :L - T].copy_(full[name][k][:, :L - T])
+            got = prefill(part, L - T)
+            out[T] = dict(
+                equal=bool(torch.equal(got, ref)) and all(
+                    torch.equal(a, b) for a, b in zip(kv(part), kv(full))),
+                logit_gap=float((got - ref).abs().max()))
+    log(f"[prefix_lora] rows, {cache_dtype} cache: {json.dumps(out)}")
+    bad = [T for T, r in out.items() if T >= 2 and not r["equal"]]
+    if bad:
+        raise AssertionError(f"{cache_dtype}: suffix prefills of {bad} rows "
+                             "differ from the whole prefill's rows")
+    return out
+
+
+def pl_same(a, b):
+    """The tokens of two runs' requests equal (an n-best's ranked streams
+    too)."""
+    import numpy as np
+
+    same = np.array_equal(a.tokens, b.tokens)
+    if a.n_best is not None:
+        same &= [x["tokens"] for x in a.n_best] == \
+            [x["tokens"] for x in b.n_best]
+    return bool(same)
+
+
+def pl_first_diff(a, b):
+    """The first new-token position where two streams part (the shorter
+    one's length where one is the other's head)."""
+    import numpy as np
+
+    n = min(len(a), len(b))
+    d = np.flatnonzero(np.asarray(a[:n]) != np.asarray(b[:n]))
+    return int(d[0]) if d.size else n
+
+
+def pl_logit_gap(model, prompt, m):
+    """Where a hit's tokens parted from the cache-off run's: the last
+    position's logits of the full prefill against those of the rows
+    [0, m) copied from a prefill of the prefix and the rest prefilled at
+    offset m. Returns (max |gap|, its vocab index)."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.inference.generate import (
+        init_cache,
+    )
+
+    dev = model.device
+    toks = torch.as_tensor(prompt[None], device=dev)
+    with torch.inference_mode():
+        full = init_cache(model, 1, 512)
+        ref = model(toks, cache=full, cache_positions=torch.zeros(
+            (1,), dtype=torch.int32, device=dev), last_only=True)[0, -1]
+        part = init_cache(model, 1, 512)
+        model(toks[:, :m], cache=part, cache_positions=torch.zeros(
+            (1,), dtype=torch.int32, device=dev), last_only=True)
+        got = model(toks[:, m:], cache=part, cache_positions=torch.full(
+            (1,), m, dtype=torch.int32, device=dev),
+            last_only=True)[0, -1]
+    gap = (got.float() - ref.float()).abs()
+    return float(gap.max()), int(gap.argmax())
+
+
+def pl_timing(engine, reqs):
+    """p50 TTFT (submit to first token) and prefill (admission to first
+    token) seconds of the hits, of the misses and of wave 2 (queued
+    behind 8 slots: the same requests in the run with the cache off)."""
+    from pytorch_distributed_nn_tpu_torch.obs.stats import percentile
+
+    cached = {c["request_id"]: c["cached_tokens"] for c in engine.completed}
+    wave2 = {r.request_id for r in reqs[PL_SYSTEMS:PL_REQUESTS]}
+    out = {}
+    for kind, pick in (("hit", lambda r: cached[r.request_id] > 0),
+                       ("miss", lambda r: cached[r.request_id] == 0),
+                       ("wave2", lambda r: r.request_id in wave2)):
+        rs = [r for r in reqs if pick(r)]
+        out[kind] = dict(
+            requests=len(rs),
+            ttft_p50_s=percentile([r.t_first_token - r.t_submit
+                                   for r in rs], 0.5),
+            prefill_p50_s=percentile([r.t_first_token - r.t_admit
+                                      for r in rs], 0.5))
+    return out
+
+
+def pl_store_ms(engine):
+    """Device times by CUDA events of a hit's restore (the 16 blocks of a
+    system prompt, 256 rows of every layer's K/V, and the int8 cache's
+    scales) and of a retire's save of 20 blocks, with their bound:
+    the bytes read and written once at the HBM rate."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.inference.generate import (
+        cache_bytes,
+        init_cache,
+    )
+    from pytorch_distributed_nn_tpu_torch.serve import engine as eng
+
+    row = init_cache(engine.model, 1, 512)
+    per_row = cache_bytes(engine._store) / (engine.scheduler.pool.num_blocks
+                                            * PL_BLOCK)
+    out = {}
+    for name, nb, fn in (
+            ("restore", 16, lambda t: eng._restore_blocks(
+                row, engine._store, t)),
+            ("save", 20, lambda t: eng._save_blocks(
+                engine._cache, engine._store, 0, t))):
+        table = torch.arange(nb, device="cuda")
+        moved = 2 * nb * PL_BLOCK * per_row
+        out[name] = dict(blocks=nb, ms=time_ms(lambda: fn(table), 20),
+                         bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+                         bytes=moved)
+    del row
+    return out
+
+
+def pl_profiled_step(model, prompt):
+    """The W8A16 kernels by name in one profiled round of a fresh engine
+    that admits ``prompt`` on a hit (the prompt served once before) and
+    decodes a round: 129 a forward. None where the profiler records
+    nothing. Measurement only."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_distributed_nn_tpu_torch.serve import ServingEngine
+
+    engine = ServingEngine(model, max_slots=SERVE_SLOTS, max_seq_len=PL_SEQ,
+                           block_size=PL_BLOCK)
+    engine.submit(prompt[:-1], 2)
+    engine.run_until_idle()
+    req = engine.submit(prompt, 2)
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   acc_events=True)
+    try:
+        prof.start()
+    except RuntimeError as e:
+        log(f"[prefix_lora] profiler did not start: {e}")
+        return None
+    try:
+        _margin()
+        engine.step()
+        torch.cuda.synchronize()
+        _margin()
+    finally:
+        stopped = _profiler_stop(prof)
+    engine.run_until_idle()
+    if not stopped or not req.ok:
+        return None
+    kern, margin = _without_margin(
+        [e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA])
+    cached = engine.completed[-1]["cached_tokens"]
+    return dict(w8a16_kernels=sum(1 for e in kern if "w8a16" in e.name),
+                forwards=2, cached_tokens=cached, kernels=len(kern),
+                margin_kernels_seen=margin)
+
+
+def pl_kernel_check(model, m):
+    """One W8A16 call at the phase's suffix rows (M = ``m``, layer 0's
+    fused qkv) against its plain version; max|err| within TOL of max|ref|.
+    Called after the counts were read: it does not count."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.ops import int8_matmul as tmm
+
+    qkv = model.layer0.attn.qkv
+    g = torch.Generator("cuda").manual_seed(m)
+    x = torch.randn((m, qkv.kernel_q.shape[0]), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    got = tmm.int8_matmul(x, qkv.kernel_q, qkv.scale, torch.bfloat16)
+    ref = tmm.int8_matmul_reference(x, qkv.kernel_q, qkv.scale,
+                                    torch.bfloat16)
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    if not err <= TOL["bfloat16"] * scale:
+        raise AssertionError(f"int8_matmul at M={m}: max|err| {err} > "
+                             f"{TOL['bfloat16']} * {scale}")
+    return dict(m=m, k=int(qkv.kernel_q.shape[0]),
+                n=int(qkv.kernel_q.shape[1]), max_abs_err=err,
+                max_abs_ref=scale, tol=TOL["bfloat16"])
+
+
+def pl_cache(model, cache_dtype, stream):
+    """Phase 31 on one KV cache: the stream with the prefix cache on and
+    off; every request's tokens equal (else the largest logit gap of the
+    first parted hit, and a failure); the hits, misses, evictions and
+    prompt tokens saved; TTFT and prefill of hits and misses."""
+    waves = (stream[:PL_SYSTEMS], stream[PL_SYSTEMS:])
+    on, reqs_on, launches_on, wall_on = pl_serve(model, waves)
+    off, reqs_off, launches_off, wall_off = pl_serve(
+        model, waves, prefix_cache=False)
+    stats = on.prefix_cache.stats()
+    parted = [i for i, (a, b) in enumerate(zip(reqs_on, reqs_off))
+              if not pl_same(a, b)]
+    out = dict(cache_dtype=cache_dtype, requests=len(reqs_on), **stats,
+               timing_on=pl_timing(on, reqs_on),
+               timing_off=pl_timing(off, reqs_off),
+               wall_on_s=wall_on, wall_off_s=wall_off,
+               rounds_on=len(on.round_seconds),
+               rounds_off=len(off.round_seconds),
+               w8a16_launches=launches_on,
+               w8a16_launches_prefix_off=launches_off, parted=parted)
+    if cache_dtype == "compute":
+        out["store"] = pl_store_ms(on)
+        out["store_bytes"] = int(sum(
+            v.numel() * v.element_size() for layer in on._store.values()
+            for v in layer.values()))
+        prof = pl_profiled_step(model, stream[5][0])
+        if prof is not None and \
+                prof["w8a16_kernels"] != W8A16_A_FORWARD * 2:
+            raise AssertionError(f"{prof['w8a16_kernels']} w8a16 kernels "
+                                 "in a profiled round of 2 forwards")
+        out["profiled_round"] = prof
+    if parted:
+        out["first_diff"] = {i: pl_first_diff(reqs_on[i].tokens,
+                                              reqs_off[i].tokens)
+                             for i in parted}
+        prompt = stream[parted[0]][0]
+        out["logit_gap"] = pl_logit_gap(model, prompt, PL_SYSTEM_LEN)
+    log(f"[prefix_lora] {json.dumps(out)}")
+    if parted:
+        raise AssertionError(f"{cache_dtype}: {len(parted)} requests' tokens "
+                             f"differ with the prefix cache on: {parted}; "
+                             f"logit gap {out['logit_gap']}")
+    if stats["prefix_hits"] < PL_MIN_HITS:
+        raise AssertionError(f"{stats['prefix_hits']} prefix hits of "
+                             f"{len(reqs_on)}, expected {PL_MIN_HITS}")
+    return out, reqs_off, launches_on + launches_off
+
+
+def pl_evict(model, stream, reqs_off):
+    """The eviction run (compute cache): 8 slots of 352 rows (176 blocks);
+    wave 1, the next 8 requests, 4 cold 320-token prompts, then 8 more
+    requests of the stream. The cached ring must shed blocks; the stream's
+    tokens equal the cache-off run's."""
+    import numpy as np
+
+    rng = np.random.default_rng(32)
+    cold = [(rng.integers(0, V, size=320).astype(np.int32), None)
+            for _ in range(PL_COLD)]
+    mid = PL_SYSTEMS + 8
+    engine, reqs, launches, wall = pl_serve(
+        model, (stream[:PL_SYSTEMS], stream[PL_SYSTEMS:mid], cold,
+                stream[mid:mid + 8]), max_seq_len=PL_EVICT_SEQ)
+    stats = engine.prefix_cache.stats()
+    parted = [i for i, (a, b) in enumerate(zip(
+        reqs[:mid] + reqs[mid + PL_COLD:], reqs_off[:mid + 8]))
+        if not pl_same(a, b)]
+    out = dict(pool_blocks=engine.scheduler.pool.num_blocks,
+               requests=len(reqs), **stats, wall_s=wall,
+               w8a16_launches=launches, parted=parted)
+    log(f"[prefix_lora] eviction: {json.dumps(out)}")
+    if not stats["prefix_evictions"]:
+        raise AssertionError("the eviction run evicted nothing")
+    if parted:
+        raise AssertionError(f"eviction run: {parted} differ from the "
+                             "cache-off run")
+    return out, launches
+
+
+def pl_lora(model):
+    """LoRA on the 8B (compute cache): a bank of 4 adapters of rank 16 at
+    scale 0.3 (adapter 0 the base). One prompt on all 4 adapters and one
+    prompt of its own on each, in one batch; adapter 0's rows equal the
+    no-bank engine's, each adapter's rows its rows served alone, some
+    adapter moves the shared prompt's tokens; then one new prompt on
+    adapter 2 and adapter 3 (two misses) and on adapter 2 again (a
+    hit)."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.nn.lora import init_lora_bank
+    from pytorch_distributed_nn_tpu_torch.ops import int8_matmul as tmm
+    from pytorch_distributed_nn_tpu_torch.serve import ServingEngine
+
+    bank = init_lora_bank(model, generator=torch.Generator().manual_seed(31),
+                          **PL_LORA)
+    rng = np.random.default_rng(33)
+    shared = rng.integers(0, V, size=96).astype(np.int32)
+    rows = [(a, shared) for a in range(4)] + [
+        (a, rng.integers(0, V, size=int(rng.integers(64, 129)))
+         .astype(np.int32)) for a in range(4)]
+    launches = 0
+
+    def serve(batch, b=bank):
+        nonlocal launches
+        engine = ServingEngine(model, max_slots=SERVE_SLOTS, max_seq_len=256,
+                               block_size=PL_BLOCK, lora_bank=b)
+        tmm.int8_matmul.launches = 0
+        reqs = [engine.submit(p, PL_LORA_NEW, adapter=a) for a, p in batch]
+        engine.run_until_idle()
+        launches += tmm.int8_matmul.launches
+        if not all(r.ok for r in reqs):
+            raise AssertionError("a LoRA request did not finish")
+        return engine, [r.tokens for r in reqs]
+
+    engine, mixed = serve(rows)
+    alone = {}
+    for a in range(4):
+        alone[a] = serve([r for r in rows if r[0] == a])[1]
+    base = serve([r for r in rows if r[0] == 0], b=None)[1]
+    by = {a: [t for (aa, _), t in zip(rows, mixed) if aa == a]
+          for a in range(4)}
+    out = dict(adapters=PL_LORA["num_adapters"], rank=PL_LORA["rank"],
+               scale=PL_LORA["scale"], requests=len(rows),
+               bank_bytes=int(sum(v.numel() * 4 for v in bank.values())),
+               adapter0_equals_no_bank=all(
+                   np.array_equal(x, y) for x, y in zip(by[0], base)),
+               mixed_equals_alone={a: all(np.array_equal(x, y) for x, y in
+                                          zip(by[a], alone[a]))
+                                   for a in range(4)},
+               moved_from_base=[a for a in range(1, 4)
+                                if not np.array_equal(mixed[a], mixed[0])])
+    before = engine.prefix_cache.stats()
+    other = rng.integers(0, V, size=80).astype(np.int32)
+    seq = []
+    for a in (2, 3, 2):
+        r = engine.submit(other, 2, adapter=a)
+        engine.run_until_idle()
+        seq.append(engine.completed[-1]["cached_tokens"])
+    after = engine.prefix_cache.stats()
+    out.update(cached_tokens_2_3_2=seq,
+               misses=after["prefix_misses"] - before["prefix_misses"],
+               hits=after["prefix_hits"] - before["prefix_hits"],
+               w8a16_launches=launches)
+    log(f"[prefix_lora] lora: {json.dumps(out)}")
+    if not out["adapter0_equals_no_bank"]:
+        raise AssertionError("adapter 0 differs from the engine without a "
+                             "bank")
+    if not all(out["mixed_equals_alone"].values()):
+        raise AssertionError(f"mixed batch != alone: "
+                             f"{out['mixed_equals_alone']}")
+    if not out["moved_from_base"]:
+        raise AssertionError("no adapter moved a token from the base")
+    if not (seq[0] == 0 and seq[1] == 0 and seq[2] > 0):
+        raise AssertionError(f"adapter namespaces: cached tokens {seq} for "
+                             "one prompt on adapters 2, 3, 2")
+    return out, launches
+
+
+def phase_prefix_lora(model):
+    """Phase 31: the prefill rows' bits, the prefix cache on the compute
+    and the int8 KV cache, the eviction run, LoRA, and one W8A16 call at
+    the suffix's rows."""
+    import gc
+
+    import torch
+
+    t0 = time.monotonic()
+    stream = pl_stream()
+    by_dtype, launches = {}, {}
+    rows = {}
+    for cache_dtype in ("compute", "int8"):
+        m = model if cache_dtype == "compute" else twin(
+            model, "bfloat16", cache_dtype)
+        rows[cache_dtype] = pl_rows(m, cache_dtype)
+        by_dtype[cache_dtype], reqs_off, launches[cache_dtype] = pl_cache(
+            m, cache_dtype, stream)
+        if cache_dtype == "compute":
+            evict, launches["evict"] = pl_evict(m, stream, reqs_off)
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    lora, launches["lora"] = pl_lora(model)
+    suffixes = sorted(len(p) - PL_SYSTEM_LEN for p, _ in stream)
+    check = pl_kernel_check(model, suffixes[len(suffixes) // 2])
+    out = dict(by_dtype, rows=rows, evict=evict, lora=lora,
+               w8a16_at_suffix=check, seconds=time.monotonic() - t0)
+    log(f"[prefix_lora] phase 31 in {out['seconds']:.1f} s")
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 # rule 3: the trainer features (checkpoints, accumulation, label smoothing,
 # multistep as CUDA graphs, remat offload)
 # ---------------------------------------------------------------------------
@@ -4646,7 +5189,9 @@ def main() -> int:
     model = build_model(seed=0)
     forward = phase_forward(model)
     serve, serve_launches = phase_serve(model)
-    launches = sum(serve_launches.values()) + ckpt_int8
+    prefix_lora, pl_launches = phase_prefix_lora(model)
+    launches = (sum(serve_launches.values()) + ckpt_int8
+                + sum(pl_launches.values()))
 
     at8 = {r["shape"]: r for r in rows if r["m"] == 8}
     at128 = {r["shape"]: r for r in rows if r["m"] == 128}
@@ -4664,7 +5209,17 @@ def main() -> int:
                                  for r in at8.values()) else "operations"),
         launches_by_path=dict(serve_compute=serve_launches["compute"],
                               serve_int8_cache=serve_launches["int8"],
-                              serve_ckpt_8b=ckpt_int8),
+                              serve_ckpt_8b=ckpt_int8,
+                              prefix_lora=pl_launches),
+        at_prefix_lora=dict(
+            profiled_round=prefix_lora["compute"]["profiled_round"],
+            at_suffix_rows=prefix_lora["w8a16_at_suffix"],
+            per="phase 31 on the full-width 8B: the prefix-cache stream "
+                "with the cache on and off on each KV cache (compute, "
+                "int8), the eviction run and the LoRA runs, 129 a "
+                "forward; profiled_round: the w8a16 kernels by name in one "
+                "profiled round of a hit's suffix prefill and a decode "
+                "step"),
         library_ms=per_forward("library_ms"), library=library_label,
         read_ms=per_forward("read_ms"),
         prefill_ms=per_forward("ms", at128),
@@ -4798,7 +5353,8 @@ def main() -> int:
                         ckpt=ckpt, accum=accum, multistep=multistep,
                         offload=offload, flash8b=flash8b, zero8b=zero8b,
                         pipe=pipe, moe=moe, serve_ckpt=serve_ckpt,
-                        files=files, pipe_moe=pipe_moe)))
+                        files=files, pipe_moe=pipe_moe,
+                        prefix_lora=prefix_lora)))
     from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
 
     bootstrap.shutdown()  # the NCCL group of the data-parallel phases

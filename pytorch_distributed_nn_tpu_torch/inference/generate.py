@@ -70,13 +70,15 @@ def prefill_ragged(model, cache: dict, tokens: torch.Tensor,
 
 @torch.inference_mode()
 def decode_step_ragged(model, cache: dict, tokens: torch.Tensor,
-                       positions: torch.Tensor) -> torch.Tensor:
+                       positions: torch.Tensor, **extra) -> torch.Tensor:
     """One per-row decode step: ``tokens`` (B,) next tokens, ``positions``
     (B,) per-row cache depths (row i's token lands in slot positions[i]).
-    Returns (B, V) next-token logits."""
+    ``extra`` goes to the model (the serving engine's per-row LoRA
+    ``lora_bank`` and ``adapter_ids``). Returns (B, V) next-token
+    logits."""
     logits = model(tokens[:, None], cache=cache,
                    cache_positions=positions.to(torch.int32),
-                   last_only=True)
+                   last_only=True, **extra)
     return logits[:, -1, :]
 
 

@@ -37,6 +37,7 @@ from pytorch_distributed_nn_tpu_torch.models import register
 from pytorch_distributed_nn_tpu_torch.nn.attention import MultiHeadAttention
 from pytorch_distributed_nn_tpu_torch.nn.dtypes import get_policy
 from pytorch_distributed_nn_tpu_torch.nn.layers import Dense, Embed
+from pytorch_distributed_nn_tpu_torch.nn.lora import layer_slice
 from pytorch_distributed_nn_tpu_torch.nn.quantized import Int8Dense, Int8Embed
 from pytorch_distributed_nn_tpu_torch.runtime.mesh import SeqGroup
 from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
@@ -98,9 +99,10 @@ class LlamaBlock(nn.Module):
         self.down_proj = dense(mlp_dim, d_model)
 
     def forward(self, x, cache: Optional[dict] = None,
-                cache_positions: Optional[torch.Tensor] = None):
+                cache_positions: Optional[torch.Tensor] = None,
+                lora: Optional[tuple] = None):
         x = x + self.attn(self.attn_norm(x), cache=cache,
-                          cache_positions=cache_positions)
+                          cache_positions=cache_positions, lora=lora)
         y = self.mlp_norm(x)
         if self.fused:
             gate_up = self.gate_up(y)
@@ -112,13 +114,16 @@ class LlamaBlock(nn.Module):
 
 class Llama(nn.Module):
     """``forward(tokens, cache=None, cache_positions=None, last_only=False,
-    return_hidden=False)`` returns f32 logits (B, T, V), or (B, 1, V) with
-    ``last_only``; ``return_hidden`` skips the LM head and returns the
+    return_hidden=False, lora_bank=None, adapter_ids=None)`` returns f32
+    logits (B, T, V), or (B, 1, V) with ``last_only``; ``return_hidden`` skips the LM head and returns the
     final-norm'd (B, T, D) trunk output (the chunked loss applies the head
     blockwise). With ``cache`` (from ``inference.generate.init_cache``) it
     decodes against the KV cache and writes the fed tokens' K/V into it in
     place; ``cache_positions`` (B,) int gives each row its own cache depth.
-    Built on ``device`` (default ``cuda``, which raises without CUDA);
+    ``lora_bank`` (``nn/lora.py``'s stacked factors) with ``adapter_ids``
+    (B,) int (zeros when None) gives each row its adapter's q/v deltas:
+    one gather a factor a layer, so rows on different fine-tunes share the
+    forward. Built on ``device`` (default ``cuda``, which raises without CUDA);
     ``seq`` is the sequence-parallel ring its attention layers use."""
 
     def __init__(self, *, vocab_size: int = 128256, num_layers: int = 32,
@@ -194,7 +199,8 @@ class Llama(nn.Module):
     def forward(self, tokens: torch.Tensor, cache: Optional[dict] = None,
                 cache_positions: Optional[torch.Tensor] = None,
                 last_only: bool = False,
-                return_hidden: bool = False) -> torch.Tensor:
+                return_hidden: bool = False, lora_bank: Optional[dict] = None,
+                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.quantized:
             x = self.tok_embed(tokens)
         else:
@@ -203,9 +209,14 @@ class Llama(nn.Module):
         remat = self.remat and cache is None and torch.is_grad_enabled()
         if remat and self.remat_offload:
             self.offloaded = dict(tensors=0, bytes=0, pinned=True)
+        if lora_bank is not None and adapter_ids is None:
+            adapter_ids = torch.zeros((tokens.shape[0],), dtype=torch.int64,
+                                      device=tokens.device)
         for i in range(self.num_layers):
             block = getattr(self, f"layer{i}")
             layer_cache = None if cache is None else cache[f"layer{i}"]
+            lora = None if lora_bank is None else tuple(
+                f[adapter_ids] for f in layer_slice(lora_bank, i))
             if remat and self.remat_offload:
                 # the block's input, which checkpoint saves for the
                 # recompute, goes to host memory; the tensors inside the
@@ -213,13 +224,13 @@ class Llama(nn.Module):
                 with torch.autograd.graph.saved_tensors_hooks(
                         self._to_host, _to_device):
                     x = checkpoint(block, x, layer_cache, cache_positions,
-                                   use_reentrant=False)
+                                   lora, use_reentrant=False)
             elif remat:
-                x = checkpoint(block, x, layer_cache, cache_positions,
+                x = checkpoint(block, x, layer_cache, cache_positions, lora,
                                use_reentrant=False)
             else:
                 x = block(x, cache=layer_cache,
-                          cache_positions=cache_positions)
+                          cache_positions=cache_positions, lora=lora)
         if last_only:
             x = x[:, -1:]
         x = self.final_norm(x)

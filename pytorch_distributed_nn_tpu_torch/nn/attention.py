@@ -20,8 +20,8 @@ repeats the cached K/V,
 :class:`MultiHeadAttention`'s sequence-parallel ``"ring"`` and
 ``"ulysses"`` (``parallel/sequence.py``) over the ``SeqGroup`` its model
 hands it, and the JAX module's ``causal``, ``rotary`` and ``use_bias``
-fields with a (B, S) padding ``mask`` (BERT, the transformer LM, ViT). Not
-yet: LoRA deltas (ROADMAP.md §1 item 4.6).
+fields with a (B, S) padding ``mask`` (BERT, the transformer LM, ViT), and
+per-row LoRA deltas on q and v (``lora``, ``nn/lora.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from pytorch_distributed_nn_tpu_torch.nn.lora import lora_delta
 from pytorch_distributed_nn_tpu_torch.nn.quantized import Int8DenseGeneral
 from pytorch_distributed_nn_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIMS,
@@ -159,10 +160,37 @@ def _quantize_kv(x: torch.Tensor):
     return q.to(torch.int8), scale
 
 
+# a prefill chunk's products run on blocks of this many query rows, the
+# last block padded: every product then has one shape whatever the chunk's
+# rows, so a row's bits do not depend on how many rows the chunk has (a
+# library product picks its summation order by its shape). Smaller
+# blocks make a long prefill bound by the loop's launches (an 8192-token
+# prefill takes 1.02x one product's time at 512 rows on the H100, 1.2x
+# at 128: chip_ab.py prefill)
+_QUERY_BLOCK = 512
+
+# a cached forward of at most this many rows is a decode step and takes
+# _decode_attention (another summation order than a prefill chunk's)
+_DECODE_ROWS = 1
+
+
+def suffix_prefill_start(cached: int, total: int) -> int:
+    """The first row to prefill of a ``total``-row prompt whose first
+    ``cached`` rows are in the cache already, so that every row it computes
+    gets the bits a prefill of the whole prompt gives it: a suffix of
+    :data:`_DECODE_ROWS` rows or fewer would take the decode step's
+    attention, so it prefills the cached rows before it again."""
+    return min(cached, max(total - _DECODE_ROWS - 1, 0))
+
+
 def _cache_attention(q, k, v, pos_mask, dtype, kscale=None, vscale=None):
     """Attention over the cache (a prefill chunk's; a decode step takes
     :func:`_decode_attention`) with GQA kept grouped: q reshapes to
-    (B, T, Hkv, G, D) and the cached K/V are never repeated.
+    (B, T, Hkv, G, D) and the cached K/V are never repeated. The query
+    rows go through in blocks of :data:`_QUERY_BLOCK` (the last padded,
+    its padding masked nowhere and dropped), so a row's bits depend on its
+    own q, the cache and the key count alone: a prefix-cache hit's suffix
+    prefill gives its rows what a prefill of the whole prompt gives them.
 
     With ``kscale``/``vscale`` (both (B, S, Hkv) f32) k and v are the int8
     cache, never dequantized into a copy: each logit is linear in one
@@ -176,19 +204,32 @@ def _cache_attention(q, k, v, pos_mask, dtype, kscale=None, vscale=None):
     Returns (B, T, H, D) in ``dtype``."""
     B, T, H, D = q.shape
     Hkv = k.shape[2]
-    q5 = q.reshape(B, T, Hkv, H // Hkv, D)
-    logits = torch.einsum("btkgd,bskd->bkgts", q5.float(),
-                          k.to(dtype).float())
-    logits = logits * D ** -0.5
+    block = _QUERY_BLOCK
+    pad = -T % block
+    q5 = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad)).reshape(
+        B, T + pad, Hkv, H // Hkv, D).float()
+    pos_mask = torch.nn.functional.pad(pos_mask, (0, 0, 0, pad),
+                                       value=True)
+    kf, vf = k.to(dtype).float(), v.to(dtype).float()
     if kscale is not None:
-        logits = logits * kscale.transpose(1, 2)[:, :, None, None, :]
-    logits = logits.masked_fill(~pos_mask[:, None, None], _NEG)
-    probs = torch.softmax(logits, dim=-1)
+        kscale = kscale.transpose(1, 2)[:, :, None, None, :]
     if vscale is not None:
-        probs = probs * vscale.transpose(1, 2)[:, :, None, None, :]
-    out = torch.einsum("bkgts,bskd->btkgd", probs.to(dtype).float(),
-                       v.to(dtype).float())
-    return out.reshape(B, T, H, D).to(dtype)
+        vscale = vscale.transpose(1, 2)[:, :, None, None, :]
+    outs = []
+    for i in range(0, T + pad, block):
+        logits = torch.einsum("btkgd,bskd->bkgts", q5[:, i:i + block], kf)
+        logits = logits * D ** -0.5
+        if kscale is not None:
+            logits = logits * kscale
+        logits = logits.masked_fill(
+            ~pos_mask[:, None, None, i:i + block], _NEG)
+        probs = torch.softmax(logits, dim=-1)
+        if vscale is not None:
+            probs = probs * vscale
+        outs.append(torch.einsum("bkgts,bskd->btkgd",
+                                 probs.to(dtype).float(), vf))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, 1)
+    return out[:, :T].reshape(B, T, H, D).to(dtype)
 
 
 def _pairwise_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -371,14 +412,22 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, cache: Optional[dict] = None,
                 cache_positions: Optional[torch.Tensor] = None,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                lora: Optional[tuple] = None) -> torch.Tensor:
         """``cache`` (this layer's dict) turns on decode: the fed (B, T)
         tokens' K/V are written into it in place, at the shared
         ``cache_index`` (which then advances by T) or, with
         ``cache_positions`` (B,) int, at each row's own depth (the shared
         index is neither read nor advanced). Queries attend to the cache
         slots at or before their own position. ``mask`` (B, S) bool keeps
-        the keys where it is True (padding; ``impl='xla'`` only)."""
+        the keys where it is True (padding; ``impl='xla'`` only).
+
+        ``lora``: ``(a_q, b_q, a_v, b_v)``, each row's factors (leading dim
+        B, gathered from the bank by the model). The deltas land on the q/v
+        projections' outputs, on the fused int8 path too, before rotary and
+        before any cache write, so the cached rows hold the adapter's v
+        delta (why the prefix cache keys its blocks by adapter). A zero B
+        adds exact zeros."""
         h, hkv = self.num_heads, self.num_kv_heads
         if self.fused:
             qkv = self.qkv(x)
@@ -386,6 +435,10 @@ class MultiHeadAttention(nn.Module):
                 qkv[..., h + hkv:, :]
         else:
             q, k, v = self.query(x), self.key(x), self.value(x)
+        if lora is not None:
+            a_q, b_q, a_v, b_v = lora
+            q = q + lora_delta(x, a_q, b_q)
+            v = v + lora_delta(x, a_v, b_v)
         if cache is not None and not self.causal:
             raise ValueError("decode cache requires causal attention")
         if cache is not None and mask is not None:
@@ -430,9 +483,10 @@ class MultiHeadAttention(nn.Module):
                 bufs = (ck, cv)
                 _row_update(ck, k, starts)
                 _row_update(cv, v, starts)
-            if T == 1:
+            if T <= _DECODE_ROWS:
                 # decode: one fixed computation whatever the batch and the
-                # cache length (_decode_attention)
+                # cache length (_decode_attention; suffix_prefill_start
+                # keeps a prefix-cache hit's suffix off this branch)
                 attend = _decode_attention
             else:
                 # a prefill chunk reads the keys up to its last position

@@ -38,8 +38,33 @@ ranked by cumulative log-probability. Streaming requests get their tokens
 through the one :meth:`ServingEngine._emit_chunk` funnel, in chunks of
 ``stream_chunk_tokens``.
 
-Not ported yet: the prefix cache (ROADMAP.md §1 item 4.5), LoRA adapters
-(4.6), metering, audit and chaos hooks.
+Prefix cache (``prefix_cache=True``, the default, as in the JAX engine;
+``serve/prefix_cache.py``): a retiring sequence's full KV blocks are copied
+into a device block store of ``num_blocks x block_size`` rows for every
+cache tensor (the int8 cache's scales included) and indexed by content; an
+admission whose prompt starts with a resident chain has those rows copied
+from the store into its row cache and prefills only the suffix, at its
+offset, through the model's ``cache_positions``. The store is indexed by
+pool block id and written only at retire, for the ``depth // block_size``
+full blocks the index then takes, so a block is never restored before its
+rows were saved. The restored rows are the donor's bits; the suffix's rows
+are what a full prefill computes for them where every op reduces a row in
+an order that the number of rows does not change: W8A16 and the norms do,
+the prefill's attention runs on fixed blocks of query rows
+(``nn/attention.py``), and a suffix short enough to take the decode
+step's attention re-prefills the rows before it
+(``nn.attention.suffix_prefill_start``).
+``chip_smoke.py`` phase 31 holds the tokens against the engine with the
+cache off.
+
+LoRA (``lora_bank``, ``nn/lora.py``, the Llama family): ``submit(adapter=
+n)`` picks a request's adapter; a per-slot mirror of adapter ids rides the
+decode step, so rows on different adapters share one batch, and the prefix
+cache keys blocks by adapter, so adapters never share KV.
+
+Not ported: metering, audit, chaos and trace hooks, tenant quotas
+(ROADMAP.md §1 item 4.6b), and the block export/ingest of disaggregated
+serving (slice 6).
 """
 
 from __future__ import annotations
@@ -54,8 +79,13 @@ from pytorch_distributed_nn_tpu_torch.inference.generate import (
     decode_step_ragged,
     init_cache,
 )
+from pytorch_distributed_nn_tpu_torch.nn.attention import (
+    suffix_prefill_start,
+)
+from pytorch_distributed_nn_tpu_torch.nn.lora import num_adapters
 from pytorch_distributed_nn_tpu_torch.serve import decoding
 from pytorch_distributed_nn_tpu_torch.serve.kv_pool import KVPool
+from pytorch_distributed_nn_tpu_torch.serve.prefix_cache import PrefixCache
 from pytorch_distributed_nn_tpu_torch.serve.scheduler import (
     Request,
     Scheduler,
@@ -63,13 +93,19 @@ from pytorch_distributed_nn_tpu_torch.serve.scheduler import (
 )
 
 
-def _serve_prefill(model, cache: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """Batch-of-one prefill of the (1, L) prompt: fills ``cache`` (the
-    (1, pad) row cache) in place from slot 0 and returns the (1, V)
-    next-token logits (``last_only``, as ``generate()``'s prefill)."""
-    starts = torch.zeros((1,), dtype=torch.int32, device=tokens.device)
+def _serve_prefill(model, cache: dict, tokens: torch.Tensor, start: int,
+                   **extra) -> torch.Tensor:
+    """Batch-of-one prefill of the (1, T) prompt suffix: fills rows
+    [start, start + T) of ``cache`` (the (1, pad) row cache, rows
+    [0, start) restored from the prefix cache) in place, its queries
+    attending to positions [0, start + t], and returns the (1, V)
+    next-token logits (``last_only``, as ``generate()``'s prefill).
+    ``extra`` is the per-request LoRA (``lora_bank``, ``adapter_ids``),
+    given only with a bank, so models without LoRA see no unknown
+    arguments."""
+    starts = torch.full((1,), start, dtype=torch.int32, device=tokens.device)
     return model(tokens, cache=cache, cache_positions=starts,
-                 last_only=True)[:, -1]
+                 last_only=True, **extra)[:, -1]
 
 
 def _sample_first(next_logits: torch.Tensor, n: int, spec):
@@ -94,14 +130,15 @@ def _sample_first(next_logits: torch.Tensor, n: int, spec):
 
 
 def _serve_step(model, cache: dict, last_tok: torch.Tensor,
-                lengths: torch.Tensor, active: torch.Tensor):
+                lengths: torch.Tensor, active: torch.Tensor, **extra):
     """One decode round over all slots: feed every row its last token at
     its own cache depth, take the greedy argmax. Inactive rows still flow
     through the batched forward; their token and depth stay frozen, and
     their cache writes land in retired rows that the next occupant's
     prefill overwrites (clamped at the buffer's end, as the JAX code's
-    ``dynamic_update_slice`` clamps)."""
-    logits = decode_step_ragged(model, cache, last_tok, lengths)
+    ``dynamic_update_slice`` clamps). ``extra``: the per-row LoRA, as in
+    :func:`_serve_prefill`."""
+    logits = decode_step_ragged(model, cache, last_tok, lengths, **extra)
     nxt = torch.argmax(logits, dim=-1).to(torch.int32)
     nxt = torch.where(active, nxt, last_tok)
     lengths = torch.where(active, lengths + 1, lengths)
@@ -110,13 +147,13 @@ def _serve_step(model, cache: dict, last_tok: torch.Tensor,
 
 def _serve_step_sample(model, cache: dict, last_tok, lengths, active,
                        temps, top_ks, top_ps, seeds, branches, steps,
-                       logprob):
+                       logprob, **extra):
     """The sampled twin of :func:`_serve_step`: the same forward (a greedy
     row of the batch sees the same logits and takes its argmax), then
     per-row seeded sampling. Each active row's step and cumulative
     log-probability advance on the device, so the round needs no other
     host transfer."""
-    logits = decode_step_ragged(model, cache, last_tok, lengths)
+    logits = decode_step_ragged(model, cache, last_tok, lengths, **extra)
     keys = decoding.row_keys(seeds, branches, steps)
     drawn = decoding.sample_rows(logits, temps, top_ks, top_ps,
                                  keys).to(torch.int32)
@@ -141,6 +178,49 @@ def _insert_row(batch_cache: dict, row_cache: dict, slot: int) -> None:
             b[slot:slot + 1, :r.shape[1]].copy_(r)
 
 
+def _block_store(cache: dict, num_blocks: int, block_size: int) -> dict:
+    """The prefix cache's device block store for a decode cache: for every
+    per-row tensor (K/V and, for the int8 cache, their scales) zeros of
+    (num_blocks, block_size, ...) in its dtype on its device. The 0-d
+    counters have no rows and no entry."""
+    out = {}
+    for key, v in cache.items():
+        if isinstance(v, dict):
+            out[key] = _block_store(v, num_blocks, block_size)
+        elif v.dim() >= 2:
+            out[key] = torch.zeros((num_blocks, block_size) + v.shape[2:],
+                                   dtype=v.dtype, device=v.device)
+    return out
+
+
+def _save_blocks(cache: dict, store: dict, slot: int,
+                 table: torch.Tensor) -> None:
+    """Copy rows [0, n * block_size) of batch row ``slot`` into the store's
+    blocks ``table`` ((n,) int64 on the device), block j's rows into
+    ``store[table[j]]``: the retire side's donation."""
+    for key, st in store.items():
+        c = cache[key]
+        if isinstance(st, dict):
+            _save_blocks(c, st, slot, table)
+            continue
+        n, bs = table.numel(), st.shape[1]
+        st[table] = c[slot, :n * bs].reshape((n, bs) + st.shape[2:])
+
+
+def _restore_blocks(row_cache: dict, store: dict,
+                    table: torch.Tensor) -> None:
+    """Copy the store's blocks ``table`` ((n,) int64 on the device) into
+    rows [0, n * block_size) of a batch-of-one row cache: the admission
+    side's restore (the row cache holds at least n * block_size rows)."""
+    for key, st in store.items():
+        r = row_cache[key]
+        if isinstance(st, dict):
+            _restore_blocks(r, st, table)
+            continue
+        rows = table.numel() * st.shape[1]
+        r[0, :rows] = st[table].reshape((rows,) + st.shape[2:])
+
+
 def _bucket_len(n: int, floor: int = 16) -> int:
     """Round a prompt length up to a power of two (>= ``floor``): the row
     cache a prefill fills then takes O(log max_seq_len) shapes."""
@@ -153,15 +233,16 @@ def _bucket_len(n: int, floor: int = 16) -> int:
 class _Slot:
     """Host-side mirror of one batch row (one decode branch)."""
 
-    __slots__ = ("req", "emitted", "tokens", "depth", "seq_id", "branch",
-                 "streamed")
+    __slots__ = ("req", "emitted", "tokens", "depth", "cached", "seq_id",
+                 "branch", "streamed")
 
     def __init__(self, req: Request, first_token: int, depth: int,
-                 seq_id: str = "", branch: int = 0) -> None:
+                 cached: int = 0, seq_id: str = "", branch: int = 0) -> None:
         self.req = req
         self.tokens = [int(first_token)]
         self.emitted = 1
         self.depth = depth  # cache rows filled (prompt + emitted - 1)
+        self.cached = cached  # prompt tokens restored from the prefix cache
         # the pool sequence this row extends (the request id for branch
         # 0) and the branch's RNG lane
         self.seq_id = seq_id or req.request_id
@@ -171,12 +252,15 @@ class _Slot:
 
 class ServingEngine:
     """Continuous-batching engine over one model (its parameters live in
-    the module, on its device)."""
+    the module, on its device). ``prefix_cache`` (default on) shares the
+    KV of resident prompt prefixes; ``lora_bank`` (``nn/lora.py``) serves
+    per-request adapters."""
 
     def __init__(self, model, *, max_slots: int = 4,
                  max_seq_len: int = 256, block_size: int = 16,
                  max_queue: int = 64, max_prefills_per_round: int = 2,
-                 eos_token: Optional[int] = None,
+                 eos_token: Optional[int] = None, prefix_cache: bool = True,
+                 lora_bank: Optional[dict] = None,
                  stream_chunk_tokens: int = 1) -> None:
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
@@ -185,17 +269,32 @@ class ServingEngine:
         self.max_slots = max_slots
         self.max_seq_len = int(max_seq_len)
         self.eos_token = eos_token
+        # the stacked adapter factors, on the model's device
+        self.lora_bank = None if lora_bank is None else {
+            k: v.to(self.device) for k, v in lora_bank.items()}
         pool = KVPool(
             num_blocks=max_slots * (-(-self.max_seq_len // block_size)),
             block_size=block_size)
         self._cache = init_cache(model, max_slots, self.max_seq_len)
+        if prefix_cache:
+            self.prefix_cache: Optional[PrefixCache] = PrefixCache(
+                pool, max_rows=self.max_seq_len)
+            # retiring sequences donate their blocks' rows here; admissions
+            # with a match restore from here (never aliased into _cache)
+            self._store: Optional[dict] = _block_store(
+                self._cache, pool.num_blocks, block_size)
+        else:
+            self.prefix_cache = None
+            self._store = None
         self.scheduler = Scheduler(
             pool, max_queue=max_queue, max_seq_len=self.max_seq_len,
-            max_prefills_per_round=max_prefills_per_round)
+            max_prefills_per_round=max_prefills_per_round,
+            prefix_cache=self.prefix_cache)
         self._slots: list[Optional[_Slot]] = [None] * max_slots
         self._h_last = np.zeros((max_slots,), np.int32)
         self._h_depth = np.zeros((max_slots,), np.int32)
         self._h_active = np.zeros((max_slots,), bool)
+        self._h_adapter = np.zeros((max_slots,), np.int64)
         # the sampling rows, synced with the three above; the sampled step
         # reads them as per-row tensors, and advances the steps and the
         # cumulative log-probabilities on the device
@@ -222,6 +321,17 @@ class ServingEngine:
     # -- client surface ----------------------------------------------------
 
     def submit(self, prompt, max_new_tokens: int, **kw) -> Request:
+        adapter = int(kw.get("adapter", 0))
+        if self.lora_bank is not None:
+            n = num_adapters(self.lora_bank)
+            if not 0 <= adapter < n:
+                raise ValueError(
+                    f"adapter {adapter} out of range for a LoRA bank "
+                    f"of {n} adapters")
+        elif adapter != 0:
+            raise ValueError(
+                f"adapter {adapter} requested but the engine has no "
+                f"LoRA bank (pass lora_bank= to ServingEngine)")
         spec = kw.get("decode")
         if spec is not None \
                 and getattr(spec, "branches", 1) > self.max_slots:
@@ -288,20 +398,47 @@ class ServingEngine:
         self._sync_slots()
         return True
 
+    def _lora(self, ids: torch.Tensor) -> dict:
+        """The model's LoRA arguments for rows on adapters ``ids``; none
+        without a bank."""
+        if self.lora_bank is None:
+            return {}
+        return dict(lora_bank=self.lora_bank, adapter_ids=ids)
+
     def _prefill_into(self, slots: list, req: Request) -> None:
-        """Prefill ONE request into ``len(slots)`` batch rows: the prompt
-        runs once, unpadded (``generate()``'s rows: on the card a row
-        reduction's order follows the number of rows), through a
-        batch-of-one row cache of a power-of-two length, which is copied
-        into every branch's row; each branch draws its first token from
-        the same logits with its own RNG lane."""
+        """Prefill ONE request into ``len(slots)`` batch rows. The rows of
+        a prefix-cache match are copied from the block store into a
+        batch-of-one row cache of a power-of-two length (at least the
+        restored top and the prompt), and the rest of the prompt runs
+        once, unpadded (``generate()``'s rows: on the card a row
+        reduction's order follows the number of rows), at its offset; the
+        row cache is copied into every branch's row, and each branch draws
+        its first token from the same logits with its own RNG lane."""
         L = len(req.prompt)
         spec = req.decode
         sampled = spec is not None and spec.sampled
-        row_cache = init_cache(self.model, 1,
-                               min(_bucket_len(L), self.max_seq_len))
+        match = req.prefix_match
+        m = match.tokens if match is not None else 0
+        bs = self.scheduler.pool.block_size
+        restore = match.restore_blocks if match is not None else ()
+        row_cache = init_cache(self.model, 1, min(
+            _bucket_len(max(L, len(restore) * bs)), self.max_seq_len))
+        if m > 0:
+            _restore_blocks(row_cache, self._store, torch.tensor(
+                restore, dtype=torch.int64, device=self.device))
+        ids = torch.full((1,), req.adapter, dtype=torch.int64,
+                         device=self.device)
+        # a suffix that would take the decode step's attention (another
+        # summation order) starts earlier, so its bits are the full
+        # prefill's
+        start = suffix_prefill_start(m, L)
         logits = _serve_prefill(self.model, row_cache, torch.tensor(
-            req.prompt[None], device=self.device))
+            req.prompt[None, start:], device=self.device), start,
+            **self._lora(ids))
+        if match is not None:
+            # the restored rows are copied: the tail's pin can drop
+            self.prefix_cache.finish_restore(match)
+            req.prefix_match = None
         logps = None
         if not sampled:  # the greedy first token
             firsts = [int(torch.argmax(logits, dim=-1).cpu()[0])]
@@ -313,11 +450,13 @@ class ServingEngine:
         sids = branch_seq_ids(req)
         for k, slot in enumerate(slots):
             _insert_row(self._cache, row_cache, slot)
-            s = _Slot(req, firsts[k], depth=L, seq_id=sids[k], branch=k)
+            s = _Slot(req, firsts[k], depth=L, cached=m, seq_id=sids[k],
+                      branch=k)
             self._slots[slot] = s
             self._h_last[slot] = firsts[k]
             self._h_depth[slot] = L
             self._h_active[slot] = True
+            self._h_adapter[slot] = req.adapter
             # slots are reused: a greedy row on a retired sampled row must
             # read temperature 0 (the sampled step's per-row greedy arm)
             self._h_temp[slot] = spec.temperature if sampled else 0.0
@@ -333,16 +472,17 @@ class ServingEngine:
         """THE hot loop body: no host->device copies, device-resident slot
         state, one (slots,) device->host fetch."""
         t0 = time.monotonic()
+        lora = self._lora(self._d_adapter)
         if self._n_sampled == 0:
             # an all-greedy batch: the greedy step as it always was
             nxt, depth = _serve_step(self.model, self._cache, self._d_last,
-                                     self._d_depth, self._d_active)
+                                     self._d_depth, self._d_active, **lora)
         else:
             nxt, depth, self._d_step, self._d_logprob = _serve_step_sample(
                 self.model, self._cache, self._d_last, self._d_depth,
                 self._d_active, self._d_temp, self._d_topk, self._d_topp,
                 self._d_seed, self._d_branch, self._d_step,
-                self._d_logprob)
+                self._d_logprob, **lora)
         self._d_last, self._d_depth = nxt, depth
         host_tok = nxt.cpu().numpy()
         return host_tok, time.monotonic() - t0
@@ -382,6 +522,10 @@ class ServingEngine:
             if s.req.branches > 1:
                 self._retire_branch(i, s)
                 continue
+            if self._store is not None:
+                # save BEFORE retire: the release indexes the blocks, so
+                # their rows must be in the store when a match can find them
+                self._donate_blocks(i, s)
             # the closing chunk is in the stream before done wakes the
             # client
             self._emit_chunk(s, final=True)
@@ -431,6 +575,18 @@ class ServingEngine:
         if final:
             stream.close()
 
+    def _donate_blocks(self, slot: int, s: _Slot) -> None:
+        """Copy the retiring row's full KV blocks into the block store:
+        ``depth // block_size`` of them, what ``PrefixCache.release`` will
+        index (depth = the prompt and every emitted token but the last).
+        Saving a block the index already holds writes the same bits."""
+        pool = self.scheduler.pool
+        table = pool.block_table(s.req.request_id)
+        nb = min(s.depth // pool.block_size, len(table))
+        if nb:
+            _save_blocks(self._cache, self._store, slot, torch.tensor(
+                table[:nb], dtype=torch.int64, device=self.device))
+
     def _finish_record(self, s: _Slot) -> None:
         req = s.req
         decode = req.t_done - req.t_first_token
@@ -441,6 +597,7 @@ class ServingEngine:
             per_token_s=decode / max(s.emitted - 1, 1),
             rounds_waited=req.round_admitted - req.round_submitted,
             kv_util=self.scheduler.pool.utilization(),
+            adapter=req.adapter, cached_tokens=s.cached,
         )
         # absent for default requests, as in the JAX records
         if req.decode is not None:
@@ -460,6 +617,7 @@ class ServingEngine:
         self._d_last = torch.tensor(self._h_last, device=dev)
         self._d_depth = torch.tensor(self._h_depth, device=dev)
         self._d_active = torch.tensor(self._h_active, device=dev)
+        self._d_adapter = torch.tensor(self._h_adapter, device=dev)
         # each row's RNG step is recomputed host-side (emitted tokens)
         self._n_sampled = 0
         for i, s in enumerate(self._slots):
@@ -486,7 +644,7 @@ class ServingEngine:
     def summary(self) -> dict:
         """Engine-lifetime aggregates."""
         rounds = len(self.round_seconds)
-        return dict(
+        out = dict(
             rounds=rounds,
             requests_done=len(self.completed),
             tokens_out=int(sum(r["new_tokens"] for r in self.completed)),
@@ -494,3 +652,6 @@ class ServingEngine:
             kv_util=self.scheduler.pool.utilization(),
             queue_depth=self.scheduler.queue_depth,
         )
+        if self.prefix_cache is not None:
+            out.update(self.prefix_cache.stats())
+        return out

@@ -1,10 +1,10 @@
 """Request scheduler: bounded admission queue + prefill/decode policy.
 
 Counterpart of the JAX package's ``serve/scheduler.py`` for one tenant,
-without its observability, chaos and metering hooks (tenants and LoRA
-adapters come with ROADMAP.md §1 item 4.6). Clients
-call :meth:`Scheduler.submit` from any thread; the engine loop (one
-thread) calls :meth:`next_admissions` once per round. Policy:
+without its observability, chaos and metering hooks, tenant quotas, the
+round-robin across tenants, and trace contexts (ROADMAP.md §1 item 4.6b).
+Clients call :meth:`Scheduler.submit` from any thread; the engine loop
+(one thread) calls :meth:`next_admissions` once per round. Policy:
 
 - **backpressure**: the queue is bounded (``max_queue``); a submit that
   finds it full is rejected at once with reason ``backpressure``;
@@ -13,6 +13,12 @@ thread) calls :meth:`next_admissions` once per round. Policy:
   reservation), nothing is admitted this round, so a big request cannot
   be starved by small ones; with reservation at admission every running
   sequence finishes within its budget;
+- **prefix cache**: with a :class:`~serve.prefix_cache.PrefixCache`
+  attached, admission goes through :meth:`PrefixCache.admit` (a resident
+  shared prefix is reserved by reference, the match stored on the request
+  for the engine's restore) and retirement donates the sequence's full
+  blocks to the index (:meth:`PrefixCache.release`); a request's LoRA
+  ``adapter`` namespaces its blocks;
 - **interleave**: at most ``max_prefills_per_round`` admissions a round;
 - **branches**: a best-of-n request (``decode``, a
   :class:`~serve.decoding.DecodeSpec`) needs one free slot a branch and
@@ -73,6 +79,10 @@ class Request:
     t_done: float = 0.0
     round_submitted: int = -1
     round_admitted: int = -1
+    # the per-request LoRA adapter (0: the base model), and the
+    # PrefixMatch the admission stored for the engine's restore
+    adapter: int = 0
+    prefix_match: object = None
     # how this request's tokens are chosen; None is greedy with one branch
     decode: Optional[DecodeSpec] = None
     # the TokenStream the engine's _emit_chunk feeds; None: no streaming
@@ -110,7 +120,8 @@ class Scheduler:
 
     def __init__(self, pool: KVPool, *, max_queue: int = 64,
                  max_seq_len: int = 0,
-                 max_prefills_per_round: int = 2) -> None:
+                 max_prefills_per_round: int = 2,
+                 prefix_cache=None) -> None:
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if max_prefills_per_round < 1:
@@ -120,6 +131,7 @@ class Scheduler:
         self.max_queue = max_queue
         self.max_seq_len = int(max_seq_len)
         self.max_prefills_per_round = max_prefills_per_round
+        self.prefix_cache = prefix_cache  # PrefixCache | None
         self._lock = threading.Lock()
         self._queue: collections.deque[Request] = collections.deque()
         self.round = 0  # advanced by the engine, one per round
@@ -143,13 +155,15 @@ class Scheduler:
     def submit(self, prompt, max_new_tokens: int, *,
                deadline_s: Optional[float] = None,
                request_id: Optional[str] = None,
+               adapter: int = 0,
                decode: Optional[DecodeSpec] = None,
                stream: bool = False) -> Request:
         """Thread-safe admission attempt. Always returns a Request; a
         rejected one is already terminal (``reject_reason`` says why).
-        ``decode`` chooses sampling and branches (an all-default spec is
-        the greedy path and is dropped); ``stream`` attaches a
-        :class:`TokenStream` (one branch only)."""
+        ``adapter`` is the request's LoRA adapter. ``decode`` chooses
+        sampling and branches (an all-default spec is the greedy path and
+        is dropped); ``stream`` attaches a :class:`TokenStream` (one
+        branch only)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -170,7 +184,7 @@ class Scheduler:
         req = Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
                       request_id=request_id or f"req-{next(_ids)}",
                       deadline_s=deadline_s, t_submit=time.monotonic(),
-                      decode=decode)
+                      adapter=int(adapter), decode=decode)
         if stream:
             req.stream = TokenStream(req.request_id)
         with self._lock:
@@ -187,20 +201,48 @@ class Scheduler:
         return req
 
     def _reserve_locked(self, head: Request) -> bool:
-        """One admission's KV reservation: the primary, then one forked
-        tail a further branch sharing the primary's full prompt blocks,
-        all or nothing (a tail that does not fit rolls the whole admission
-        back). False is backpressure."""
-        if not self.pool.reserve(head.request_id, head.total_tokens):
+        """One admission's KV reservation: the primary (through the prefix
+        cache when one is attached), then one forked tail a further branch
+        sharing the primary's full prompt blocks, all or nothing (a tail
+        that does not fit rolls the whole admission back). False is
+        backpressure."""
+        pc = self.prefix_cache
+        if pc is not None:
+            match = pc.admit(head.request_id, head.prompt, head.total_tokens,
+                             adapter=head.adapter)
+            if match is None:
+                return False
+            head.prefix_match = match
+        elif not self.pool.reserve(head.request_id, head.total_tokens):
             return False
         sids = branch_seq_ids(head)
         for k, sid in enumerate(sids[1:], start=1):
-            if self.pool.fork(head.request_id, sid, head.total_tokens,
-                              shared_tokens=len(head.prompt)):
+            def fork():
+                return self.pool.fork(head.request_id, sid,
+                                      head.total_tokens,
+                                      shared_tokens=len(head.prompt))
+            if fork():
                 continue
+            if pc is not None:
+                # the tail comes straight off the free list, which may sit
+                # in the cached ring: reclaim as admit() does for the
+                # primary, or a branched head wedges the queue once
+                # donations fill the pool
+                short = (self.pool.blocks_for(head.total_tokens)
+                         - len(head.prompt) // self.pool.block_size
+                         - self.pool.free_blocks)
+                if short > 0 and pc.make_room(short) and fork():
+                    continue
             for forked in sids[1:k]:
                 self.pool.free(forked)
-            self.pool.free(head.request_id)
+            if pc is not None:
+                # unpin the tail admit() pinned, then drop the primary
+                # without donating anything
+                pc.finish_restore(head.prefix_match)
+                head.prefix_match = None
+                pc.abandon(head.request_id)
+            else:
+                self.pool.free(head.request_id)
             return False
         return True
 
@@ -232,17 +274,37 @@ class Scheduler:
 
     def retire(self, req: Request, tokens: np.ndarray) -> None:
         """A sequence finished (eos or budget): free its blocks and hand
-        the tokens to the waiting client."""
+        the tokens to the waiting client. With a prefix cache the release
+        is a donation: the full blocks of the written rows (the prompt and
+        every emitted token but the last, whose KV row was never computed)
+        are indexed and parked in the cached ring; the engine has saved
+        their rows to its block store already."""
         req.tokens = np.asarray(tokens, np.int32)
-        self.pool.free(req.request_id)
+        if self.prefix_cache is not None:
+            covered = (np.concatenate([req.prompt, req.tokens[:-1]])
+                       if len(req.tokens) else req.prompt)
+            self.prefix_cache.release(req.request_id, covered,
+                                      adapter=req.adapter)
+        else:
+            self.pool.free(req.request_id)
         with self._lock:
             self._transition(req, DONE)
 
     def release_branch(self, req: Request, seq_id: str) -> None:
         """Free ONE branch's reservation of a best-of-n request when it
         hits eos or its budget, while its siblings decode on (shared
-        prompt blocks stay live until their last holder frees them)."""
-        self.pool.free(seq_id)
+        prompt blocks stay live until their last holder frees them).
+        Branches never donate to the prefix index (n near-duplicate chains
+        would churn it for no reuse), but every branch goes through
+        ``abandon``, so the resident blocks the branches share stay with
+        their chains whichever branch frees them last. (The JAX scheduler
+        abandons the primary only: a later branch that frees a resident
+        block last sends it to the free list while the index still maps
+        it, ROADMAP.md §3.)"""
+        if self.prefix_cache is not None:
+            self.prefix_cache.abandon(seq_id)
+        else:
+            self.pool.free(seq_id)
 
     def finish_branches(self, req: Request, tokens, n_best: list,
                         logprob: float) -> None:
@@ -260,7 +322,10 @@ class Scheduler:
         blocks freed (a branch already released is a no-op), the client
         sees FAILED, not a hang."""
         for sid in branch_seq_ids(req):
-            self.pool.free(sid)
+            if self.prefix_cache is not None:
+                self.prefix_cache.abandon(sid)  # as release_branch
+            else:
+                self.pool.free(sid)
         with self._lock:
             req.reject_reason = reason
             self._transition(req, FAILED)

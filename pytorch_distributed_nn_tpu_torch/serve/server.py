@@ -85,7 +85,8 @@ class InferenceServer:
     def submit(self, prompt, max_new_tokens: int, **kw) -> Request:
         """Submit a request (``decode=`` a
         :class:`~serve.decoding.DecodeSpec`, ``stream=True`` for a
-        :class:`~serve.decoding.TokenStream` on ``req.stream``)."""
+        :class:`~serve.decoding.TokenStream` on ``req.stream``,
+        ``adapter=`` a LoRA adapter of the engine's bank)."""
         req = self.engine.submit(prompt, max_new_tokens, **kw)
         self._wake.set()
         return req

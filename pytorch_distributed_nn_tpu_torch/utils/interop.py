@@ -3,7 +3,8 @@
 :func:`llama_params_from_jax` turns the JAX package's Llama param tree
 (nested dicts with numpy leaves, e.g. ``jax.device_get(params)``, the
 ``Trainer``'s initial float params included) into this package's
-``state_dict``; :func:`llama_params_to_jax` goes the other way. Both
+``state_dict``; :func:`llama_params_to_jax` goes the other way;
+:func:`lora_bank_from_jax` carries a stacked LoRA adapter bank across. Both
 packages use the flax names and layouts, so the conversion flattens (or
 nests) the path at the dots and converts each leaf; it serves the float
 and the int8 layouts alike.
@@ -37,6 +38,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from pytorch_distributed_nn_tpu_torch.nn.lora import BANK_KEYS
 
 
 def _leaf(x: Any) -> torch.Tensor:
@@ -76,6 +79,13 @@ def llama_params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """``{"layer0": {"attn": {"qkv": {"kernel_q": a}}}}`` ->
     ``{"layer0.attn.qkv.kernel_q": tensor}``."""
     return _flatten(tree, {})
+
+
+def lora_bank_from_jax(bank: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX package's stacked LoRA bank (``nn/lora.py``: ``a_q``,
+    ``b_q``, ``a_v``, ``b_v``, numpy or JAX arrays) as this package's: the
+    same names, layouts and values, f32 tensors on the CPU."""
+    return {k: _leaf(bank[k]).float() for k in BANK_KEYS}
 
 
 def llama_params_to_jax(state_dict: Mapping[str, torch.Tensor]

@@ -139,6 +139,144 @@ def test_engine_on_cuda_matches_generate(cuda):
         np.testing.assert_array_equal(r.tokens, ref[0, len(p):])
 
 
+def _tiny_int8_llama(cuda, cache_dtype="compute"):
+    from pytorch_distributed_nn_tpu_torch.config import ModelConfig
+    from pytorch_distributed_nn_tpu_torch.models import get_model
+    from pytorch_distributed_nn_tpu_torch.nn.quantized import (
+        synthetic_int8_params,
+    )
+
+    cfg = ModelConfig(name="llama3_8b", compute_dtype="bfloat16",
+                      extra=dict(num_layers=2, d_model=128, num_heads=4,
+                                 num_kv_heads=2, mlp_dim=256,
+                                 vocab_size=512, quantized=True,
+                                 fused_proj=True, cache_dtype=cache_dtype))
+    return synthetic_int8_params(get_model(cfg, device=cuda), seed=0)
+
+
+@pytest.mark.parametrize("cache_dtype", ["compute", "int8"])
+def test_prefix_cache_engine_on_cuda_equals_cache_off(cuda, cache_dtype):
+    """Prompts on a shared 32-token prefix with 16-24 token suffixes: the
+    hits restore the prefix's rows from the block store and prefill the
+    suffix (W8A16 at the suffix's rows); tokens equal the cache off."""
+    from pytorch_distributed_nn_tpu_torch.ops import int8_matmul as tmm
+    from pytorch_distributed_nn_tpu_torch.serve import ServingEngine
+
+    model = _tiny_int8_llama(cuda, cache_dtype)
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, 512, size=32)
+    prompts = [np.concatenate([prefix, rng.integers(0, 512, size=n)])
+               .astype(np.int32) for n in (16, 20, 24, 17)]
+    out = {}
+    for on in (True, False):
+        eng = ServingEngine(model, max_slots=2, max_seq_len=64,
+                            prefix_cache=on)
+        first = eng.submit(prompts[0], 6)
+        eng.run_until_idle()
+        tmm.int8_matmul.launches = 0
+        reqs = [first] + [eng.submit(p, 6) for p in prompts[1:]]
+        eng.run_until_idle()
+        assert tmm.int8_matmul.launches > 0
+        out[on] = (eng, [r.tokens for r in reqs])
+    for a, b in zip(out[True][1], out[False][1]):
+        np.testing.assert_array_equal(a, b)
+    assert out[True][0].prefix_cache.stats()["prefix_hits"] == 3
+
+
+@pytest.mark.parametrize("cache_dtype", ["compute", "int8"])
+@pytest.mark.parametrize("suffix", [1, 2])
+def test_short_suffix_hit_on_cuda_is_the_whole_prefill(cuda, cache_dtype,
+                                                       suffix):
+    """A prompt of 16k + 1 and 16k + 2 rows served as a hit of 16k rows at
+    blocks of 16 (the prefill starts at ``suffix_prefill_start``, never a
+    one-row forward): the slot's K/V rows and the tokens are the cache-off
+    engine's bit for bit."""
+    from pytorch_distributed_nn_tpu_torch.serve import ServingEngine
+
+    model = _tiny_int8_llama(cuda, cache_dtype)
+    rng = np.random.default_rng(21)
+    donor = rng.integers(1, 512, size=40).astype(np.int32)
+    prompt = np.concatenate([donor[:32], donor[32:32 + suffix] % 511 + 1]
+                            ).astype(np.int32)
+    out = {}
+    for on in (True, False):
+        eng = ServingEngine(model, max_slots=2, max_seq_len=64,
+                            block_size=16, prefix_cache=on)
+        eng.submit(donor, 6)
+        eng.run_until_idle()
+        req = eng.submit(prompt, 6)
+        eng.step()  # the prefill into slot 0 and one decode round
+        kv = {(n, k): v[0, :len(prompt)].clone()
+              for n, layer in eng._cache.items() for k, v in layer.items()
+              if v.dim() >= 2}
+        eng.run_until_idle()
+        out[on] = (eng, req.tokens, kv)
+    assert out[True][0].prefix_cache.stats()["prefix_hits"] == 1
+    np.testing.assert_array_equal(out[True][1], out[False][1])
+    for key, want in out[False][2].items():
+        assert torch.equal(out[True][2][key], want), key
+
+
+def test_lora_engine_on_cuda(cuda):
+    """A bank on the card: adapter 0 gives the no-bank engine's tokens,
+    a row in a mixed batch what its adapter gives alone, and the adapters
+    move the tokens."""
+    from pytorch_distributed_nn_tpu_torch.nn.lora import init_lora_bank
+    from pytorch_distributed_nn_tpu_torch.serve import ServingEngine
+
+    model = _tiny_int8_llama(cuda)
+    bank = init_lora_bank(model, num_adapters=3, rank=4, scale=0.3,
+                          generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 512, size=n).astype(np.int32)
+               for n in (9, 20, 14)]
+
+    def serve(rows, b=bank):
+        eng = ServingEngine(model, max_slots=3, max_seq_len=64, lora_bank=b)
+        reqs = [eng.submit(p, 6, adapter=a) for a, p in rows]
+        eng.run_until_idle()
+        return [r.tokens for r in reqs]
+
+    mixed = serve([(1, prompts[0]), (0, prompts[1]), (2, prompts[2])])
+    np.testing.assert_array_equal(
+        mixed[1], serve([(0, prompts[1])], b=None)[0])
+    for (a, p), got in zip([(1, prompts[0]), (2, prompts[2])],
+                           (mixed[0], mixed[2])):
+        np.testing.assert_array_equal(got, serve([(a, p)])[0])
+    base = serve([(0, p) for p in prompts])
+    assert any(not np.array_equal(x, y) for x, y in
+               zip(serve([(a, p) for a, p in zip((1, 2, 1), prompts)]),
+                   base))
+
+
+def test_block_store_save_and_restore_on_cuda(cuda):
+    """The int8 cache's rows and scales through the block store: saved
+    blocks come back bit for bit in a row cache."""
+    from pytorch_distributed_nn_tpu_torch.inference.generate import (
+        init_cache,
+    )
+    from pytorch_distributed_nn_tpu_torch.serve import engine as eng
+
+    model = _tiny_int8_llama(cuda, "int8")
+    cache = init_cache(model, 3, 64)
+    g = torch.Generator(cuda).manual_seed(0)
+    for layer in cache.values():
+        for k, v in layer.items():
+            if v.dim() >= 2:
+                v.copy_(torch.randint(-127, 128, v.shape, generator=g,
+                                      device=cuda).to(v.dtype))
+    store = eng._block_store(cache, 24, 16)
+    table = torch.tensor([7, 3, 11], device=cuda)
+    eng._save_blocks(cache, store, 1, table)
+    row = init_cache(model, 1, 64)
+    eng._restore_blocks(row, store, table)
+    for name, layer in cache.items():
+        for k, v in layer.items():
+            if v.dim() >= 2:
+                assert torch.equal(row[name][k][0, :48], v[1, :48])
+                assert not row[name][k][0, 48:].any()
+
+
 # --------------------------------------------------------------------------
 # flash attention: forward, dq pass and dk/dv pass against the plain versions
 # --------------------------------------------------------------------------
