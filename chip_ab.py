@@ -2,7 +2,7 @@
 """Time the long-context attention kernels and the W8A16 matmul of one
 checkout, to compare two commits on one card.
 
-    python3 chip_ab.py ROOT [all|attention|int8|serve|train|prefill]
+    python3 chip_ab.py ROOT [all|attention|int8|serve|train|prefill|decode]
 
 imports ``chip_smoke`` and ``pytorch_distributed_nn_tpu_torch`` from the
 checkout at ROOT, builds its kernels and times them with
@@ -43,6 +43,13 @@ memory it adds); ``phase6``, the tree's ``chip_smoke.phase_forward``
 per-token latency p50/p95, i.e. one decode round, and the wall seconds).
 The calls are the same in every tree; the engine runs with its own
 defaults. Host clock: compare trees only within one call.
+
+The decode keys (``decode``): ``float_decode``, one bf16 decode step of
+a float Llama at the 8B's widths cut to 2 layers and of config 4's
+transformer LM (seeded weights), at 1 and 8 rows over a 64-token cache
+(:func:`float_decode`: the median of 50 steps after 10, synchronized host
+clock; the step ``generate()`` and the engine run); then ``phase6`` and
+``phase7`` as in ``prefill``.
 
 The train keys (``train``): the tree's own training phases, each as
 ``chip_smoke.py`` runs it, reported by median step seconds, tokens or
@@ -133,7 +140,7 @@ def main() -> int:
     root = os.path.abspath(sys.argv[1])
     which = sys.argv[2] if len(sys.argv) > 2 else "all"
     if which not in ("all", "attention", "int8", "serve", "train",
-                     "prefill"):
+                     "prefill", "decode"):
         raise SystemExit(f"unknown kernel set {which!r}")
     sys.path.insert(0, root)
     import torch
@@ -170,14 +177,17 @@ def main() -> int:
     if which == "train":
         del flush
         train(cs, build, out)
-    if which == "prefill":
+    if which in ("prefill", "decode"):
         del flush
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         build.load_library("int8_matmul.cu")
         t0 = time.monotonic()
+        if which == "decode":
+            out["float_decode"] = float_decode()
         model = cs.build_model(seed=0)
-        out["prefill"] = prefill_times(cs, model)
+        if which == "prefill":
+            out["prefill"] = prefill_times(cs, model)
         fwd = cs.phase_forward(model)
         out["phase6"] = {k: v["decode_step_ms"] for k, v in fwd.items()
                          if isinstance(v, dict) and "decode_step_ms" in v}
@@ -189,6 +199,44 @@ def main() -> int:
         out["seconds"] = time.monotonic() - t0
     print("AB " + json.dumps(out))
     return 0
+
+
+def float_decode():
+    """The bf16 decode step of the float models at 1 and 8 rows: ms, the
+    median of 50 synchronized steps after 10 (host clock)."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.inference.generate import (
+        decode_step_ragged,
+        init_cache,
+    )
+    from pytorch_distributed_nn_tpu_torch.models import get_model
+
+    res = {}
+    for name, cfg in (
+            ("llama_2l", get_config("llama3_8b_zero", **{
+                "model.extra": json.dumps({"num_layers": 2})})),
+            ("lm", get_config("transformer_lm_pp", **{
+                "mesh.pipe": "1", "parallel.strategy": "dp"}))):
+        model = get_model(cfg.model, device=torch.device("cuda"))
+        model.init_params(seed=32)
+        model.eval()
+        for rows in (1, 8):
+            cache = init_cache(model, rows, 128)
+            tok = torch.ones((rows,), dtype=torch.int32, device="cuda")
+            pos = torch.full((rows,), 64, dtype=torch.int32, device="cuda")
+            times = []
+            for _ in range(60):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                decode_step_ragged(model, cache, tok, pos)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            res[f"{name}_rows{rows}_ms"] = sorted(times[10:])[25]
+        del model, cache
+        torch.cuda.empty_cache()
+    return res
 
 
 def greedy_serve(cs, model):

@@ -310,20 +310,51 @@ model):
               miss, hit. Last, one W8A16 call at the stream's median
               suffix rows against its plain version.
 
+Tenants, the greedy contract of float models and the user scripts (phase
+32 runs after phase 31, on its model, then frees it):
+
+32. tenants_scripts -- (a) the int8 8B, 8 slots, tenant quotas: a flood
+              tenant of 24 requests (quota 2) and two light tenants of 3,
+              all submitted before the first round: 22 rejected
+              tenant_quota, each light head admitted within one rotation,
+              every served request's tokens equal it served alone, W8A16
+              129 a forward (counts reset just before and read just after)
+              and by name in a profiled round. (b) fault 1: a float bf16
+              Llama at the 8B's widths (2 layers) and config 4's LM, greedy
+              rows in engines of 1, 3 and 8 slots against a solo
+              generate() of each prompt: logits bit for bit and tokens
+              (the decode step's dense products on fixed row blocks); the
+              gap without the blocks, and the bf16 decode step's time at 1
+              and 8 rows with and without them. (c) scripts/eval.py on
+              phase 28's 2-layer 8B checkpoint: its line equals the
+              in-process Trainer.evaluate; flash_fwd counted by the wrapper
+              and by name. (d) a seeded HF-layout Llama state_dict at the
+              8B's widths (2 layers, bf16) through scripts/convert.py (on
+              the CPU, --optim.name sgd), scripts/generate.py quantized at
+              load (tokens equal generate() on the weights loaded in
+              memory; W8A16 9 a forward) and --export (every tensor back
+              bit for bit); seconds and bytes of each. (e) the serve entry
+              point with --metrics-out (int8, 2 layers at the 8B's
+              widths): one serve_request a finished request with the JAX
+              record's keys, one serve_summary.
+
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit from nvidia-smi, and the result JSON line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -4626,9 +4657,11 @@ def same_state(got, want):
         torch.equal(got[k].cpu(), want[k].cpu()) for k in want)
 
 
-def phase_serve_ckpt():
-    """Phase 28. (a) transformer_lm_pp (--mesh.pipe 1 --parallel.strategy
-    dp) at full width and depth trains 2 steps with a checkpoint; the serve
+def phase_serve_ckpt(root):
+    """Phase 28, its checkpoints written under ``root`` (the caller's, which
+    phase 32's eval reads the 2-layer 8B's from and then removes). (a)
+    transformer_lm_pp (--mesh.pipe 1 --parallel.strategy dp) at full width
+    and depth trains 2 steps with a checkpoint; the serve
     entry point serves it; the restored params are the trained ones bit
     for bit, the engine's greedy tokens on them equal generate()'s, and one
     sampled request twice gives one stream. (b) llama3_8b_zero at full
@@ -4640,7 +4673,6 @@ def phase_serve_ckpt():
     The flash launches of both trainings and the W8A16 launches of (b)'s
     engine are counted."""
     import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -4671,103 +4703,100 @@ def phase_serve_ckpt():
         return cfg, trained, flash, save, time.monotonic() - t0
 
     rng = np.random.default_rng(28)
-    root = tempfile.mkdtemp(prefix="chip-smoke-serve-")
-    try:
-        # (a) config 4's transformer LM
-        d_lm = os.path.join(root, "lm")
-        cfg, trained, lm_flash, lm_save, lm_train_s = train(
-            "transformer_lm_pp", **LM_OVERRIDES, steps="2",
-            checkpoint_dir=d_lm, checkpoint_every="2")
-        t0 = time.monotonic()
-        lm_summary = serve_entry([
-            "--preset", "transformer_lm_pp", "--checkpoint-dir", d_lm,
-            "--mesh.pipe", "1", "--parallel.strategy", "dp", "--slots", "8",
-            "--requests", "16", "--rate", "50", "--max-new", str(CK_NEW)])
-        lm_serve_s = time.monotonic() - t0
-        params, step = serve_main.restore_params(d_lm)
-        if step != 2 or not same_state(params, trained):
-            raise AssertionError("the restored LM params are not the "
-                                 "trained ones bit for bit")
-        model = get_model(cfg.model, device="cuda")
-        serve_main.load_params(model, params)
-        model.eval()
-        vocab = model.vocab_size
-        prompts = [rng.integers(0, vocab, size=(n,)) for n in (24, 57, 100)]
-        sampled = DecodeSpec(**SAMPLED, seed=2)
-        reqs, _ = engine_run(model, prompts + [prompts[1]] * 2,
-                             [None] * 3 + [sampled] * 2)
-        for p, r in zip(prompts, reqs):
-            ref = generate(model, p[None], CK_NEW).cpu().numpy()
-            if not np.array_equal(r.tokens, ref[0, len(p):]):
-                raise AssertionError("LM: served tokens differ from "
-                                     "generate()")
-        if not np.array_equal(reqs[3].tokens, reqs[4].tokens):
-            raise AssertionError("LM: one sampled request twice gave two "
-                                 "streams")
-        lm = dict(flash_launches=lm_flash, save=lm_save,
-                  train_s=lm_train_s, serve_s=lm_serve_s,
-                  params=sum(v.numel() for v in params.values()),
-                  summary=lm_summary)
-        del model, params, trained
-        gc.collect()
-        torch.cuda.empty_cache()
-        log(f"[serve_ckpt] lm: {json.dumps(lm)}")
+    # (a) config 4's transformer LM
+    d_lm = os.path.join(root, "lm")
+    cfg, trained, lm_flash, lm_save, lm_train_s = train(
+        "transformer_lm_pp", **LM_OVERRIDES, steps="2",
+        checkpoint_dir=d_lm, checkpoint_every="2")
+    t0 = time.monotonic()
+    lm_summary = serve_entry([
+        "--preset", "transformer_lm_pp", "--checkpoint-dir", d_lm,
+        "--mesh.pipe", "1", "--parallel.strategy", "dp", "--slots", "8",
+        "--requests", "16", "--rate", "50", "--max-new", str(CK_NEW)])
+    lm_serve_s = time.monotonic() - t0
+    params, step = serve_main.restore_params(d_lm)
+    if step != 2 or not same_state(params, trained):
+        raise AssertionError("the restored LM params are not the "
+                             "trained ones bit for bit")
+    model = get_model(cfg.model, device="cuda")
+    serve_main.load_params(model, params)
+    model.eval()
+    vocab = model.vocab_size
+    prompts = [rng.integers(0, vocab, size=(n,)) for n in (24, 57, 100)]
+    sampled = DecodeSpec(**SAMPLED, seed=2)
+    reqs, _ = engine_run(model, prompts + [prompts[1]] * 2,
+                         [None] * 3 + [sampled] * 2)
+    for p, r in zip(prompts, reqs):
+        ref = generate(model, p[None], CK_NEW).cpu().numpy()
+        if not np.array_equal(r.tokens, ref[0, len(p):]):
+            raise AssertionError("LM: served tokens differ from "
+                                 "generate()")
+    if not np.array_equal(reqs[3].tokens, reqs[4].tokens):
+        raise AssertionError("LM: one sampled request twice gave two "
+                             "streams")
+    lm = dict(flash_launches=lm_flash, save=lm_save,
+              train_s=lm_train_s, serve_s=lm_serve_s,
+              params=sum(v.numel() for v in params.values()),
+              summary=lm_summary)
+    del model, params, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[serve_ckpt] lm: {json.dumps(lm)}")
 
-        # (b) config 5's Llama, ZeRO-3, quantized at load
-        d_8b = os.path.join(root, "llama")
-        cfg, trained, z_flash, z_save, z_train_s = train(
-            "llama3_8b_zero", steps="1", checkpoint_dir=d_8b,
-            checkpoint_every="1", log_every="1", **{
-                "model.extra": json.dumps({"num_layers": CK_8B_LAYERS}),
-                "data.batch_size": "1", "parallel.zero_stage": "3"})
-        meta = json.loads(open(os.path.join(d_8b, "1", "meta.json")).read())
-        if meta.get("layout", {}).get("zero_stage") != 3:
-            raise AssertionError(f"not a ZeRO-3 layout: {meta}")
-        qextra = json.dumps({"num_layers": CK_8B_LAYERS, "quantized": True,
-                             "fused_proj": True})
-        t0 = time.monotonic()
-        z_summary = serve_entry([
-            "--preset", "llama3_8b_zero", "--checkpoint-dir", d_8b,
-            "--model.extra", qextra, "--slots", "8", "--requests", "8",
-            "--rate", "50", "--max-new", str(CK_NEW)])
-        z_serve_s = time.monotonic() - t0
-        qcfg = get_config("llama3_8b_zero", **{"model.extra": qextra})
-        params, _ = serve_main.restore_params(d_8b)
-        served = get_model(qcfg.model, device="cuda")
-        serve_main.load_params(served, params)
-        del params
-        ref = get_model(qcfg.model, device="cuda")
-        serve_main.load_params(ref, trained)
-        del trained
-        gc.collect()
-        torch.cuda.empty_cache()
-        if not same_state(served.state_dict(), ref.state_dict()):
-            raise AssertionError("quantized at load differs from the "
-                                 "trained params quantized in memory")
-        prompts = [rng.integers(0, V, size=(n,)) for n in (20, 64, 111)]
-        tmm.int8_matmul.launches = 0  # (b)'s engine: the count starts here
-        reqs, forwards = engine_run(served, prompts, [None] * 3)
-        z_launches = tmm.int8_matmul.launches
-        if z_launches != (4 * CK_8B_LAYERS + 1) * forwards:
-            raise AssertionError(f"{z_launches} W8A16 launches in "
-                                 f"{forwards} forwards, expected "
-                                 f"{4 * CK_8B_LAYERS + 1} a forward")
-        for p, r in zip(prompts, reqs):
-            want = generate(ref, p[None], CK_NEW).cpu().numpy()
-            if not np.array_equal(r.tokens, want[0, len(p):]):
-                raise AssertionError("8B: served tokens differ from "
-                                     "generate() on the weights "
-                                     "quantized in memory")
-        z = dict(flash_launches=z_flash, save=z_save, train_s=z_train_s,
-                 serve_s=z_serve_s, layers=CK_8B_LAYERS,
-                 int8_matmul_launches=z_launches, forwards=forwards,
-                 summary=z_summary)
-        del served, ref
-        gc.collect()
-        torch.cuda.empty_cache()
-        log(f"[serve_ckpt] llama3_8b_zero: {json.dumps(z)}")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    # (b) config 5's Llama, ZeRO-3, quantized at load
+    d_8b = os.path.join(root, "llama")
+    cfg, trained, z_flash, z_save, z_train_s = train(
+        "llama3_8b_zero", steps="1", checkpoint_dir=d_8b,
+        checkpoint_every="1", log_every="1", **{
+            "model.extra": json.dumps({"num_layers": CK_8B_LAYERS}),
+            "data.batch_size": "1", "parallel.zero_stage": "3"})
+    meta = json.loads(open(os.path.join(d_8b, "1", "meta.json")).read())
+    if meta.get("layout", {}).get("zero_stage") != 3:
+        raise AssertionError(f"not a ZeRO-3 layout: {meta}")
+    qextra = json.dumps({"num_layers": CK_8B_LAYERS, "quantized": True,
+                         "fused_proj": True})
+    t0 = time.monotonic()
+    z_summary = serve_entry([
+        "--preset", "llama3_8b_zero", "--checkpoint-dir", d_8b,
+        "--model.extra", qextra, "--slots", "8", "--requests", "8",
+        "--rate", "50", "--max-new", str(CK_NEW)])
+    z_serve_s = time.monotonic() - t0
+    qcfg = get_config("llama3_8b_zero", **{"model.extra": qextra})
+    params, _ = serve_main.restore_params(d_8b)
+    served = get_model(qcfg.model, device="cuda")
+    serve_main.load_params(served, params)
+    del params
+    ref = get_model(qcfg.model, device="cuda")
+    serve_main.load_params(ref, trained)
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not same_state(served.state_dict(), ref.state_dict()):
+        raise AssertionError("quantized at load differs from the "
+                             "trained params quantized in memory")
+    prompts = [rng.integers(0, V, size=(n,)) for n in (20, 64, 111)]
+    tmm.int8_matmul.launches = 0  # (b)'s engine: the count starts here
+    reqs, forwards = engine_run(served, prompts, [None] * 3)
+    z_launches = tmm.int8_matmul.launches
+    if z_launches != (4 * CK_8B_LAYERS + 1) * forwards:
+        raise AssertionError(f"{z_launches} W8A16 launches in "
+                             f"{forwards} forwards, expected "
+                             f"{4 * CK_8B_LAYERS + 1} a forward")
+    for p, r in zip(prompts, reqs):
+        want = generate(ref, p[None], CK_NEW).cpu().numpy()
+        if not np.array_equal(r.tokens, want[0, len(p):]):
+            raise AssertionError("8B: served tokens differ from "
+                                 "generate() on the weights "
+                                 "quantized in memory")
+    z = dict(flash_launches=z_flash, save=z_save, train_s=z_train_s,
+             serve_s=z_serve_s, layers=CK_8B_LAYERS,
+             int8_matmul_launches=z_launches, forwards=forwards,
+             summary=z_summary)
+    del served, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[serve_ckpt] llama3_8b_zero: {json.dumps(z)}")
+    shutil.rmtree(d_lm, ignore_errors=True)
     flash = {k: lm_flash[k] + z_flash[k] for k in lm_flash}
     return dict(lm=lm, llama3_8b_zero=z), flash, z_launches
 
@@ -5125,6 +5154,581 @@ def phase_pipe_moe():
     return dict(card=card_line(), **out), launches, profiled
 
 
+# ---------------------------------------------------------------------------
+# rule 3: the serving slice closed -- the greedy contract of float models,
+# tenants, and the user scripts (phase 32)
+# ---------------------------------------------------------------------------
+F1_SLOTS = (1, 3, 8)  # engine batches: one request a slot
+F1_NEW = 8  # tokens a request
+
+
+def f1_engine_logits(model, prompts, slots, n_new=F1_NEW, tenants=None):
+    """Greedy ``prompts`` (of ``tenants``, one name a prompt, or the
+    default tenant) through one engine of ``slots`` rows (prefix cache
+    off, two admissions a round, so the rows join at different rounds and
+    decode at different cache lengths): each request's next-token logits
+    ((V,) f32, the prefill's then every decode round's row) and tokens.
+    The CPU tests and the ``cuda`` tests use it too."""
+    from pytorch_distributed_nn_tpu_torch.serve import ServingEngine
+
+    eng = ServingEngine(model, max_slots=slots, max_seq_len=256,
+                        prefix_cache=False)
+    taps = []
+    hook = model.register_forward_hook(
+        lambda m, a, out: taps.append(out[:, -1].float().clone()))
+    logs = {}
+    prefill_into, decode_round = eng._prefill_into, eng._decode_round
+
+    def tapped_prefill(rows, req):
+        n = len(taps)
+        prefill_into(rows, req)
+        logs[req.request_id] = [taps[n][0]]
+
+    def tapped_round():
+        owners = [s and s.req.request_id for s in eng._slots]
+        n = len(taps)
+        out = decode_round()
+        for i, rid in enumerate(owners):
+            if rid:
+                logs[rid].append(taps[n][i])
+        return out
+
+    eng._prefill_into, eng._decode_round = tapped_prefill, tapped_round
+    try:
+        reqs = [eng.submit(p, n_new, tenant=t) for p, t in
+                zip(prompts, tenants or ["default"] * len(prompts))]
+        eng.run_until_idle()
+    finally:
+        hook.remove()
+    return [(logs[r.request_id], r.tokens) for r in reqs]
+
+
+def f1_solo_logits(model, prompt, n_new=F1_NEW):
+    """A solo ``generate()`` of ``prompt``: its next-token logits, one (V,)
+    f32 a token, and its tokens."""
+    from pytorch_distributed_nn_tpu_torch.inference.generate import generate
+
+    taps = []
+    hook = model.register_forward_hook(
+        lambda m, a, out: taps.append(out[0, -1].float().clone()))
+    try:
+        out = generate(model, prompt[None], n_new).cpu().numpy()[0]
+    finally:
+        hook.remove()
+    return taps, out[len(prompt):]
+
+
+def f1_check(model, vocab, seed):
+    """Tentpole §0: greedy rows in engines of 1, 3 and 8 slots against a
+    solo ``generate()`` of each prompt, logits bit for bit and tokens.
+    Returns the largest logit gap (0 when equal), the first (slots,
+    request, step) that differs and whether every token agreed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    gap, first, tokens_equal = 0.0, None, True
+    for slots in F1_SLOTS:
+        prompts = [rng.integers(0, vocab, size=int(n)).astype(np.int32)
+                   for n in rng.integers(5, 120, size=slots)]
+        served = f1_engine_logits(model, prompts, slots)
+        for i, (p, (logits, toks)) in enumerate(zip(prompts, served)):
+            ref, ref_toks = f1_solo_logits(model, p)
+            tokens_equal &= bool(np.array_equal(toks, ref_toks))
+            for step, (a, b) in enumerate(zip(logits, ref)):
+                d = (a - b).abs().max().item()
+                if d > gap:
+                    gap = d
+                if d and first is None:
+                    first = dict(slots=slots, request=i, step=step)
+    return dict(max_logit_gap=gap, first_diff=first,
+                tokens_equal=tokens_equal)
+
+
+def f1_models():
+    """The float models of §0 at full width: Llama at the 8B's widths cut to
+    2 layers and config 4's transformer LM, seeded, bf16 compute."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.models import get_model
+
+    llama_cfg = get_config("llama3_8b_zero", **{
+        "model.extra": json.dumps({"num_layers": CK_8B_LAYERS})})
+    llama = get_model(llama_cfg.model, device=torch.device("cuda"))
+    llama.init_params(seed=32)
+    lm_cfg = get_config("transformer_lm_pp", **LM_OVERRIDES)
+    lm = get_model(lm_cfg.model, device=torch.device("cuda"))
+    lm.init_params(seed=32)
+    return dict(llama=llama.eval(), lm=lm.eval())
+
+
+def f1_decode_ms(model, rows, reps=20):
+    """One decode step of ``rows`` rows at a 64-token cache, the step the
+    engine runs a round: ``host``, the median of ``reps`` steps between
+    CUDA events (the host's launch gaps included), and ``device``, the
+    step's kernels' own time under torch.profiler (the mean of 5)."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.inference.generate import (
+        decode_step_ragged,
+        init_cache,
+    )
+
+    cache = init_cache(model, rows, 128)
+    tok = torch.ones((rows,), dtype=torch.int32, device="cuda")
+    pos = torch.full((rows,), 64, dtype=torch.int32, device="cuda")
+
+    def step():
+        decode_step_ragged(model, cache, tok, pos)
+
+    times = []
+    for _ in range(reps + 3):
+        a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+        a.record()
+        step()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return dict(host=sorted(times[3:])[reps // 2],
+                device=kernel_device_ms(step, 5, ""))
+
+
+class f1_unblocked:
+    """Inside the block the decode step's dense products are one library
+    product each, as before the fixed row blocks
+    (``nn.layers.dense_product``): the fault's own size, measured. The
+    block restores the module's function. Measurement only."""
+
+    def __enter__(self):
+        from pytorch_distributed_nn_tpu_torch.nn import attention, layers
+
+        self.saved = layers.dense_product
+        layers.dense_product = attention.dense_product = \
+            lambda x, kernel: x @ kernel
+
+    def __exit__(self, *exc):
+        from pytorch_distributed_nn_tpu_torch.nn import attention, layers
+
+        layers.dense_product = attention.dense_product = self.saved
+        return False
+
+
+def phase_fault1():
+    """Phase 32 (b), ROADMAP §3's fault 1: the float models' greedy rows
+    through the engine against a solo ``generate()``, logits bit for bit,
+    with the decode step's products on fixed row blocks (must be equal)
+    and without them (the fault's size); and the bf16 decode step's time
+    at 1 and 8 rows both ways, in the order without, with, with,
+    without."""
+    import torch
+
+    models = f1_models()
+    out = {}
+    for name, m in models.items():
+        with f1_unblocked():
+            before = f1_check(m, m.vocab_size, seed=32)
+        after = f1_check(m, m.vocab_size, seed=32)
+        if after["max_logit_gap"] != 0.0 or not after["tokens_equal"]:
+            raise AssertionError(f"fault 1, {name}: {after}")
+        times = {}
+        for blocked in (False, True, True, False):
+            label = "blocked" if blocked else "unblocked"
+            with (contextlib.nullcontext() if blocked else f1_unblocked()):
+                for rows in (1, 8):
+                    times.setdefault(f"rows{rows}_{label}", []).append(
+                        f1_decode_ms(m, rows))
+        out[name] = dict(unblocked=before, blocked=after, decode_ms=times)
+        log(f"[fault1] {name}: {json.dumps(out[name])}")
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+T32_TENANTS = (("flood", 24), ("light1", 3), ("light2", 3))
+T32_QUOTA = {"flood": 2}
+T32_NEW = 16
+
+
+def t32_admission_order(engine):
+    """Record (tenant, request id) of every admission of ``engine``."""
+    order = []
+    admit = engine.scheduler.next_admissions
+
+    def recorded(free_slots):
+        got = admit(free_slots)
+        order.extend((r.tenant, r.request_id) for r in got)
+        return got
+
+    engine.scheduler.next_admissions = recorded
+    return order
+
+
+def t32_profiled_round(model):
+    """The W8A16 kernels by name in one profiled decode round of an engine
+    serving two tenants' requests (129 a forward). None where the profiler
+    records nothing. Measurement only."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_distributed_nn_tpu_torch.serve import ServingEngine
+
+    engine = ServingEngine(model, max_slots=SERVE_SLOTS, max_seq_len=256,
+                           tenant_quotas=T32_QUOTA)
+    rng = np.random.default_rng(33)
+    for tenant in ("flood", "light1"):
+        engine.submit(rng.integers(0, V, size=24).astype(np.int32), 4,
+                      tenant=tenant)
+    engine.step()  # the admissions and a first round
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   acc_events=True)
+    try:
+        prof.start()
+    except RuntimeError as e:
+        log(f"[tenants] profiler did not start: {e}")
+        return None
+    try:
+        _margin()
+        engine.step()
+        torch.cuda.synchronize()
+        _margin()
+    finally:
+        stopped = _profiler_stop(prof)
+    engine.run_until_idle()
+    if not stopped:
+        return None
+    kern, margin = _without_margin(
+        [e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA])
+    return dict(w8a16_kernels=sum(1 for e in kern if "w8a16" in e.name),
+                forwards=1, kernels=len(kern), margin_kernels_seen=margin)
+
+
+def phase_tenants(model):
+    """Phase 32 (a): tenants on the full-width int8 8B of phase 6, 8 slots:
+    a flood tenant of 24 requests with a quota of 2 and two light tenants
+    of 3, all submitted before the first round; 22 rejected
+    ``tenant_quota``; each light head admitted within one rotation (at
+    most one admission of each other tenant since its tenant's last);
+    every served request's tokens equal the request served alone; W8A16
+    129 a forward, and by name in a profiled round."""
+    import collections
+
+    import numpy as np
+
+    from pytorch_distributed_nn_tpu_torch.ops import int8_matmul as tmm
+    from pytorch_distributed_nn_tpu_torch.serve import ServingEngine
+
+    rng = np.random.default_rng(32)
+    stream = [(tenant, rng.integers(0, V, size=int(rng.integers(16, 65)))
+               .astype(np.int32))
+              for tenant, n in T32_TENANTS for _ in range(n)]
+    engine = ServingEngine(model, max_slots=SERVE_SLOTS, max_seq_len=256,
+                           tenant_quotas=T32_QUOTA)
+    order = t32_admission_order(engine)
+    tmm.int8_matmul.launches = 0
+    t0 = time.monotonic()
+    reqs = [engine.submit(p, T32_NEW, tenant=t) for t, p in stream]
+    engine.run_until_idle()
+    secs = time.monotonic() - t0
+    launches = tmm.int8_matmul.launches
+    forwards = len(engine.completed) + len(engine.round_seconds)
+    if launches != 129 * forwards:
+        raise AssertionError(f"tenants: {launches} W8A16 launches in "
+                             f"{forwards} forwards")
+    rejects = collections.Counter(r.reject_reason for r in reqs
+                                  if r.state == "rejected")
+    if dict(rejects) != {"tenant_quota": 22}:
+        raise AssertionError(f"tenants: rejects {dict(rejects)}")
+    served = [(t, p, r) for (t, p), r in zip(stream, reqs) if r.ok]
+    if len(served) != 8:
+        raise AssertionError(f"tenants: {len(served)} served, expected 8")
+    waits, last = {}, {}
+    for i, (tenant, rid) in enumerate(order):
+        waits[rid] = i - last.get(tenant, -1) - 1
+        last[tenant] = i
+    light = {r.request_id: dict(tenant=t, round=r.round_admitted,
+                                waited=waits[r.request_id])
+             for t, _, r in served if t != "flood"}
+    if max(v["waited"] for v in light.values()) > len(T32_TENANTS) - 1:
+        raise AssertionError(f"tenants: a light head waited more than one "
+                             f"rotation: {light}")
+    solo = ServingEngine(model, max_slots=SERVE_SLOTS, max_seq_len=256,
+                         prefix_cache=False)
+    for t, p, r in served:
+        alone = solo.submit(p, T32_NEW)
+        solo.run_until_idle()
+        if not np.array_equal(alone.tokens, r.tokens):
+            raise AssertionError(f"tenants: {r.request_id} ({t}) differs "
+                                 "from the request served alone")
+    out = dict(seconds=secs, rejects=dict(rejects), light=light,
+               admission_order=[t for t, _ in order],
+               w8a16_launches=launches, forwards=forwards,
+               counts=engine.summary()["serve_tenant_requests_total"],
+               profiled_round=t32_profiled_round(model))
+    log(f"[tenants] {json.dumps(out)}")
+    return out, launches
+
+
+def hf_llama_8b(seed):
+    """A seeded HF-layout ``LlamaForCausalLM`` state_dict at the 8B's
+    widths and CK_8B_LAYERS layers, bf16 on the CPU (drawn on the card)."""
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    D, H, Hkv, F = 4096, 32, 8, 14336
+    dh = D // H
+
+    def w(*shape):
+        x = torch.randn(shape, generator=g, device="cuda")
+        return (x * shape[-1] ** -0.5).to(torch.bfloat16).cpu()
+
+    sd = {"model.embed_tokens.weight": w(V, D)}
+    for i in range(CK_8B_LAYERS):
+        p = f"model.layers.{i}."
+        sd.update({p + "input_layernorm.weight": 1 + w(D) * 0.0,
+                   p + "self_attn.q_proj.weight": w(H * dh, D),
+                   p + "self_attn.k_proj.weight": w(Hkv * dh, D),
+                   p + "self_attn.v_proj.weight": w(Hkv * dh, D),
+                   p + "self_attn.o_proj.weight": w(D, H * dh),
+                   p + "post_attention_layernorm.weight": 1 + w(D) * 0.0,
+                   p + "mlp.gate_proj.weight": w(F, D),
+                   p + "mlp.up_proj.weight": w(F, D),
+                   p + "mlp.down_proj.weight": w(D, F)})
+    sd["model.norm.weight"] = 1 + w(D) * 0.0
+    sd["lm_head.weight"] = w(V, D)
+    return sd
+
+
+def run_script(main, argv):
+    """A script's ``main(argv)`` in this process: (stdout lines, seconds);
+    it must exit 0."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"{main.__module__} {argv}: rc {rc}")
+    return out.getvalue().strip().splitlines(), time.monotonic() - t0
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def profiled_call(fn, count):
+    """``fn()`` under torch.profiler: (its result, the number of device
+    kernels whose name matches each regex of ``count``; None where the
+    profiler records nothing). Measurement only."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as e:
+        log(f"[scripts] profiler did not start: {e}")
+        return fn(), None
+    try:
+        result = fn()
+        torch.cuda.synchronize()
+    finally:
+        stopped = _profiler_stop(prof)
+    if not stopped:
+        return result, None
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return result, {k: sum(1 for e in kern if re.search(rx, e.name))
+                    for k, rx in count.items()}
+
+
+EVAL_BATCHES = 2
+T32_EXTRA = {"num_layers": CK_8B_LAYERS}
+T32_QEXTRA = {"num_layers": CK_8B_LAYERS, "quantized": True,
+              "fused_proj": True}
+
+
+def phase_scripts(d_8b):
+    """Phase 32 (c)-(e). (c) ``scripts/eval.py`` on phase 28's 2-layer 8B
+    checkpoint (ZeRO-3) on the card: its JSON line equals the in-process
+    ``Trainer.evaluate``; flash_fwd counted by the wrapper and by name in
+    a profiled trace. The checkpoint is then removed. (d) a seeded
+    HF-layout Llama state_dict at the 8B's widths (2 layers, bf16) through
+    ``scripts/convert.py`` into llama3_8b_zero (on the CPU, with
+    --optim.name sgd: a state of the parameters alone), then
+    ``scripts/generate.py`` on the card quantized at load (W8A16 9 a
+    forward; tokens equal ``generate()`` on the same weights loaded in
+    memory), then ``--export``: every tensor back, bit for bit. (e) the
+    serve entry point with ``--metrics-out`` at the 8B's widths, int8, 2
+    layers: one ``serve_request`` a finished request (the warm-up's
+    included) with the JAX record's keys and one ``serve_summary``, the
+    stdout line's."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+    from pytorch_distributed_nn_tpu_torch.inference.generate import generate
+    from pytorch_distributed_nn_tpu_torch.models import get_model
+    from pytorch_distributed_nn_tpu_torch.ops import int8_matmul as tmm
+    from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
+    from pytorch_distributed_nn_tpu_torch.scripts import convert
+    from pytorch_distributed_nn_tpu_torch.scripts import eval as evals
+    from pytorch_distributed_nn_tpu_torch.scripts import generate as gen
+    from pytorch_distributed_nn_tpu_torch.serve import __main__ as serve_main
+    from pytorch_distributed_nn_tpu_torch.serve.engine import _bucket_len
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+    from pytorch_distributed_nn_tpu_torch.utils import torch_interop as ti
+    from pytorch_distributed_nn_tpu_torch.utils.interop import (
+        llama_params_from_jax,
+    )
+
+    out = {}
+    # (c) eval of phase 28's checkpoint, then the in-process Trainer's
+    ov = {"model.extra": json.dumps(T32_EXTRA), "data.batch_size": "1",
+          "parallel.zero_stage": "3"}
+    argv = ["--preset", "llama3_8b_zero", "--checkpoint-dir", d_8b,
+            "--batches", str(EVAL_BATCHES)]
+    for k, v in ov.items():
+        argv += [f"--{k}", v]
+    reset_flash_counts()
+    (lines, secs), by_name = profiled_call(
+        lambda: run_script(evals.main, argv),
+        {"flash_fwd": FLASH_RX["flash_fwd"]})
+    flash = flash_counts()
+    line = json.loads(lines[-1])
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3_8b_zero", **ov, checkpoint_dir=d_8b)
+    with Trainer(cfg, device="cuda") as trainer:
+        rec = trainer.evaluate(num_batches=EVAL_BATCHES)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = dict(step=rec.step, eval_loss=round(rec.loss, 6),
+                eval_accuracy=round(rec.accuracy, 6), batches=EVAL_BATCHES)
+    if line != want:
+        raise AssertionError(f"eval: {line} != the Trainer's {want}")
+    per_eval = CK_8B_LAYERS * EVAL_BATCHES
+    if flash["flash_fwd"] != per_eval:
+        raise AssertionError(f"eval: {flash} flash launches, expected "
+                             f"{per_eval} flash_fwd")
+    out["eval"] = dict(line=line, seconds=secs, flash_launches=flash,
+                       flash_by_name=by_name)
+    log(f"[scripts] eval: {json.dumps(out['eval'])}")
+    shutil.rmtree(d_8b, ignore_errors=True)
+
+    # (d) convert -> generate -> export at the 8B's widths
+    root = tempfile.mkdtemp(prefix="chip-smoke-convert-")
+    try:
+        t0 = time.monotonic()
+        sd = hf_llama_8b(seed=32)
+        pt = os.path.join(root, "llama.pt")
+        torch.save(sd, pt)
+        made = dict(seconds=time.monotonic() - t0,
+                    bytes=os.path.getsize(pt),
+                    params=sum(t.numel() for t in sd.values()))
+        common = ["--model.extra", json.dumps(T32_EXTRA), "--optim.name",
+                  "sgd", "--data.batch_size", "1"]
+        ck = os.path.join(root, "ckpt")
+        # the CPU Trainer of the conversion joins a gloo group of its own
+        bootstrap.shutdown()
+        _, convert_s = run_script(convert.main, [
+            "--arch", "llama3", "--preset", "llama3_8b_zero",
+            "--torch-checkpoint", pt, "--out", ck, *common])
+        ck_bytes = dir_bytes(ck)
+        prompt = " ".join(str(t) for t in np.random.default_rng(32)
+                          .integers(0, V, size=24))
+        tmm.int8_matmul.launches = 0
+        lines, generate_s = run_script(gen.main, [
+            "--preset", "llama3_8b_zero", "--checkpoint-dir", ck,
+            "--prompt", prompt, "--max-new", str(F1_NEW), "--model.extra",
+            json.dumps(T32_QEXTRA)])
+        gen_launches = tmm.int8_matmul.launches
+        tokens = [int(t) for t in lines[-1].split()]
+        per_forward = 4 * CK_8B_LAYERS + 1
+        if gen_launches != per_forward * F1_NEW:
+            raise AssertionError(f"generate: {gen_launches} W8A16 launches"
+                                 f", expected {per_forward} a forward")
+        qcfg = get_config("llama3_8b_zero",
+                          **{"model.extra": json.dumps(T32_QEXTRA)})
+        ref = get_model(qcfg.model, device="cuda")
+        serve_main.load_params(ref, llama_params_from_jax(
+            ti.llama_params_from_torch(sd, num_layers=CK_8B_LAYERS,
+                                       num_heads=32, num_kv_heads=8)))
+        ref.eval()
+        p = np.asarray([[int(t) for t in prompt.split()]], np.int32)
+        want = generate(ref, p, F1_NEW).cpu().numpy()[0].tolist()
+        del ref
+        if tokens != want:
+            raise AssertionError(f"generate: {tokens} != {want}")
+        back = os.path.join(root, "back.pt")
+        _, export_s = run_script(convert.main, [
+            "--arch", "llama3", "--preset", "llama3_8b_zero", "--export",
+            ck, "--torch-checkpoint", back, *common])
+        exported = torch.load(back, weights_only=True)
+        if sorted(exported) != sorted(sd) or not all(
+                torch.equal(exported[k].to(torch.bfloat16), t)
+                and torch.equal(exported[k], t.float())
+                for k, t in sd.items()):
+            raise AssertionError("export: not the state_dict bit for bit")
+        out["convert"] = dict(
+            state_dict=made, convert_s=convert_s, checkpoint_bytes=ck_bytes,
+            generate_s=generate_s, w8a16_launches=gen_launches,
+            export_s=export_s, export_bytes=os.path.getsize(back),
+            tokens=tokens[len(p[0]):])
+        log(f"[scripts] convert: {json.dumps(out['convert'])}")
+        del sd, exported
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the serve entry point's --metrics-out
+    root = tempfile.mkdtemp(prefix="chip-smoke-metrics-")
+    try:
+        path = os.path.join(root, "serve.jsonl")
+        lines, serve_s = run_script(serve_main.main, [
+            "--preset", "llama3_8b_zero", "--model.extra",
+            json.dumps(T32_QEXTRA), "--slots", str(SERVE_SLOTS),
+            "--requests", "8", "--rate", "50", "--max-new", str(F1_NEW),
+            "--metrics-out", path])
+        summary = json.loads(lines[-1])
+        recs = [json.loads(x) for x in open(path).read().splitlines()]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    b, warm = _bucket_len(4), 0  # the entry point's warm-up buckets
+    while b <= min(_bucket_len(48), 256):
+        warm, b = warm + 1, b * 2
+    reqs = [r for r in recs if r["event"] == "serve_request"]
+    sums = [r for r in recs if r["event"] == "serve_summary"]
+    keys = {"event", "time", "process", "request_id", "prompt_len",
+            "new_tokens", "ttft_s", "total_s", "per_token_s",
+            "rounds_waited", "kv_util", "waterfall", "tenant", "adapter",
+            "cached_tokens"}
+    if len(reqs) != warm + summary["completed"] or len(sums) != 1 or any(
+            set(r) != keys for r in reqs) or {
+            k: v for k, v in sums[0].items()
+            if k not in ("event", "time", "process")} != summary:
+        raise AssertionError(f"--metrics-out: {len(reqs)} serve_request "
+                             f"records for {warm} + {summary['completed']}"
+                             f" requests, {len(sums)} summaries")
+    out["metrics_out"] = dict(serve_requests=len(reqs), warm_up=warm,
+                              summaries=len(sums), seconds=serve_s,
+                              summary=summary)
+    log(f"[scripts] metrics_out: {json.dumps(out['metrics_out'])}")
+    return out, flash, by_name
+
+
 def main() -> int:
     started = time.monotonic()
     import torch
@@ -5182,16 +5786,31 @@ def main() -> int:
     zero8b, zero8b_flash = phase_zero8b()
     pipe, pipe_flash = phase_pipe()
     moe, moe_flash, moe_profiled = phase_moe()
-    serve_ckpt, ckpt_flash, ckpt_int8 = phase_serve_ckpt()
-    files, files_flash, files_profiled = phase_files(lm_d64)
-    pipe_moe, pipe_moe_flash, pipe_moe_profiled = phase_pipe_moe()
+    # phase 28's checkpoints stay under ckpt_root for phase 32's eval
+    ckpt_root = tempfile.mkdtemp(prefix="chip-smoke-serve-")
+    try:
+        serve_ckpt, ckpt_flash, ckpt_int8 = phase_serve_ckpt(ckpt_root)
+        files, files_flash, files_profiled = phase_files(lm_d64)
+        pipe_moe, pipe_moe_flash, pipe_moe_profiled = phase_pipe_moe()
 
-    model = build_model(seed=0)
-    forward = phase_forward(model)
-    serve, serve_launches = phase_serve(model)
-    prefix_lora, pl_launches = phase_prefix_lora(model)
+        model = build_model(seed=0)
+        forward = phase_forward(model)
+        serve, serve_launches = phase_serve(model)
+        prefix_lora, pl_launches = phase_prefix_lora(model)
+        t32 = time.monotonic()
+        tenants, tenant_launches = phase_tenants(model)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        fault1 = phase_fault1()
+        scripts, eval_flash, eval_by_name = phase_scripts(
+            os.path.join(ckpt_root, "llama"))
+        log(f"[tenants_scripts] phase 32: {time.monotonic() - t32:.1f} s")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    gen_launches = scripts["convert"]["w8a16_launches"]
     launches = (sum(serve_launches.values()) + ckpt_int8
-                + sum(pl_launches.values()))
+                + sum(pl_launches.values()) + tenant_launches + gen_launches)
 
     at8 = {r["shape"]: r for r in rows if r["m"] == 8}
     at128 = {r["shape"]: r for r in rows if r["m"] == 128}
@@ -5210,7 +5829,17 @@ def main() -> int:
         launches_by_path=dict(serve_compute=serve_launches["compute"],
                               serve_int8_cache=serve_launches["int8"],
                               serve_ckpt_8b=ckpt_int8,
-                              prefix_lora=pl_launches),
+                              prefix_lora=pl_launches,
+                              tenants=tenant_launches,
+                              generate_converted=gen_launches),
+        at_tenants=dict(
+            profiled_round=tenants["profiled_round"],
+            per="phase 32 on the full-width 8B: the tenant mix (a flood of "
+                "24 with a quota of 2, two light tenants of 3), 129 a "
+                "forward; profiled_round: the w8a16 kernels by name in one "
+                "profiled decode round; generate_converted: "
+                "scripts/generate.py on a converted 2-layer 8B, 9 a "
+                "forward"),
         at_prefix_lora=dict(
             profiled_round=prefix_lora["compute"]["profiled_round"],
             at_suffix_rows=prefix_lora["w8a16_at_suffix"],
@@ -5269,6 +5898,11 @@ def main() -> int:
                        "(B 64, T 1024, remat) and llama3_8b_zero at depth "
                        f"{CK_8B_LAYERS} 1 step (B 1, T 4096, remat)",
             launches_offload=offload_flash[name],
+            launches_eval=eval_flash[name],
+            eval_by_name=(eval_by_name or {}).get(name),
+            eval="scripts/eval.py on phase 28's 2-layer 8B checkpoint, "
+                 f"{EVAL_BATCHES} batches at T 4096; by name: the kernels "
+                 "of this name in the call's profiled trace",
             launches_files=files_flash[name],
             profiled_launches_files=files_profiled[name],
             files="transformer_lm_pp from a 16M-token uint16 token file "
@@ -5354,7 +5988,8 @@ def main() -> int:
                         offload=offload, flash8b=flash8b, zero8b=zero8b,
                         pipe=pipe, moe=moe, serve_ckpt=serve_ckpt,
                         files=files, pipe_moe=pipe_moe,
-                        prefix_lora=prefix_lora)))
+                        prefix_lora=prefix_lora, tenants=tenants,
+                        fault1=fault1, scripts=scripts)))
     from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
 
     bootstrap.shutdown()  # the NCCL group of the data-parallel phases

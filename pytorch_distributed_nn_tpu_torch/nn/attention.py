@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from pytorch_distributed_nn_tpu_torch.nn.layers import dense_product
 from pytorch_distributed_nn_tpu_torch.nn.lora import lora_delta
 from pytorch_distributed_nn_tpu_torch.nn.quantized import Int8DenseGeneral
 from pytorch_distributed_nn_tpu_torch.ops.flash_attention import (
@@ -298,7 +299,8 @@ def _decode_attention(q, k, v, pos_mask, dtype, kscale=None, vscale=None):
 class _DenseGeneral(nn.Module):
     """Float ``nn.DenseGeneral`` with the flax kernel layout (in...,
     features...) and, with ``use_bias``, a bias of shape ``features``
-    added in ``dtype`` after the product; computes in ``dtype``."""
+    added in ``dtype`` after the product; computes in ``dtype``, a decode
+    step's rows in fixed blocks (``nn.layers.dense_product``)."""
 
     def __init__(self, in_shape, features, *, dtype, param_dtype,
                  use_bias: bool = False, device=None) -> None:
@@ -318,7 +320,7 @@ class _DenseGeneral(nn.Module):
         nin = len(self.in_shape)
         lead = x.shape[:x.dim() - nin]
         k = self.kernel.to(self.dtype).reshape(-1, math.prod(self.features))
-        y = (x.to(self.dtype).reshape(*lead, -1) @ k).reshape(
+        y = dense_product(x.to(self.dtype).reshape(*lead, -1), k).reshape(
             *lead, *self.features)
         return y if self.bias is None else y + self.bias.to(self.dtype)
 

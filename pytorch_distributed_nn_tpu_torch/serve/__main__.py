@@ -5,12 +5,15 @@ Usage:
         --model.extra '{"quantized": true, "fused_proj": true}' \\
         [--checkpoint-dir DIR] [--device cuda] [--slots 4] \\
         [--max-seq-len 256] [--requests 32] [--rate 20] [--max-new 16] \\
-        [--closed-loop] [--users 4]
+        [--closed-loop] [--users 4] [--metrics-out serve.jsonl]
 
 Runs the loopback server against a synthetic ragged workload and prints
 one JSON summary line (requests, rejects, tokens/s, TTFT and per-token
 latency percentiles, batch occupancy, KV utilization), as the JAX
-package's ``scripts/serve.py`` does.
+package's ``scripts/serve.py`` does. ``--metrics-out`` appends the JSONL
+records (``utils/metrics.py``): one ``serve_request`` a finished request
+(the warm-up's included), one ``serve_reject`` a rejection, and the
+``serve_summary``; stdout stays the one summary line.
 
 Weights: with ``--checkpoint-dir``, the newest step that the port's
 Trainer wrote there, read whole by ``train.checkpoint.read_full_params``
@@ -47,7 +50,8 @@ def restore_params(directory: str) -> tuple[dict, int]:
         read_full_params,
     )
 
-    step, meta = checkpoint_meta(directory)
+    # read_full_params verifies the step's files against its manifest
+    step, meta = checkpoint_meta(directory, verify=False)
     if meta.get("layout", {}).get("strategy") == "pipeline":
         raise ValueError(
             f"{directory} step {step} holds the pipeline layout (stage "
@@ -99,6 +103,9 @@ def main(argv=None) -> int:
     ap.add_argument("--users", type=int, default=4,
                     help="closed-loop user count")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--metrics-out", default="",
+                    help="JSONL path for serve_request/serve_summary "
+                         "events")
     args, rest = ap.parse_known_args(argv)
 
     from pytorch_distributed_nn_tpu_torch.config import (
@@ -121,6 +128,7 @@ def main(argv=None) -> int:
     )
     from pytorch_distributed_nn_tpu_torch.serve.engine import _bucket_len
     from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
+    from pytorch_distributed_nn_tpu_torch.utils.metrics import MetricsLogger
 
     device = resolve_device(args.device)
     cfg = get_config(args.preset, **parse_overrides(rest))
@@ -147,10 +155,12 @@ def main(argv=None) -> int:
               f"(seed {args.seed}, load test only)", file=sys.stderr)
     model.eval()
 
+    # no --metrics-out: stdout stays the one summary line below
+    metrics = MetricsLogger(args.metrics_out) if args.metrics_out else None
     engine = ServingEngine(
         model, max_slots=args.slots, max_seq_len=args.max_seq_len,
         block_size=args.block_size, max_queue=args.max_queue,
-        max_prefills_per_round=args.max_prefills)
+        max_prefills_per_round=args.max_prefills, metrics=metrics)
     vocab = model.vocab_size
     max_prompt = max(args.min_prompt,
                      min(args.max_prompt, args.max_seq_len - args.max_new))
@@ -213,6 +223,9 @@ def main(argv=None) -> int:
         device=(torch.cuda.get_device_name(device)
                 if device.type == "cuda" else "cpu"),
     )
+    if metrics is not None:
+        metrics.emit("serve_summary", **summary)
+        metrics.close()
     print(json.dumps(summary))
     return 0
 

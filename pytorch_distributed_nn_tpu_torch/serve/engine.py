@@ -14,8 +14,11 @@ prefix and masked slots contribute exact zeros after the softmax, so
 sharing a batch with strangers does not change a row's tokens. On the card
 the bits also need each op to reduce a row in an order that the other
 rows and the cache length do not change: the W8A16 kernel does so by
-design, and the attention's products and the norms' row reductions do at
-the decode shapes (``chip_smoke.py`` phase 7 holds the tokens); a
+design, the float models' dense products take a decode step's rows in
+fixed blocks of 8 (``nn.layers.dense_product``), and the attention's
+products and the norms' row reductions do at the decode shapes
+(``chip_smoke.py`` phase 7 holds the int8 8B's tokens, phase 32 a float
+Llama's and the transformer LM's logits bit for bit); a
 reduction's order does follow the number of rows from some count up, so
 the prefill runs the prompt's own L rows with ``last_only``, as
 ``generate()`` does, not a padded bucket.
@@ -62,9 +65,19 @@ n)`` picks a request's adapter; a per-slot mirror of adapter ids rides the
 decode step, so rows on different adapters share one batch, and the prefix
 cache keys blocks by adapter, so adapters never share KV.
 
-Not ported: metering, audit, chaos and trace hooks, tenant quotas
-(ROADMAP.md §1 item 4.6b), and the block export/ingest of disaggregated
-serving (slice 6).
+Tenants (``tenant_quotas``, ``submit(tenant=)``): the scheduler's quotas
+and its deficit round-robin across tenants (``serve/scheduler.py``); each
+finished record names its tenant, and :meth:`ServingEngine.summary` carries
+the per-tenant counts by state.
+
+Records: with ``metrics`` (a ``utils.metrics.MetricsLogger``) every
+finished request is written as a ``serve_request`` record and every
+rejection as ``serve_reject``, with the JAX records' keys.
+
+Not ported (slice 6, ROADMAP.md §1 item 5): metering (and its per-tenant
+split), audit, chaos (its ``tenant_flood`` drill included) and trace hooks
+(the scheduler's ``trace_ctx``), the per-tenant TTFT histogram, and the
+block export/ingest of disaggregated serving.
 """
 
 from __future__ import annotations
@@ -254,13 +267,16 @@ class ServingEngine:
     """Continuous-batching engine over one model (its parameters live in
     the module, on its device). ``prefix_cache`` (default on) shares the
     KV of resident prompt prefixes; ``lora_bank`` (``nn/lora.py``) serves
-    per-request adapters."""
+    per-request adapters; ``tenant_quotas`` caps each named tenant's live
+    requests; ``metrics`` writes the request records."""
 
     def __init__(self, model, *, max_slots: int = 4,
                  max_seq_len: int = 256, block_size: int = 16,
                  max_queue: int = 64, max_prefills_per_round: int = 2,
-                 eos_token: Optional[int] = None, prefix_cache: bool = True,
+                 eos_token: Optional[int] = None, metrics=None,
+                 prefix_cache: bool = True,
                  lora_bank: Optional[dict] = None,
+                 tenant_quotas: Optional[dict] = None,
                  stream_chunk_tokens: int = 1) -> None:
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
@@ -269,6 +285,7 @@ class ServingEngine:
         self.max_slots = max_slots
         self.max_seq_len = int(max_seq_len)
         self.eos_token = eos_token
+        self.metrics = metrics  # MetricsLogger or None
         # the stacked adapter factors, on the model's device
         self.lora_bank = None if lora_bank is None else {
             k: v.to(self.device) for k, v in lora_bank.items()}
@@ -289,7 +306,8 @@ class ServingEngine:
         self.scheduler = Scheduler(
             pool, max_queue=max_queue, max_seq_len=self.max_seq_len,
             max_prefills_per_round=max_prefills_per_round,
-            prefix_cache=self.prefix_cache)
+            tenant_quotas=tenant_quotas, prefix_cache=self.prefix_cache)
+        self.scheduler.metrics = metrics
         self._slots: list[Optional[_Slot]] = [None] * max_slots
         self._h_last = np.zeros((max_slots,), np.int32)
         self._h_depth = np.zeros((max_slots,), np.int32)
@@ -590,6 +608,15 @@ class ServingEngine:
     def _finish_record(self, s: _Slot) -> None:
         req = s.req
         decode = req.t_done - req.t_first_token
+        # the request's timeline: queue -> prefill -> decode, and its rounds
+        waterfall = dict(
+            queued_s=round(max(req.t_admit - req.t_submit, 0.0), 6),
+            prefill_s=round(max(req.t_first_token - req.t_admit, 0.0), 6),
+            decode_s=round(max(decode, 0.0), 6),
+            round_submitted=req.round_submitted,
+            round_admitted=req.round_admitted,
+            round_done=req.round_done,
+        )
         rec = dict(
             request_id=req.request_id, prompt_len=len(req.prompt),
             new_tokens=s.emitted, ttft_s=req.t_first_token - req.t_submit,
@@ -597,6 +624,7 @@ class ServingEngine:
             per_token_s=decode / max(s.emitted - 1, 1),
             rounds_waited=req.round_admitted - req.round_submitted,
             kv_util=self.scheduler.pool.utilization(),
+            waterfall=waterfall, tenant=req.tenant,
             adapter=req.adapter, cached_tokens=s.cached,
         )
         # absent for default requests, as in the JAX records
@@ -608,6 +636,8 @@ class ServingEngine:
         if req.stream is not None:
             rec["stream_chunks"] = req.stream.chunks
         self.completed.append(rec)
+        if self.metrics is not None:
+            self.metrics.emit("serve_request", **rec)
 
     def _sync_slots(self) -> None:
         """Push the host slot mirrors to the device (admission/retirement
@@ -654,4 +684,5 @@ class ServingEngine:
         )
         if self.prefix_cache is not None:
             out.update(self.prefix_cache.stats())
+        out.update(self.scheduler.stats())
         return out

@@ -1,18 +1,30 @@
 """Request scheduler: bounded admission queue + prefill/decode policy.
 
-Counterpart of the JAX package's ``serve/scheduler.py`` for one tenant,
-without its observability, chaos and metering hooks, tenant quotas, the
-round-robin across tenants, and trace contexts (ROADMAP.md §1 item 4.6b).
-Clients call :meth:`Scheduler.submit` from any thread; the engine loop
-(one thread) calls :meth:`next_admissions` once per round. Policy:
+Counterpart of the JAX package's ``serve/scheduler.py``, without its
+observability, chaos and metering hooks and its trace contexts (slice 6,
+ROADMAP.md §1 item 5). Clients call :meth:`Scheduler.submit` from any
+thread; the engine loop (one thread) calls :meth:`next_admissions` once per
+round. Policy:
 
-- **backpressure**: the queue is bounded (``max_queue``); a submit that
-  finds it full is rejected at once with reason ``backpressure``;
-  oversize requests (``too_large``) are rejected at the same point;
-- **FIFO, no bypass**: if the head does not fit (batch slot or KV
-  reservation), nothing is admitted this round, so a big request cannot
-  be starved by small ones; with reservation at admission every running
-  sequence finishes within its budget;
+- **backpressure**: the queue is bounded (``max_queue``, over every
+  tenant); a submit that finds it full is rejected at once with reason
+  ``backpressure``; oversize requests (``too_large``) are rejected at the
+  same point;
+- **tenant quotas**: ``tenant_quotas={"name": n}`` caps a tenant's live
+  residency (queued + running; a best-of-n request holds one) at n; a
+  submit past the cap is rejected ``tenant_quota``, checked before
+  backpressure. The reject order is draining, too_large, tenant_quota,
+  backpressure;
+- **deficit round-robin across tenants, FIFO within one, no bypass**:
+  each tenant has its own queue and admission rotates through the
+  tenants in order of their first submit, one request a tenant a turn
+  (an emptied tenant is skipped without spending a turn; the rotation
+  moves once an admission), so a flooding tenant's light neighbour is at
+  most one rotation away. If the head whose turn it is does not fit
+  (batch slot or KV reservation), nothing more is admitted this round,
+  across tenants too, so a big request cannot be starved by small ones;
+  with reservation at admission every running sequence finishes within
+  its budget;
 - **prefix cache**: with a :class:`~serve.prefix_cache.PrefixCache`
   attached, admission goes through :meth:`PrefixCache.admit` (a resident
   shared prefix is reserved by reference, the match stored on the request
@@ -29,7 +41,11 @@ Clients call :meth:`Scheduler.submit` from any thread; the engine loop
   later submit.
 
 Every state change goes through :meth:`Scheduler._transition`, which sets
-``done`` exactly once, on the terminal transition.
+``done`` exactly once, on the terminal transition, counts the transition
+by tenant and state (:meth:`Scheduler.stats`, the labels of the JAX
+``serve_tenant_requests_total{tenant,state}`` counter; its registry is
+slice 6) and, with a ``metrics`` logger (``utils/metrics.py``), writes a
+``serve_reject`` record for each rejection.
 """
 
 from __future__ import annotations
@@ -79,8 +95,11 @@ class Request:
     t_done: float = 0.0
     round_submitted: int = -1
     round_admitted: int = -1
-    # the per-request LoRA adapter (0: the base model), and the
-    # PrefixMatch the admission stored for the engine's restore
+    round_done: int = -1
+    # the quota and fairness identity, the per-request LoRA adapter (0:
+    # the base model), and the PrefixMatch the admission stored for the
+    # engine's restore
+    tenant: str = "default"
     adapter: int = 0
     prefix_match: object = None
     # how this request's tokens are chosen; None is greedy with one branch
@@ -92,6 +111,9 @@ class Request:
     # cumulative log-probability
     n_best: Optional[list] = None
     logprob: float = 0.0
+    # True while this request counts against its tenant's live residency
+    # (set on QUEUED, dropped on any terminal transition)
+    quota_held: bool = False
 
     @property
     def total_tokens(self) -> int:
@@ -121,6 +143,7 @@ class Scheduler:
     def __init__(self, pool: KVPool, *, max_queue: int = 64,
                  max_seq_len: int = 0,
                  max_prefills_per_round: int = 2,
+                 tenant_quotas: Optional[dict] = None,
                  prefix_cache=None) -> None:
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
@@ -131,21 +154,48 @@ class Scheduler:
         self.max_queue = max_queue
         self.max_seq_len = int(max_seq_len)
         self.max_prefills_per_round = max_prefills_per_round
+        self.tenant_quotas = dict(tenant_quotas or {})
+        for tenant, quota in self.tenant_quotas.items():
+            if quota < 1:
+                raise ValueError(f"tenant quota must be >= 1, got "
+                                 f"{quota} for {tenant!r}")
         self.prefix_cache = prefix_cache  # PrefixCache | None
         self._lock = threading.Lock()
-        self._queue: collections.deque[Request] = collections.deque()
+        # a FIFO deque a tenant, and the rotation ring (tenant names in
+        # rotation order; the front tenant has the next turn)
+        self._queues: dict[str, collections.deque[Request]] = {}
+        self._rr: collections.deque[str] = collections.deque()
+        self._queued = 0  # waiting over every tenant (the max_queue cap)
+        self._live: dict[str, int] = {}  # tenant -> queued + running
+        # (tenant, state) -> transitions: serve_tenant_requests_total
+        self._tenant_counts: dict[tuple[str, str], int] = {}
         self.round = 0  # advanced by the engine, one per round
         self.draining = False
+        self.metrics = None  # a MetricsLogger, set by the owning engine
 
     def _transition(self, req: Request, state: str,
                     reason: str = "") -> None:
-        """EVERY request state change funnels through here; terminal
-        states release the waiting client exactly once."""
+        """EVERY request state change funnels through here: counted by
+        tenant and state, the tenant's live residency held from QUEUED to
+        any terminal state, and terminal states release the waiting client
+        exactly once."""
         req.state = state
+        key = (req.tenant, state)
+        self._tenant_counts[key] = self._tenant_counts.get(key, 0) + 1
+        if state == QUEUED and not req.quota_held:
+            req.quota_held = True
+            self._live[req.tenant] = self._live.get(req.tenant, 0) + 1
+        elif state in _TERMINAL and req.quota_held:
+            req.quota_held = False
+            self._live[req.tenant] -= 1
         if state == REJECTED:
             req.reject_reason = reason
+            if self.metrics is not None:
+                self.metrics.emit("serve_reject", request_id=req.request_id,
+                                  reason=reason, tenant=req.tenant)
         if state in _TERMINAL:
             req.t_done = time.monotonic()
+            req.round_done = self.round
             if req.stream is not None:
                 # idempotent: the engine's final chunk closed a DONE
                 # stream; a rejected or failed one ends empty here
@@ -155,12 +205,14 @@ class Scheduler:
     def submit(self, prompt, max_new_tokens: int, *,
                deadline_s: Optional[float] = None,
                request_id: Optional[str] = None,
+               tenant: str = "default",
                adapter: int = 0,
                decode: Optional[DecodeSpec] = None,
                stream: bool = False) -> Request:
         """Thread-safe admission attempt. Always returns a Request; a
         rejected one is already terminal (``reject_reason`` says why).
-        ``adapter`` is the request's LoRA adapter. ``decode`` chooses
+        ``tenant`` names its quota and its queue; ``adapter`` is its LoRA
+        adapter. ``decode`` chooses
         sampling and branches (an all-default spec is the greedy path and
         is dropped); ``stream`` attaches a :class:`TokenStream` (one
         branch only)."""
@@ -184,19 +236,29 @@ class Scheduler:
         req = Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
                       request_id=request_id or f"req-{next(_ids)}",
                       deadline_s=deadline_s, t_submit=time.monotonic(),
-                      adapter=int(adapter), decode=decode)
+                      tenant=str(tenant), adapter=int(adapter),
+                      decode=decode)
         if stream:
             req.stream = TokenStream(req.request_id)
+        quota = self.tenant_quotas.get(req.tenant)
         with self._lock:
             req.round_submitted = self.round
             if self.draining:
                 self._transition(req, REJECTED, reason="draining")
             elif self.max_seq_len and req.total_tokens > self.max_seq_len:
                 self._transition(req, REJECTED, reason="too_large")
-            elif len(self._queue) >= self.max_queue:
+            elif quota is not None \
+                    and self._live.get(req.tenant, 0) >= quota:
+                self._transition(req, REJECTED, reason="tenant_quota")
+            elif self._queued >= self.max_queue:
                 self._transition(req, REJECTED, reason="backpressure")
             else:
-                self._queue.append(req)
+                q = self._queues.get(req.tenant)
+                if q is None:
+                    q = self._queues[req.tenant] = collections.deque()
+                    self._rr.append(req.tenant)
+                q.append(req)
+                self._queued += 1
                 self._transition(req, QUEUED)
         return req
 
@@ -247,29 +309,42 @@ class Scheduler:
         return True
 
     def next_admissions(self, free_slots: int) -> list[Request]:
-        """Pop the requests admitted this round, strict FIFO. Each must fit
-        a free batch slot a branch AND reserve its worst-case KV blocks; a
-        head that cannot ends the round (no bypass)."""
+        """Pop the requests admitted this round: deficit round-robin across
+        tenants (one request a tenant a turn), strict FIFO within a tenant.
+        Each must fit a free batch slot a branch AND reserve its worst-case
+        KV blocks; a head that cannot ends the round, across tenants too
+        (no bypass). A head whose deadline passed is rejected without
+        spending its tenant's turn."""
         admitted: list[Request] = []
         now = time.monotonic()
         with self._lock:
-            while (self._queue and free_slots > 0
+            while (self._queued and free_slots > 0
                    and len(admitted) < self.max_prefills_per_round):
-                head = self._queue[0]
+                # the front of the rotation with work; an emptied tenant
+                # is passed over without spending a turn
+                for _ in range(len(self._rr)):
+                    if self._queues[self._rr[0]]:
+                        break
+                    self._rr.rotate(-1)
+                q = self._queues[self._rr[0]]
+                head = q[0]
                 if head.deadline_s is not None and now > head.deadline_s:
-                    self._queue.popleft()
+                    q.popleft()
+                    self._queued -= 1
                     self._transition(head, REJECTED, reason="deadline")
                     continue
                 if head.branches > free_slots:
                     break  # n branches need n rows now: no bypass
                 if not self._reserve_locked(head):
                     break  # no bypass: wait for blocks to free
-                self._queue.popleft()
+                q.popleft()
+                self._queued -= 1
                 head.t_admit = now
                 head.round_admitted = self.round
                 self._transition(head, RUNNING)
                 admitted.append(head)
                 free_slots -= head.branches
+                self._rr.rotate(-1)  # this tenant's turn is spent
         return admitted
 
     def retire(self, req: Request, tokens: np.ndarray) -> None:
@@ -335,13 +410,25 @@ class Scheduler:
         ``draining``). Returns the number rejected."""
         with self._lock:
             self.draining = True
-            n = len(self._queue)
-            while self._queue:
-                self._transition(self._queue.popleft(), REJECTED,
-                                 reason="draining")
+            n = self._queued
+            for q in self._queues.values():
+                while q:
+                    self._transition(q.popleft(), REJECTED,
+                                     reason="draining")
+            self._queued = 0
         return n
 
     @property
     def queue_depth(self) -> int:
         with self._lock:
-            return len(self._queue)
+            return self._queued
+
+    def stats(self) -> dict:
+        """``{"serve_tenant_requests_total": {tenant: {state: n}}}``: the
+        transitions into each state, by tenant (a request counts once in
+        each state it passed through)."""
+        with self._lock:
+            out: dict[str, dict[str, int]] = {}
+            for (tenant, state), n in sorted(self._tenant_counts.items()):
+                out.setdefault(tenant, {})[state] = n
+        return {"serve_tenant_requests_total": out}

@@ -347,12 +347,13 @@ def _verified_meta(path: Path) -> dict:
     return meta
 
 
-def checkpoint_meta(directory: str | Path,
-                    step: int | None = None) -> tuple[int, dict]:
+def checkpoint_meta(directory: str | Path, step: int | None = None, *,
+                    verify: bool = True) -> tuple[int, dict]:
     """``(step, meta)`` of a checkpoint's newest step (or ``step``), its
-    files verified against the manifest; ``meta["layout"]`` names a sharded
-    layout (absent for a replicated state). Raises FileNotFoundError where
-    there is no step."""
+    files verified against the manifest (``verify=False`` reads the meta
+    alone, for a caller whose next read of the step verifies it);
+    ``meta["layout"]`` names a sharded layout (absent for a replicated
+    state). Raises FileNotFoundError where there is no step."""
     directory = Path(directory)
     if step is None:
         steps = sorted(int(p.name) for p in directory.iterdir()
@@ -361,7 +362,10 @@ def checkpoint_meta(directory: str | Path,
         if not steps:
             raise FileNotFoundError(f"no checkpoint under {directory}")
         step = steps[-1]
-    return step, _verified_meta(directory / str(step))
+    path = directory / str(step)
+    if not verify:
+        return step, json.loads((path / _META).read_text())
+    return step, _verified_meta(path)
 
 
 def read_full_params(directory: str | Path,

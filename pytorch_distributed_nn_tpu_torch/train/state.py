@@ -27,7 +27,7 @@ class TrainState:
     model: torch.nn.Module
     optimizer: Optimizer  # holds the lr schedule and its update count
     # base generator for per-step stochastic ops (seed + 1, apart from the
-    # init's); the Llama path draws nothing from it yet
+    # init's), on the CPU; only its seed is read (dropout_stream's)
     generator: torch.Generator
     step: int = 0
     # the sharded strategies' layout of this rank's part (ZeRO's

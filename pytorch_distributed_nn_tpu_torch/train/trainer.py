@@ -182,7 +182,9 @@ class Trainer:
         else:
             self.model.load_state_dict(params)
         self.model.train()
-        generator = torch.Generator(self.device)
+        # only its seed is read (the dropout stream's): a CPU generator, so
+        # a checkpoint written on one device resumes on the other
+        generator = torch.Generator()
         generator.manual_seed(cfg.seed + 1)  # apart from the init's seed
         if self.is_coordinator:
             log.info("model %s: %.2fM params", cfg.model.name,

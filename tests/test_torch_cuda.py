@@ -1051,3 +1051,112 @@ def test_moe_pipeline_first_loss_matches_the_dp_step(cuda, schedule, pipe,
     assert tuple(a - b for a, b in zip(after, before)) == (L * M,) * 3
     got, want = t.losses()[0], ref.losses()[0]
     assert np.isfinite(got) and abs(got - want) <= 1e-3 * abs(want)
+
+
+def _float_model(cuda, name):
+    from pytorch_distributed_nn_tpu_torch.config import ModelConfig
+    from pytorch_distributed_nn_tpu_torch.models import get_model
+
+    extra = (dict(num_layers=2, d_model=1024, num_heads=8, num_kv_heads=4,
+                  mlp_dim=2816, vocab_size=4096) if name == "llama3_8b"
+             else dict(num_layers=2, d_model=768, num_heads=12,
+                       mlp_dim=3072, vocab_size=4096, max_len=256))
+    model = get_model(ModelConfig(name=name, compute_dtype="bfloat16",
+                                  extra=extra), device=cuda)
+    return model.init_params(seed=16).eval()
+
+
+@pytest.mark.parametrize("name", ["llama3_8b", "transformer_lm"])
+def test_float_engine_rows_are_solo_generate_logits_on_cuda(cuda, name):
+    """ROADMAP §3 fault 1: a float bf16 model's greedy rows in engines of
+    1, 3 and 8 slots give, for every request, a solo ``generate()``'s
+    next-token logits bit for bit and its tokens (the decode step's dense
+    products run on fixed row blocks, ``nn.layers.dense_product``)."""
+    from chip_smoke import f1_engine_logits, f1_solo_logits
+
+    model = _float_model(cuda, name)
+    rng = np.random.default_rng(16)
+    for slots in (1, 3, 8):
+        prompts = [rng.integers(0, 4096, size=int(n)).astype(np.int32)
+                   for n in rng.integers(5, 120, size=slots)]
+        for p, (logits, toks) in zip(prompts,
+                                     f1_engine_logits(model, prompts, slots)):
+            ref, ref_toks = f1_solo_logits(model, p)
+            np.testing.assert_array_equal(toks, ref_toks)
+            assert len(logits) == len(ref) == 8
+            for step, (a, b) in enumerate(zip(logits, ref)):
+                assert torch.equal(a, b), (slots, step,
+                                           (a - b).abs().max().item())
+
+
+def test_scripts_and_metrics_out_on_cuda(cuda, tmp_path, capsys):
+    """The new entry points on the card: an HF-layout state_dict of a tiny
+    float Llama (the port's own export) converted on the CPU, then
+    ``generate`` (its tokens ``generate()``'s on the weights in memory),
+    ``eval`` (its line the Trainer's) and the serve entry point with
+    ``--metrics-out`` (one serve_request a finished request, one
+    serve_summary), each on ``cuda`` by default."""
+    import json
+
+    from pytorch_distributed_nn_tpu_torch.config import ModelConfig, \
+        get_config
+    from pytorch_distributed_nn_tpu_torch.inference.generate import generate
+    from pytorch_distributed_nn_tpu_torch.models import get_model
+    from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
+    from pytorch_distributed_nn_tpu_torch.scripts import convert
+    from pytorch_distributed_nn_tpu_torch.scripts import eval as evals
+    from pytorch_distributed_nn_tpu_torch.scripts import generate as gen
+    from pytorch_distributed_nn_tpu_torch.serve import __main__ as serve_main
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+    from pytorch_distributed_nn_tpu_torch.utils import torch_interop as ti
+    from pytorch_distributed_nn_tpu_torch.utils.interop import (
+        vision_params_to_jax,
+    )
+
+    extra = dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=2,
+                 mlp_dim=256, vocab_size=512)
+    src = get_model(ModelConfig(name="llama3_8b", extra=extra),
+                    device="cpu").init_params(seed=3)
+    sd = ti.llama_params_to_torch(vision_params_to_jax(src.state_dict())[0])
+    pt = tmp_path / "llama.pt"
+    torch.save(sd, pt)
+    ov = ["--model.extra", json.dumps(extra), "--data.vocab_size", "512",
+          "--data.seq_len", "128", "--data.batch_size", "2"]
+    ckpt = str(tmp_path / "ckpt")
+    bootstrap.shutdown()  # the conversion's CPU Trainer joins gloo
+    assert convert.main(["--arch", "llama3", "--preset", "llama3_8b_zero",
+                         "--torch-checkpoint", str(pt), "--out", ckpt,
+                         *ov]) == 0
+    capsys.readouterr()
+    assert gen.main(["--preset", "llama3_8b_zero", "--checkpoint-dir",
+                     ckpt, "--prompt", "5 9 42 7", "--max-new", "6",
+                     *ov]) == 0
+    got = [int(t) for t in capsys.readouterr().out.split()]
+    model = get_model(ModelConfig(name="llama3_8b", extra=extra),
+                      device=cuda)
+    model.load_state_dict({k: v.to(cuda) for k, v in
+                           src.state_dict().items()})
+    want = generate(model.eval(), np.asarray([[5, 9, 42, 7]]), 6)
+    assert got == want.cpu().numpy()[0].tolist()
+    assert evals.main(["--preset", "llama3_8b_zero", "--checkpoint-dir",
+                       ckpt, "--batches", "2", *ov]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    overrides = {k[2:]: v for k, v in zip(ov[0::2], ov[1::2])}
+    try:
+        with Trainer(get_config("llama3_8b_zero", **overrides,
+                                checkpoint_dir=ckpt), device=cuda) as t:
+            rec = t.evaluate(num_batches=2)
+    finally:
+        bootstrap.shutdown()
+    assert line == dict(step=-1, eval_loss=round(rec.loss, 6),
+                        eval_accuracy=round(rec.accuracy, 6), batches=2)
+    path = tmp_path / "serve.jsonl"
+    assert serve_main.main(["--preset", "llama3_8b_zero", "--checkpoint-dir",
+                            ckpt, "--requests", "4", "--rate", "100",
+                            "--max-new", "4", "--metrics-out", str(path),
+                            *ov]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    recs = [json.loads(x) for x in path.read_text().splitlines()]
+    assert sum(r["event"] == "serve_summary" for r in recs) == 1
+    assert sum(r["event"] == "serve_request" for r in recs) > \
+        summary["completed"] == 4

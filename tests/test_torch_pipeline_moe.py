@@ -1,7 +1,10 @@
 """Port parity of the pipeline over the MoE LM (``parallel/pipeline.py``
-with ``models/moe_lm.py``): 4 gloo ranks (one ``torchrun`` gang for every
-configuration) against the JAX pipeline and the JAX ``Trainer`` on one
-device, as ``tests/test_pipeline.py`` holds the JAX pipeline.
+with ``models/moe_lm.py``): 4 gloo ranks (one ``torchrun`` gang a file
+for its configurations) against the JAX pipeline and the JAX ``Trainer``
+on one device, as ``tests/test_pipeline.py`` holds the JAX pipeline. This
+file holds the ``moe_every`` 1 runs on pipe 4, the aux terms and the
+refusals; ``test_torch_pipeline_moe_ep.py`` the ``moe_every`` 2 runs, the
+expert axis and the resume, with the helpers here.
 
 Tiny dims, the JAX tests' ``TINY_MOE``: 4 layers (8 for the interleaved
 runs), d 32, 4 experts of MLP 64, top-2, capacity 2.0, routing groups of
@@ -48,7 +51,6 @@ import torch
 from pytorch_distributed_nn_tpu import config as jconfig
 from pytorch_distributed_nn_tpu.runtime.mesh import make_mesh
 from pytorch_distributed_nn_tpu.train.trainer import Trainer as JTrainer
-from pytorch_distributed_nn_tpu_torch.train.checkpoint import read_full_params
 from pytorch_distributed_nn_tpu_torch.utils.interop import params_from_jax
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -238,38 +240,48 @@ def _jax_init(extra):
     return init
 
 
-SINGLES = {_key(extra): extra for extra, _, _, _ in GOLDEN.values()}
+HERE = ("moe1_gpipe", "moe1_1f1b", "moe1_interleaved")
 
 
-@pytest.fixture(scope="module")
-def started(tmp_path_factory):
-    """Every configuration on one 4-rank gang, started from the JAX
-    initial weights; the gang runs while the JAX runs train."""
+def _singles(names):
+    return {_key(GOLDEN[n][0]): GOLDEN[n][0] for n in names}
+
+
+def start_gang(tmp_path_factory, names, more_runs):
+    """Configurations ``names`` (and ``more_runs(inits, dir)``'s) on one
+    4-rank gang, started from the JAX initial weights; the gang runs while
+    the JAX runs train."""
     d = tmp_path_factory.mktemp("pipe_moe_gang")
     inits = {k: _save_init(d / f"init_{k}.npz", _jax_init(extra))
-             for k, extra in SINGLES.items()}
+             for k, extra in _singles(names).items()}
     runs = {name: {"ov": _overrides(extra, schedule, chunks, **mesh),
                    "init": inits[_key(extra)]}
-            for name, (extra, schedule, chunks, mesh) in GOLDEN.items()}
-    runs["no_aux"] = {"ov": _overrides(dict(TINY_MOE, aux_loss_weight=0.0),
-                                       "1f1b"),
-                      "init": inits[_key(TINY_MOE)]}
-    runs["ckpt_ep"] = {"ov": _overrides(TINY_MOE, "1f1b", steps=4, pipe=2,
-                                        expert=2),
-                       "init": inits[_key(TINY_MOE)],
-                       "ckpt": str(d / "ckpt")}
+            for name, (extra, schedule, chunks, mesh) in
+            ((n, GOLDEN[n]) for n in names)}
+    runs.update(more_runs(inits, d))
     script = d / "worker.py"
     script.write_text(_WORKER)
     return _Gang(script, d, runs), runs, d
 
 
+def jax_runs_for(names):
+    """The JAX single-device runs and the JAX pipelines of ``names``."""
+    singles = {k: _jax_single(extra) for k, extra in _singles(names).items()}
+    pipes = {name: _jax_pipeline(*GOLDEN[name]) for name in names}
+    return singles, pipes
+
+
+@pytest.fixture(scope="module")
+def started(tmp_path_factory):
+    return start_gang(tmp_path_factory, HERE, lambda inits, d: {
+        "no_aux": {"ov": _overrides(dict(TINY_MOE, aux_loss_weight=0.0),
+                                    "1f1b"),
+                   "init": inits[_key(TINY_MOE)]}})
+
+
 @pytest.fixture(scope="module")
 def jax_runs(started):
-    """The JAX single-device runs and the JAX pipelines."""
-    singles = {k: _jax_single(extra) for k, extra in SINGLES.items()}
-    pipes = {name: _jax_pipeline(extra, schedule, chunks, mesh)
-             for name, (extra, schedule, chunks, mesh) in GOLDEN.items()}
-    return singles, pipes
+    return jax_runs_for(HERE)
 
 
 @pytest.fixture(scope="module")
@@ -317,9 +329,9 @@ def _flat(tree):
     return {k: v.numpy() for k, v in params_from_jax(tree).items()}
 
 
-@pytest.mark.parametrize("against", ["jax_single", "jax_pipeline"])
-@pytest.mark.parametrize("name", list(GOLDEN))
-def test_moe_schedule_matches_jax(gang, jax_runs, name, against):
+def check_schedule(gang, jax_runs, name, against):
+    """Configuration ``name``'s losses and final parameters against the JAX
+    single-device run or the JAX pipeline."""
     ranks, _, _ = gang
     singles, pipes = jax_runs
     extra, _, _, mesh = GOLDEN[name]
@@ -333,34 +345,13 @@ def test_moe_schedule_matches_jax(gang, jax_runs, name, against):
     _close_params(_params(ranks, name, mesh["expert"]), want, _flat(init))
 
 
-def test_expert_leaves_split_over_expert_inside_the_stages(gang, jax_runs):
-    """pipe 2 x expert 2: rank (d, e) holds experts [2e, 2e + 2) of the MoE
-    layers of stage d's blocks only, and they are the JAX run's slices."""
-    ranks, _, _ = gang
-    singles, _ = jax_runs
-    final = _flat(singles[_key(TINY_MOE)][2])
-    for name in ("ep_gpipe", "ep_moe2_1f1b"):
-        extra = GOLDEN[name][0]
-        e = extra["moe_every"]
-        for r in ranks:
-            d, ex = (int(v) for v in r[f"{name}/coords"])
-            held = sorted(k.split("/")[2].split(".")[0] for k in r
-                          if k.startswith(f"{name}/param/")
-                          and k.endswith(".moe.wi"))
-            assert held == [f"block{i}" for i in (2 * d, 2 * d + 1)
-                            if i % e == e - 1]
-            for blk in held:
-                wi = r[f"{name}/param/{blk}.moe.wi"]
-                assert wi.shape == (E // 2, 32, 64)
-                if name == "ep_gpipe":
-                    want = final[f"{blk}.moe.wi"][2 * ex:2 * ex + 2]
-                    np.testing.assert_allclose(
-                        wi, want, rtol=0, atol=1e-4 * np.abs(want).max())
+@pytest.mark.parametrize("against", ["jax_single", "jax_pipeline"])
+@pytest.mark.parametrize("name", HERE)
+def test_moe_schedule_matches_jax(gang, jax_runs, name, against):
+    check_schedule(gang, jax_runs, name, against)
 
 
-@pytest.mark.parametrize("name", list(GOLDEN))
-def test_moe_pipeline_eval_matches_jax_and_leaves_the_aux_out(gang, jax_runs,
-                                                             name):
+def check_eval(gang, jax_runs, name):
     """``PipelineStages.evaluate`` on the trained stages against the JAX
     pipeline's evaluation (which leaves the load-balance terms out) and
     against the port's replicated evaluation of the same parameters."""
@@ -381,6 +372,12 @@ def test_moe_pipeline_eval_matches_jax_and_leaves_the_aux_out(gang, jax_runs,
     want = t.evaluate(num_batches=2)
     np.testing.assert_allclose(ranks[0][f"{name}/eval"][0], want.loss,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", HERE)
+def test_moe_pipeline_eval_matches_jax_and_leaves_the_aux_out(gang, jax_runs,
+                                                             name):
+    check_eval(gang, jax_runs, name)
 
 
 def test_aux_terms_reach_the_pipeline_loss_once(gang, jax_runs):
@@ -442,27 +439,3 @@ def test_partition_takes_the_moe_cadence_and_refuses_another():
     model.block0.ffn_name, model.block1.ffn_name = "moe", None
     with pytest.raises(ValueError, match="period-2 pattern"):
         partition_for(model)
-
-
-def test_resume_bit_for_bit_and_full_read_under_the_expert_split(gang):
-    ranks, _, d = gang
-    parts = sorted(str(r["ckpt_ep/part"]) for r in ranks)
-    assert parts == ["pipe0-expert0", "pipe0-expert1", "pipe1-expert0",
-                     "pipe1-expert1"]
-    for r in ranks:
-        flags = r["ckpt_ep/resume"]
-        assert flags[0] == 2 and flags[1:].all()
-        np.testing.assert_array_equal(r["ckpt_ep/resumed_losses"],
-                                      r["ckpt_ep/losses"][2:])
-    full = read_full_params(d / "ckpt" / "straight")
-    want = _params(ranks, "ckpt_ep", expert=2)
-    assert sorted(full) == sorted(want)
-    assert full["block0.moe.wi"].shape[0] == E
-    for k, v in full.items():
-        np.testing.assert_array_equal(v.numpy(), want[k], err_msg=k)
-    meta = json.loads(next((d / "ckpt" / "straight").glob("4/meta.json"))
-                      .read_text())
-    assert sorted(meta["layout"]["experts"]) == sorted(
-        f"block{i}.moe.{w}" for i in range(4) for w in ("wi", "wo"))
-    assert torch.equal(full["block3.moe.wo"],
-                       torch.from_numpy(want["block3.moe.wo"]))

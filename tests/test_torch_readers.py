@@ -18,21 +18,15 @@ the tests write in the upstream formats.
 - The port's Trainer against the JAX Trainer from the same weights:
   ``mlp`` from ``mnist_idx`` and ``lenet`` from ``cifar10_bin``, 3 steps,
   f32 losses within 1e-6 relative and the evaluation on the real test
-  split; ResNet-50 (the full model, ``bn_impl`` pallas: the port's
-  ``bn_stats`` plain version on the CPU) from an image folder at
-  ``image_size`` 32, batch 8, 2 steps: the first f32 loss within 1e-5
-  relative of the JAX Trainer's, both within 1e-5 of a float64 run of the
-  JAX model (the JAX f32 BatchNorm backward is the less exact at this
-  shape; the test's docstring gives the numbers).
+  split; ResNet-50 from an image folder is in
+  ``test_torch_readers_resnet.py``, with the writers and runners here.
 """
 
 import dataclasses
 import gzip
-import json
 import struct
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -340,58 +334,3 @@ def test_trainer_from_the_reader_matches_the_jax_trainer(tmp_path, dataset,
     np.testing.assert_allclose(t.losses(), j_losses, rtol=1e-6)
     np.testing.assert_allclose(ev.loss, j_eval.loss, rtol=1e-6)
     assert ev.accuracy == pytest.approx(j_eval.accuracy, abs=1e-6)
-
-
-def _float64_losses(params, stats, dataset, steps, lr):
-    """The losses of ``steps`` steps of the JAX ResNet-50 in float64
-    (flax BatchNorm) by plain gradient steps of ``lr``: the momentum
-    optimizer's first update is ``lr`` times the gradient, so its first
-    two losses are these."""
-    from pytorch_distributed_nn_tpu.models.resnet import ResNet
-
-    with jax.enable_x64(True):
-        model = ResNet(dtype=jnp.float64, param_dtype=jnp.float64)
-        p, bs = (jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), t)
-                 for t in (params, stats))
-
-        def loss(p, x, y):
-            out, _ = model.apply({"params": p, "batch_stats": bs}, x,
-                                 train=True, mutable=["batch_stats"])
-            logp = jax.nn.log_softmax(out.astype(jnp.float64))
-            return -jnp.take_along_axis(logp, y[:, None], 1).mean()
-
-        out = []
-        for step in range(steps):
-            x, y = dataset.batch(step)
-            value, grad = jax.value_and_grad(loss)(
-                p, jnp.asarray(x, jnp.float64), jnp.asarray(y))
-            out.append(float(value))
-            p = jax.tree.map(lambda a, g: a - lr * g, p, grad)
-    return out
-
-
-def test_resnet50_from_an_image_folder_matches_the_jax_trainer(tmp_path):
-    """The first step's loss against the JAX Trainer, and both steps'
-    against the float64 reference: at this shape (batch 8, 32x32, so
-    4x4 to 1x1 feature maps) the JAX f32 BatchNorm backward loses up to
-    16% of some gradients to cancellation (measured against float64), so
-    the JAX Trainer's second loss is 1.7e-5 off the reference, while the
-    port's (f64 partial sums in ``bn_stats``) is within 1e-7."""
-    image_folder(tmp_path, n_per_class=6)
-    ov = _overrides("image_folder", tmp_path, "resnet50", **{
-        "data.batch_size": "8", "data.image_size": "32", "steps": "2",
-        "data.num_workers": "2", "optim.lr": "0.01",
-        "model.extra": json.dumps({"bn_impl": "pallas"})})
-    (params, stats), j_losses, _ = _jax_run(ov, evaluate=False)
-    t = Trainer(tconfig.get_config("mlp_mnist", **ov), device="cpu",
-                params=vision_params_from_jax(params, stats))
-    assert t.dataset._pool is not None
-    with t:
-        t.train()
-    assert t.dataset._pool is None  # closed with the Trainer
-    losses = t.losses()
-    assert len(losses) == 2 and np.isfinite(losses).all()
-    np.testing.assert_allclose(losses[0], j_losses[0], rtol=1e-5)
-    ref = _float64_losses(params, stats, t.dataset, 2, lr=0.01)
-    np.testing.assert_allclose(losses, ref, rtol=1e-5)
-    assert abs(losses[1] - ref[1]) < abs(j_losses[1] - ref[1])
