@@ -157,7 +157,8 @@ Config 4's transformer LM and config 3's BERT (phase 17 runs after phase
 
 The trainer features (run after phase 19):
 
-20. ckpt     -- llama3_longcontext as it is (T 32768): 4 straight steps
+20. ckpt     -- llama3_longcontext (T 32768) at 2 of its 8 layers: 4
+              straight steps
               against 2 steps with an asynchronous save every 2 steps, a
               fresh Trainer that resumes and 2 more steps (losses and
               state within CKPT_TOL, bit for bit expected); the
@@ -232,7 +233,7 @@ Serving a trained checkpoint (phase 28 runs after phase 27):
               restored params equal the trained ones bit for bit, the
               engine's greedy tokens equal generate()'s on them, one
               sampled request twice gives one stream. (b) llama3_8b_zero at
-              full width, zero_stage 3, cut to 2 of 32 layers, trains 1
+              full width, zero_stage 3, cut to 1 of 32 layers, trains 1
               step at batch 1 and saves; served with {"quantized": true,
               "fused_proj": true}, quantized at load: the int8 params equal
               the trained f32 params quantized in memory, the engine's
@@ -274,10 +275,10 @@ Training from the user's files and the MoE LM under the pipeline (phases
               microbatches a stage held, a profiled step with the flash
               kernels counted by name.
 
-The prefix cache and LoRA adapters (phase 31 runs after phase 7, on its
-model):
+The prefix cache and LoRA adapters (phase 31 runs after phase 7, on the
+same seeded int8 8B cut to 8 of 32 layers, PL_LAYERS):
 
-31. prefix_lora -- the full-width int8 Llama-3-8B of phase 6 serving
+31. prefix_lora -- the full-width int8 Llama-3-8B at 8 layers serving
               through InferenceServer(ServingEngine(...)) with 8 slots and
               blocks of 16 rows, on the compute and then the int8 KV
               cache: 4 system prompts of 256 tokens, 24 requests each a
@@ -290,7 +291,7 @@ model):
               and a failure); at least 20 hits; hits, misses, evictions,
               prompt tokens saved, TTFT and prefill time of hits and
               misses; W8A16 counts reset just before and read just after
-              each run (129 a forward); a hit's restore (16 blocks) and a
+              each run (33 a forward); a hit's restore (16 blocks) and a
               retire's save (20 blocks) timed against their bound; the
               w8a16 kernels counted by name in one profiled round of a
               hit. Before each cache's runs, a 300-token prompt's last T
@@ -318,25 +319,44 @@ Tenants, the greedy contract of float models and the user scripts (phase
               all submitted before the first round: 22 rejected
               tenant_quota, each light head admitted within one rotation,
               every served request's tokens equal it served alone, W8A16
-              129 a forward (counts reset just before and read just after)
+              33 a forward (counts reset just before and read just after)
               and by name in a profiled round. (b) fault 1: a float bf16
-              Llama at the 8B's widths (2 layers) and config 4's LM, greedy
+              Llama at the 8B's widths (1 layer) and config 4's LM, greedy
               rows in engines of 1, 3 and 8 slots against a solo
               generate() of each prompt: logits bit for bit and tokens
               (the decode step's dense products on fixed row blocks); the
               gap without the blocks, and the bf16 decode step's time at 1
               and 8 rows with and without them. (c) scripts/eval.py on
-              phase 28's 2-layer 8B checkpoint: its line equals the
-              in-process Trainer.evaluate; flash_fwd counted by the wrapper
+              phase 28's 1-layer 8B checkpoint: its line equals phase
+              28's Trainer.evaluate of the state it saved, taken before
+              the Trainer closed; flash_fwd counted by the wrapper
               and by name. (d) a seeded HF-layout Llama state_dict at the
-              8B's widths (2 layers, bf16) through scripts/convert.py (on
+              8B's widths (1 layer, bf16) through scripts/convert.py (on
               the CPU, --optim.name sgd), scripts/generate.py quantized at
               load (tokens equal generate() on the weights loaded in
-              memory; W8A16 9 a forward) and --export (every tensor back
+              memory; W8A16 5 a forward) and --export (every tensor back
               bit for bit); seconds and bytes of each. (e) the serve entry
-              point with --metrics-out (int8, 2 layers at the 8B's
+              point with --metrics-out (int8, 1 layer at the 8B's
               widths): one serve_request a finished request with the JAX
               record's keys, one serve_summary.
+33. tensor  -- the tensor axis (ROADMAP §1 item 3.2) with the tensor ranks
+              as processes that share the card in their own gloo group
+              (NCCL refuses two ranks on one device), every run and its
+              one-process reference at the full lr (no warmup), so each
+              second loss follows a real update: (a) transformer_lm_pp at
+              full width and batch at mesh.tensor 2, the first batch's
+              gradients leaf by leaf and 2 steps' losses against one
+              process's, flash 24/12/12 a step by wrapper and by name, the
+              recorder's collectives, peak memory a rank; (b)
+              llama3_8b_zero at full width, 2 of 32 layers, under ZeRO-3
+              on fsdp 2 x tensor 2 (4 processes; the vocab tables split
+              over tensor and fsdp), 2 steps against the world-1 steps;
+              (c) scripts/generate.py --tp 2 on the 8B (32 layers), bf16
+              and int8, tokens equal to one process's, W8A16 129 a decode
+              step by wrapper and by name, per-token latency and cache
+              bytes a rank; (d) transformer_lm_pp at 4 layers on
+              mesh.pipe 2 x tensor 2 (both stages in each process), gpipe
+              and 1f1b against one process's pipe 2.
 
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit from nvidia-smi, and the result JSON line.
@@ -414,6 +434,16 @@ INT8_KV_TOL = 0.15
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_TICK = [time.monotonic()]
+
+
+def tick(label: str) -> None:
+    """Log the seconds since the previous tick (each phase's wall time)."""
+    now = time.monotonic()
+    log(f"[time] {label}: {now - _TICK[0]:.1f} s")
+    _TICK[0] = now
 
 
 def card_line() -> str:
@@ -915,8 +945,7 @@ def profile_train_step(trainer):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                   acc_events=True)
+    prof = profile(activities=[ProfilerActivity.CUDA], acc_events=True)
     try:
         prof.start()
     except RuntimeError as e:
@@ -2234,8 +2263,7 @@ def profile_step(trainer, steps=1, count=None):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                   acc_events=True)
+    prof = profile(activities=[ProfilerActivity.CUDA], acc_events=True)
     try:
         prof.start()
     except RuntimeError as e:
@@ -2562,7 +2590,26 @@ def phase_bert():
     return result, q_launches
 
 
-def build_model(seed=0):
+# the 8B that phases 6 and 7 serve: full width and depth. At 16 layers
+# phase 7 found an int8-cache greedy request's engine tokens unequal to its
+# solo generate() (ROADMAP.md §3), so the depth stays whole there
+SERVE_LAYERS = 32
+# the 8B of phases 31 and 32's tenants: full width, 8 of 32 layers (the
+# script's time limit); their checks hold engine runs against engine runs
+PL_LAYERS = 8
+
+
+def w8a16_a_forward(layers):
+    """W8A16 launches a forward of the int8 8B at ``layers`` layers: each
+    layer's qkv, out, gate_up and down, and the head."""
+    return 4 * layers + 1
+
+
+W8A16_A_FORWARD = w8a16_a_forward(SERVE_LAYERS)
+W8A16_PL = w8a16_a_forward(PL_LAYERS)
+
+
+def build_model(seed=0, layers=SERVE_LAYERS):
     import torch
 
     from pytorch_distributed_nn_tpu_torch.config import get_config
@@ -2572,7 +2619,8 @@ def build_model(seed=0):
     )
 
     cfg = get_config("llama3_8b_zero", **{
-        "model.extra": json.dumps(dict(quantized=True, fused_proj=True))})
+        "model.extra": json.dumps(dict(quantized=True, fused_proj=True,
+                                       num_layers=layers))})
     model = get_model(cfg.model, device=torch.device("cuda"))
     synthetic_int8_params(model, seed=seed)
     torch.cuda.synchronize()
@@ -2612,7 +2660,8 @@ def run_forwards(model, tokens, steps):
 def profile_decode_step(model, tokens):
     """Device time of one B=8 decode step by torch.profiler: the sum of the
     CUDA kernels' own durations, and the W8A16 kernels' share and count
-    (one a call: 129 a forward), the step set between :func:`_margin`'s
+    (one a call: W8A16_A_FORWARD a forward), the step set between
+    :func:`_margin`'s
     spin kernels. None
     where the profiler cannot start or records no device activity. Only
     the profiler's own errors are caught: the step itself runs outside any
@@ -2631,8 +2680,7 @@ def profile_decode_step(model, tokens):
     with torch.inference_mode():
         model(tokens[:, :P], cache=cache, cache_positions=zeros)
         torch.cuda.synchronize()
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA], acc_events=True)
+        prof = profile(activities=[ProfilerActivity.CUDA], acc_events=True)
         try:
             prof.start()
         except RuntimeError as e:
@@ -2671,8 +2719,8 @@ def kernel_device_ms(fn, reps, name):
 
     fn()
     torch.cuda.synchronize()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                   acc_events=True)
+    # the device's activity alone: only its kernels are read
+    prof = profile(activities=[ProfilerActivity.CUDA], acc_events=True)
     try:
         prof.start()
     except RuntimeError as e:
@@ -2709,7 +2757,8 @@ def twin(model, compute_dtype, cache_dtype="compute"):
 
     cfg = get_config("llama3_8b_zero", **{
         "model.extra": json.dumps(dict(quantized=True, fused_proj=True,
-                                       cache_dtype=cache_dtype)),
+                                       cache_dtype=cache_dtype,
+                                       num_layers=model.num_layers)),
         "model.compute_dtype": compute_dtype})
     out = get_model(cfg.model, device="meta")
     out.load_state_dict(model.state_dict(), assign=True)
@@ -2754,10 +2803,10 @@ def phase_forward(model):
         tmm.int8_matmul.launches = 0
         got, step_s = run_forwards(m, tokens, steps)
         launches = tmm.int8_matmul.launches
-        if launches != 129 * (1 + steps):
+        if launches != W8A16_A_FORWARD * (1 + steps):
             raise AssertionError(
                 f"{launches} kernel launches in {1 + steps} forwards, "
-                f"expected {129 * (1 + steps)}")
+                f"expected {W8A16_A_FORWARD * (1 + steps)}")
         calls.clear()
         run_with(checked, m)
         err, scale, tol = torch.stack(calls).cpu().unbind(1)
@@ -2785,7 +2834,8 @@ def phase_forward(model):
             sure = (top2[:, 0] - top2[:, 1]) > 2 * tol * scale
             decisive += int(sure.sum())
             dis += int((sure & ~same).sum())
-        log(f"[forward] {dtype}: launches={launches} (129 x {1 + steps}); "
+        log(f"[forward] {dtype}: launches={launches} "
+            f"({W8A16_A_FORWARD} x {1 + steps}); "
             f"every call on live activations max|err|/max|ref|="
             f"{call_err:.3e} (tol {TOL}); logits max|dlogit|/max|logit|="
             f"{worst:.3e} (tol {tol}); greedy token agrees in {agree}/{rows}"
@@ -2810,9 +2860,10 @@ def phase_forward(model):
         prof["idle_share_vs_unprofiled_step"] = 1 - prof["device_ms"] / wall
         log(f"[forward] decode step B=8 under torch.profiler: "
             f"{json.dumps(prof)}")
-        if prof["w8a16_kernels"] != 129:  # one launch a call
+        if prof["w8a16_kernels"] != W8A16_A_FORWARD:  # one a call
             raise AssertionError(f"{prof['w8a16_kernels']} w8a16 kernels in "
-                                 "one decode forward, expected 129")
+                                 "one decode forward, expected "
+                                 f"{W8A16_A_FORWARD}")
     result["profile"] = prof
     return result
 
@@ -2957,10 +3008,11 @@ def serve_one_cache(model, cache_dtype):
         if len(r.tokens) != SERVE_NEW or not (
                 0 <= int(r.tokens.min()) and int(r.tokens.max()) < V):
             raise AssertionError(f"{name}: {r.tokens}")
-    if launches != 129 * (len(timed) + len(rounds)):
+    if launches != W8A16_A_FORWARD * (len(timed) + len(rounds)):
         raise AssertionError(
             f"{cache_dtype}: {launches} launches for {len(timed)} prefills "
-            f"and {len(rounds)} decode rounds, expected 129 per forward")
+            f"and {len(rounds)} decode rounds, expected {W8A16_A_FORWARD} "
+            "per forward")
     for name in again_names:
         a, b = again[name], reqs[name]
         same = np.array_equal(a.tokens, b.tokens)
@@ -3211,7 +3263,7 @@ PL_LORA = dict(num_adapters=4, rank=16, scale=0.3)
 PL_LORA_NEW = 8
 PL_RATE_HZ = 50.0
 PL_ROWS = (1, 2, 4, 8, 16, 44)  # suffix rows of pl_rows
-W8A16_A_FORWARD = 129  # the 8B: 32 layers x (qkv, out, gate_up, down) + head
+
 
 
 def pl_stream(seed=31):
@@ -3283,9 +3335,10 @@ def pl_serve(model, waves, *, prefix_cache=True, max_seq_len=PL_SEQ):
     finally:
         server.stop()
     forwards = len(engine.completed) + len(engine.round_seconds)
-    if launches != W8A16_A_FORWARD * forwards:
+    if launches != W8A16_PL * forwards:
         raise AssertionError(f"{launches} W8A16 launches for {forwards} "
-                             "forwards, expected 129 a forward")
+                             f"forwards, expected {W8A16_PL} a "
+                             "forward")
     return engine, reqs, launches, wall
 
 
@@ -3445,7 +3498,7 @@ def pl_store_ms(engine):
 def pl_profiled_step(model, prompt):
     """The W8A16 kernels by name in one profiled round of a fresh engine
     that admits ``prompt`` on a hit (the prompt served once before) and
-    decodes a round: 129 a forward. None where the profiler records
+    decodes a round: W8A16_PL a forward. None where the profiler records
     nothing. Measurement only."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3458,8 +3511,7 @@ def pl_profiled_step(model, prompt):
     engine.run_until_idle()
     req = engine.submit(prompt, 2)
     torch.cuda.synchronize()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                   acc_events=True)
+    prof = profile(activities=[ProfilerActivity.CUDA], acc_events=True)
     try:
         prof.start()
     except RuntimeError as e:
@@ -3536,7 +3588,7 @@ def pl_cache(model, cache_dtype, stream):
             for v in layer.values()))
         prof = pl_profiled_step(model, stream[5][0])
         if prof is not None and \
-                prof["w8a16_kernels"] != W8A16_A_FORWARD * 2:
+                prof["w8a16_kernels"] != W8A16_PL * 2:
             raise AssertionError(f"{prof['w8a16_kernels']} w8a16 kernels "
                                  "in a profiled round of 2 forwards")
         out["profiled_round"] = prof
@@ -3731,8 +3783,21 @@ def state_diff(got, want):
     return worst, bitwise
 
 
+# phase ckpt's llama3_longcontext: full width and T, cut to 2 of its 8
+# layers (the script's time limit; PERF.md §4)
+CKPT_LAYERS = 2
+
+
+def ckpt_overrides():
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+
+    extra = dict(get_config("llama3_longcontext").model.extra,
+                 num_layers=CKPT_LAYERS)
+    return {"model.extra": json.dumps(extra)}
+
+
 def phase_ckpt():
-    """llama3_longcontext as it is (T 32768, flash at D 128): 4 straight
+    """llama3_longcontext (T 32768, flash at D 128) at CKPT_LAYERS: 4 straight
     steps against 2 steps with an asynchronous save every 2 steps, a fresh
     Trainer that resumes, and 2 more steps; then the newest step torn (the
     restore falls back to the one before), then the train entry point in
@@ -3751,7 +3816,7 @@ def phase_ckpt():
 
     root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
     try:
-        straight = longcontext()
+        straight = longcontext(**ckpt_overrides())
         straight.train(steps=2)
         at2 = state_copy(straight)
         straight.train(steps=2)
@@ -3761,7 +3826,8 @@ def phase_ckpt():
         torch.cuda.empty_cache()
 
         ckdir = os.path.join(root, "run")
-        ov = {"checkpoint_dir": ckdir, "checkpoint_every": "2"}
+        ov = {"checkpoint_dir": ckdir, "checkpoint_every": "2",
+              **ckpt_overrides()}
         first = longcontext(**ov)
         L = first.model.num_layers
         reset_flash_counts()
@@ -3830,7 +3896,8 @@ def phase_ckpt():
         pdir = os.path.join(root, "preempt")
         cmd = [sys.executable, "-m", "pytorch_distributed_nn_tpu_torch.train",
                "--preset", "llama3_longcontext", "--steps", "1000",
-               "--log_every", "1", "--checkpoint_dir", pdir]
+               "--log_every", "1", "--checkpoint_dir", pdir,
+               "--model.extra", ckpt_overrides()["model.extra"]]
         env = dict(os.environ, TPUNN_PREEMPT="1",
                    PYTHONPATH=HERE + os.pathsep
                    + os.environ.get("PYTHONPATH", ""))
@@ -3856,7 +3923,7 @@ def phase_ckpt():
                                  f"{failure.GRACEFUL_EXIT_CODE}: "
                                  f"{err[-2000:]}")
         saved = CheckpointManager(pdir).latest_step()
-        after = longcontext(checkpoint_dir=pdir)
+        after = longcontext(checkpoint_dir=pdir, **ckpt_overrides())
         if saved is None or after.data_step != saved:
             raise AssertionError(f"preempted run saved {saved}, resumed at "
                                  f"{after.data_step}")
@@ -4615,7 +4682,7 @@ def phase_moe():
 # rule 3, slice 5: serve a checkpoint that the port's Trainer wrote
 # ---------------------------------------------------------------------------
 CK_NEW = 16  # tokens a request in phase 28's engine checks
-CK_8B_LAYERS = 2  # of 32: the checkpoint (f32 params + adamw) ~18 GB
+CK_8B_LAYERS = 1  # of 32: the checkpoint (f32 params + adamw) ~12.6 GB
 
 
 def serve_entry(argv):
@@ -4659,7 +4726,8 @@ def same_state(got, want):
 
 def phase_serve_ckpt(root):
     """Phase 28, its checkpoints written under ``root`` (the caller's, which
-    phase 32's eval reads the 2-layer 8B's from and then removes). (a)
+    phase 32's eval reads the CK_8B_LAYERS-layer 8B's from and then
+    removes). (a)
     transformer_lm_pp (--mesh.pipe 1 --parallel.strategy dp) at full width
     and depth trains 2 steps with a checkpoint; the serve
     entry point serves it; the restored params are the trained ones bit
@@ -4669,9 +4737,11 @@ def phase_serve_ckpt(root):
     1 and saves; served with {"quantized": true, "fused_proj": true}, which
     quantizes at load: the served int8 params equal the trained f32 params
     quantized in memory bit for bit, the engine's greedy tokens equal
-    generate() on those, and W8A16 runs 4 a layer plus the head a forward.
-    The flash launches of both trainings and the W8A16 launches of (b)'s
-    engine are counted."""
+    generate() on those, and W8A16 runs 4 a layer plus the head a forward;
+    its trainer evaluates the trained state before it closes (the line
+    phase 32's scripts/eval.py must print of the saved step). The flash
+    launches of both trainings and the W8A16 launches of (b)'s engine are
+    counted."""
     import shutil
 
     import numpy as np
@@ -4685,7 +4755,7 @@ def phase_serve_ckpt(root):
     from pytorch_distributed_nn_tpu_torch.serve import __main__ as serve_main
     from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
 
-    def train(preset, **ov):
+    def train(preset, evaluate=False, **ov):
         cfg = get_config(preset, **ov)
         t0 = time.monotonic()
         trainer = Trainer(cfg, device="cuda")
@@ -4696,6 +4766,11 @@ def phase_serve_ckpt(root):
         trained = {k: v.detach().clone()
                    for k, v in trainer.model.state_dict().items()}
         save = dict(trainer.ckpt.last_save)
+        if evaluate:  # what phase 32's scripts/eval.py must print of it
+            rec = trainer.evaluate(num_batches=EVAL_BATCHES)
+            save["eval"] = dict(step=rec.step, eval_loss=round(rec.loss, 6),
+                                eval_accuracy=round(rec.accuracy, 6),
+                                batches=EVAL_BATCHES)
         trainer.close()
         del trainer
         gc.collect()
@@ -4746,7 +4821,7 @@ def phase_serve_ckpt(root):
     # (b) config 5's Llama, ZeRO-3, quantized at load
     d_8b = os.path.join(root, "llama")
     cfg, trained, z_flash, z_save, z_train_s = train(
-        "llama3_8b_zero", steps="1", checkpoint_dir=d_8b,
+        "llama3_8b_zero", evaluate=True, steps="1", checkpoint_dir=d_8b,
         checkpoint_every="1", log_every="1", **{
             "model.extra": json.dumps({"num_layers": CK_8B_LAYERS}),
             "data.batch_size": "1", "parallel.zero_stage": "3"})
@@ -5246,7 +5321,8 @@ def f1_check(model, vocab, seed):
 
 def f1_models():
     """The float models of §0 at full width: Llama at the 8B's widths cut to
-    2 layers and config 4's transformer LM, seeded, bf16 compute."""
+    CK_8B_LAYERS layers and config 4's transformer LM, seeded, bf16
+    compute."""
     import torch
 
     from pytorch_distributed_nn_tpu_torch.config import get_config
@@ -5366,7 +5442,8 @@ def t32_admission_order(engine):
 
 def t32_profiled_round(model):
     """The W8A16 kernels by name in one profiled decode round of an engine
-    serving two tenants' requests (129 a forward). None where the profiler
+    serving two tenants' requests (W8A16_PL a forward). None where
+    the profiler
     records nothing. Measurement only."""
     import numpy as np
     import torch
@@ -5382,8 +5459,7 @@ def t32_profiled_round(model):
                       tenant=tenant)
     engine.step()  # the admissions and a first round
     torch.cuda.synchronize()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                   acc_events=True)
+    prof = profile(activities=[ProfilerActivity.CUDA], acc_events=True)
     try:
         prof.start()
     except RuntimeError as e:
@@ -5407,13 +5483,13 @@ def t32_profiled_round(model):
 
 
 def phase_tenants(model):
-    """Phase 32 (a): tenants on the full-width int8 8B of phase 6, 8 slots:
+    """Phase 32 (a): tenants on the full-width int8 8B of phase 31, 8 slots:
     a flood tenant of 24 requests with a quota of 2 and two light tenants
     of 3, all submitted before the first round; 22 rejected
     ``tenant_quota``; each light head admitted within one rotation (at
     most one admission of each other tenant since its tenant's last);
     every served request's tokens equal the request served alone; W8A16
-    129 a forward, and by name in a profiled round."""
+    W8A16_PL a forward, and by name in a profiled round."""
     import collections
 
     import numpy as np
@@ -5435,7 +5511,7 @@ def phase_tenants(model):
     secs = time.monotonic() - t0
     launches = tmm.int8_matmul.launches
     forwards = len(engine.completed) + len(engine.round_seconds)
-    if launches != 129 * forwards:
+    if launches != W8A16_PL * forwards:
         raise AssertionError(f"tenants: {launches} W8A16 launches in "
                              f"{forwards} forwards")
     rejects = collections.Counter(r.reject_reason for r in reqs
@@ -5555,19 +5631,21 @@ T32_QEXTRA = {"num_layers": CK_8B_LAYERS, "quantized": True,
               "fused_proj": True}
 
 
-def phase_scripts(d_8b):
-    """Phase 32 (c)-(e). (c) ``scripts/eval.py`` on phase 28's 2-layer 8B
-    checkpoint (ZeRO-3) on the card: its JSON line equals the in-process
-    ``Trainer.evaluate``; flash_fwd counted by the wrapper and by name in
-    a profiled trace. The checkpoint is then removed. (d) a seeded
-    HF-layout Llama state_dict at the 8B's widths (2 layers, bf16) through
+def phase_scripts(d_8b, want):
+    """Phase 32 (c)-(e). (c) ``scripts/eval.py`` on phase 28's
+    CK_8B_LAYERS-layer 8B checkpoint (ZeRO-3) on the card: its JSON line
+    equals ``want``, what phase 28's ``Trainer.evaluate`` gave on the
+    state it saved; flash_fwd counted by the wrapper and by name in a
+    profiled trace. The checkpoint is then removed. (d) a seeded
+    HF-layout Llama state_dict at the 8B's widths (CK_8B_LAYERS layers,
+    bf16) through
     ``scripts/convert.py`` into llama3_8b_zero (on the CPU, with
     --optim.name sgd: a state of the parameters alone), then
-    ``scripts/generate.py`` on the card quantized at load (W8A16 9 a
-    forward; tokens equal ``generate()`` on the same weights loaded in
-    memory), then ``--export``: every tensor back, bit for bit. (e) the
-    serve entry point with ``--metrics-out`` at the 8B's widths, int8, 2
-    layers: one ``serve_request`` a finished request (the warm-up's
+    ``scripts/generate.py`` on the card quantized at load (W8A16 4 x
+    CK_8B_LAYERS + 1 a forward; tokens equal ``generate()`` on the same
+    weights loaded in memory), then ``--export``: every tensor back, bit for bit. (e) the
+    serve entry point with ``--metrics-out`` at the 8B's widths, int8,
+    CK_8B_LAYERS layers: one ``serve_request`` a finished request (the warm-up's
     included) with the JAX record's keys and one ``serve_summary``, the
     stdout line's."""
     import shutil
@@ -5586,14 +5664,13 @@ def phase_scripts(d_8b):
     from pytorch_distributed_nn_tpu_torch.scripts import generate as gen
     from pytorch_distributed_nn_tpu_torch.serve import __main__ as serve_main
     from pytorch_distributed_nn_tpu_torch.serve.engine import _bucket_len
-    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
     from pytorch_distributed_nn_tpu_torch.utils import torch_interop as ti
     from pytorch_distributed_nn_tpu_torch.utils.interop import (
         llama_params_from_jax,
     )
 
     out = {}
-    # (c) eval of phase 28's checkpoint, then the in-process Trainer's
+    # (c) eval of phase 28's checkpoint
     ov = {"model.extra": json.dumps(T32_EXTRA), "data.batch_size": "1",
           "parallel.zero_stage": "3"}
     argv = ["--preset", "llama3_8b_zero", "--checkpoint-dir", d_8b,
@@ -5608,16 +5685,8 @@ def phase_scripts(d_8b):
     line = json.loads(lines[-1])
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("llama3_8b_zero", **ov, checkpoint_dir=d_8b)
-    with Trainer(cfg, device="cuda") as trainer:
-        rec = trainer.evaluate(num_batches=EVAL_BATCHES)
-    del trainer
-    gc.collect()
-    torch.cuda.empty_cache()
-    want = dict(step=rec.step, eval_loss=round(rec.loss, 6),
-                eval_accuracy=round(rec.accuracy, 6), batches=EVAL_BATCHES)
     if line != want:
-        raise AssertionError(f"eval: {line} != the Trainer's {want}")
+        raise AssertionError(f"eval: {line} != the trained Trainer's {want}")
     per_eval = CK_8B_LAYERS * EVAL_BATCHES
     if flash["flash_fwd"] != per_eval:
         raise AssertionError(f"eval: {flash} flash launches, expected "
@@ -5729,6 +5798,525 @@ def phase_scripts(d_8b):
     return out, flash, by_name
 
 
+# --------------------------------------------------------------------------
+# phase 33: the tensor axis (ROADMAP §1 item 3.2)
+# --------------------------------------------------------------------------
+
+TP = 2
+# every run of phase 33 and its one-process references starts at the full
+# lr (no warmup: the presets' warmup starts from an lr of 0, so a first
+# update would leave the weights as they are) and takes TP_STEPS steps:
+# the second loss follows a real update
+TP_NO_WARMUP = {"optim.warmup_steps": "0"}
+TP_STEPS = 2
+# relative, a tensor-parallel loss against the one-process loss from the
+# same weights and batches: the row-parallel products add their bf16
+# partial sums in another order than one product does
+TP_LOSS_TOL = 1e-4
+# max|err| / max|ref| of each parameter's gradient (a rank's slice of a
+# split leaf) in (a) against the one-process gradient, same weights and
+# batch: the bf16 compute's rounding, as TRAIN_GRAD_TOL
+TP_GRAD_TOL = 5e-2
+# phase 33 (b): llama3_8b_zero under ZeRO-3 x tensor 2 on 4 processes
+# (fsdp 2 x tensor 2) sharing the card: depth and batch (2 rows: one for
+# each of the fsdp ranks). Each rank builds the whole model before it is
+# cut (ROADMAP §1 item 3.2's leftovers), so four of them hold 2 layers
+TP8B_LAYERS, TP8B_BATCH = 2, 2
+# phase 33 (d): transformer_lm_pp's depth under pipe 2 x tensor 2 (of 12)
+TP_PIPE_LAYERS = 4
+TP_GEN_PROMPT = " ".join(str(7 * i + 3) for i in range(16))
+TP_GEN_NEW = 16
+TP_TIMEOUT_S = 600
+TP_FLASH = {name: rf"{name}_kernel" for name in FLASH_KERNELS}
+TP_GEN_EXTRA = {"bf16": {}, "int8": {"quantized": True, "fused_proj": True}}
+
+
+def tp_gen_argv(kind, tp=1):
+    """``scripts/generate.py``'s arguments for phase 33 (c): Llama-3-8B at
+    full width with seeded random weights, bf16 or int8 (quantized with
+    fused projections, as phases 7 and 31 serve it)."""
+    argv = ["--preset", "llama3_8b_zero", "--prompt", TP_GEN_PROMPT,
+            "--max-new", str(TP_GEN_NEW), "--model.extra",
+            json.dumps(TP_GEN_EXTRA[kind])]
+    if kind == "bf16":
+        argv += ["--model.dtype", "bfloat16"]
+    return argv + (["--tp", str(tp)] if tp > 1 else [])
+
+
+def tp_8b_config(mesh=None):
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+
+    return get_config("llama3_8b_zero", log_every="1", **{
+        **TP_NO_WARMUP,
+        "model.extra": json.dumps({"num_layers": TP8B_LAYERS}),
+        "data.batch_size": str(TP8B_BATCH), **(mesh or {})})
+
+
+def tp_lm_config(tensor=1):
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+
+    return get_config("transformer_lm_pp", **{
+        **LM_OVERRIDES, **TP_NO_WARMUP, "mesh.tensor": str(tensor)})
+
+
+def tp_pipe_config(sched, tensor=1):
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+
+    return get_config("transformer_lm_pp", log_every="1", **{
+        **TP_NO_WARMUP, "mesh.pipe": "2", "mesh.tensor": str(tensor),
+        "mesh.data": "1", "parallel.pipeline_schedule": sched,
+        "model.extra": json.dumps({"num_layers": TP_PIPE_LAYERS})})
+
+
+def tp_collectives(records):
+    """The recorder's collectives of a step by op: count and payload
+    bytes."""
+    out = {}
+    for r in records:
+        n, b = out.get(r.op, (0, 0))
+        out[r.op] = (n + 1, b + r.bytes_payload)
+    return {op: dict(count=n, payload_bytes=b) for op, (n, b) in out.items()}
+
+
+def tp_grads(trainer, ref_path):
+    """One forward and backward of the first batch as the step runs them
+    (the vocab-parallel loss, the ZeRO layout's gradient hooks): each
+    parameter's gradient, the rank's slice of a split leaf, against the
+    one-process gradient of the same weights and batch (``ref_path``,
+    whole leaves), max|err| / max|ref|. The gradients are cleared after.
+    Returns the loss and the errors by name."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.parallel import dp
+    from pytorch_distributed_nn_tpu_torch.parallel.sharding_rules import (
+        local_slice,
+    )
+    from pytorch_distributed_nn_tpu_torch.parallel.tensor import (
+        vocab_parallel_loss,
+    )
+
+    ref = torch.load(ref_path)
+    zs, model = trainer.state.sharding, trainer.model
+    fn = vocab_parallel_loss(trainer.loss_fn, model, zs.tensor) \
+        or trainer.loss_fn
+    x, y = trainer.loader.batch_at(0)
+    zs.begin(last=True, accum=1)
+    with zs.hold(getattr(trainer.loss_fn, "reads", ())):
+        loss = dp._loss_and_grads(trainer.state, x, y, fn).item()
+    zs.end()
+    t = zs.tensor
+    errs = {}
+    for k, p in model.named_parameters():
+        want = ref[k]
+        if k in model.tensor_split:
+            want = local_slice(k, want, tensor=(t.size, t.index))
+        err = (p.grad.float() - want.to(p.grad.device).float()).abs().max()
+        if k.endswith("attn.key.bias"):
+            # no gradient in exact arithmetic (the softmax ignores a shift
+            # common to every key): both are rounding noise, held against
+            # the layer's key kernel's gradient
+            want = ref[k[:-len("bias")] + "kernel"]
+        errs[k] = (err / want.float().abs().max()).item()
+    trainer.state.optimizer.zero_grad()
+    del ref
+    return loss, errs
+
+
+def tp_lm(res, ref_dir):
+    """(a) transformer_lm_pp at full width (B 64, T 1024, 12 heads of 64,
+    vocab 32000, remat) at mesh.tensor 2: the first batch's gradients
+    against one process's (:func:`tp_grads`); then TP_STEPS steps through
+    the Trainer, the flash counts set to 0 before them; the last step
+    profiled, its flash kernels counted by name; the tensor collectives of
+    the first step by the recorder."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    t = Trainer(tp_lm_config(TP), device="cuda")
+    m, L = t.model, t.model.num_layers
+    split = t.model.tensor_split
+    if not (t.mesh.spec.tensor == TP and m.block0.attn.num_heads == LM_H // TP
+            and "block0.attn.query.kernel" in split
+            and "lm_head.kernel" in split and "tok_embed.embedding" in split):
+        raise AssertionError(f"(a) not cut over tensor: {sorted(split)[:6]}")
+    grad_loss, errs = tp_grads(t, os.path.join(ref_dir, "lm_grads.pt"))
+    worst = max(errs, key=errs.get)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()  # the path's count starts here
+    with cc.recording() as records:
+        t.train(steps=TP_STEPS - 1)
+    prof = profile_step(t, count=TP_FLASH)
+    launches = flash_counts()
+    per = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    want = {k: v * TP_STEPS for k, v in per.items()}
+    if launches != want:
+        raise AssertionError(f"(a) flash launches {launches}, want {want}")
+    if prof is not None and prof["counted"] != per:
+        raise AssertionError(f"(a) flash by name {prof['counted']}")
+    res["lm"] = dict(losses=t.losses(), launches=launches,
+                     by_name=prof and prof["counted"],
+                     grad_loss=grad_loss, worst_grad=worst,
+                     worst_grad_rel_err=errs[worst],
+                     step_s=[r.seconds for r in t.history],
+                     peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                     collectives_a_step=tp_collectives(records),
+                     device_ms=prof and prof["device_ms"],
+                     by_family_ms=prof and prof["by_family_ms"],
+                     local_heads=m.block0.attn.num_heads)
+    t.close()
+    del t, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tp_pipe(res, ref_dir):
+    """(d) transformer_lm_pp at full width cut to TP_PIPE_LAYERS layers, at
+    mesh.pipe 2 x tensor 2 on the two processes: each holds both stages
+    (pipe_local) and its tensor slice of them; TP_STEPS steps under gpipe,
+    then under 1f1b, from the same weights."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    res["pipe"] = {}
+    for sched in ("gpipe", "1f1b"):
+        cfg = tp_pipe_config(sched, TP)
+        t = Trainer(cfg, device="cuda")
+        L = t.model.num_layers
+        if not (t.mesh.pipe_local and t.state.sharding.S == 2
+                and t.model.tensor_split):
+            raise AssertionError(f"(d) {sched}: not pipe 2 x tensor 2 local")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()
+        t0 = time.monotonic()
+        t.train(steps=TP_STEPS)
+        secs = time.monotonic() - t0
+        launches = flash_counts()
+        # each layer runs each microbatch; remat reruns the forward
+        per = L * cfg.parallel.microbatches * TP_STEPS
+        want = {"flash_fwd": (2 if cfg.model.remat else 1) * per,
+                "flash_bwd_dq": per, "flash_bwd_dkv": per}
+        if launches != want:
+            raise AssertionError(f"(d) {sched} flash {launches}, want {want}")
+        res["pipe"][sched] = dict(
+            losses=t.losses(), steps_s=secs, launches=launches,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        t.close()
+        del t
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def tp_generate(res, ref_dir):
+    """(c) ``scripts/generate.py --tp 2`` on Llama-3-8B at full width, bf16
+    and int8: its printed tokens; then, on the model the script laid out
+    (kept by a wrapper of ``generate``), the per-token latency, the cache
+    bytes a rank, and for int8 the w8a16 kernels by name in one profiled
+    decode step (the wrapper's count too)."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.inference import generate as ig
+    from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+    from pytorch_distributed_nn_tpu_torch.ops import int8_matmul as tmm
+    from pytorch_distributed_nn_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        process_mesh,
+    )
+    from pytorch_distributed_nn_tpu_torch.scripts import generate as script
+
+    seen = {}
+    original = ig.generate
+
+    def kept(model, prompt, n, **kw):
+        seen["model"] = model
+        return original(model, prompt, n, **kw)
+
+    res["generate"] = {}
+    mesh = None
+    for kind in TP_GEN_EXTRA:
+        ig.generate = kept
+        tmm.int8_matmul.launches = 0
+        try:
+            lines, secs = run_script(script.main, tp_gen_argv(kind, TP))
+        finally:
+            ig.generate = original
+        launches = tmm.int8_matmul.launches
+        model = seen.pop("model")
+        mesh = mesh or process_mesh(MeshSpec(tensor=TP, data=-1),
+                                    cc.rank(), cc.world_size())
+        prompt = [[int(v) for v in TP_GEN_PROMPT.split()]]
+        P = len(prompt[0])
+
+        def timed(n):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            original(model, prompt, n, mesh=mesh)
+            torch.cuda.synchronize()
+            return time.monotonic() - t0
+
+        prefill_s, whole_s = timed(1), timed(TP_GEN_NEW)
+        cache = ig.init_cache(model, 1, P + TP_GEN_NEW)
+        out = dict(lines=lines, script_s=secs, script_w8a16=launches,
+                   per_token_ms=(whole_s - prefill_s) / (TP_GEN_NEW - 1)
+                   * 1e3,
+                   cache_bytes=ig.cache_bytes(cache),
+                   cache_heads=cache["layer0"]["cached_key"].shape[2],
+                   split=len(model.tensor_split))
+        if kind == "int8":
+            with torch.inference_mode():
+                tok = torch.tensor(prompt, device="cuda")
+                model(tok, cache=cache, last_only=True)
+                step = tok[:, -1:]
+                tmm.int8_matmul.launches = 0
+                _, counted = profiled_call(
+                    lambda: model(step, cache=cache, last_only=True),
+                    {"w8a16": r"w8a16"})
+                out["decode_step_w8a16"] = tmm.int8_matmul.launches
+                out["decode_step_w8a16_by_name"] = (counted or {}).get(
+                    "w8a16")
+        res["generate"][kind] = out
+        del model, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def tp_8b(res, ref_dir):
+    """(b) llama3_8b_zero (32/8 heads of 128, T 4096, xent_chunk 2048,
+    remat) at depth TP8B_LAYERS under ZeRO-3 on fsdp 2 x tensor 2: the
+    vocab tables split over (tensor, fsdp) on the vocab dim; TP_STEPS
+    steps, the last profiled, the flash counts set to 0 before them."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    cfg = tp_8b_config({"mesh.fsdp": "2", "mesh.tensor": str(TP),
+                        "mesh.data": "1"})
+    t = Trainer(cfg, device="cuda")
+    zs, m = t.state.sharding, t.model
+    table = "tok_embed.embedding"
+    local = tuple(zs.shards[table].shape) if table in zs.shards else None
+    if not (zs.stage == 3 and zs.dims.get(table) == 0
+            and m.tensor_split.get(table, (None,))[0] == 0
+            and local == (128256 // (2 * TP), 4096)
+            and m.layer0.attn.num_heads == Z8_H // TP
+            and m.layer0.attn.num_kv_heads == Z8_HKV // TP):
+        raise AssertionError(f"(b) not ZeRO-3 x tensor: {table} {local}")
+    L = m.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()
+    with cc.recording() as records:
+        t.train(steps=TP_STEPS - 1)
+    prof = profile_step(t, count=TP_FLASH)
+    launches = flash_counts()
+    per = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    want = {k: v * TP_STEPS for k, v in per.items()}
+    if launches != want:
+        raise AssertionError(f"(b) flash launches {launches}, want {want}")
+    if prof is not None and prof["counted"] != per:
+        raise AssertionError(f"(b) flash by name {prof['counted']}")
+    res["zero_tp"] = dict(
+        losses=t.losses(), launches=launches,
+        by_name=prof and prof["counted"],
+        step_s=[r.seconds for r in t.history],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        collectives_a_step=tp_collectives(records), local_table=local,
+        device_ms=prof and prof["device_ms"])
+    t.close()
+
+
+def tp_worker(rank, world, port, job, ref_dir, out_dir):
+    """One process of a phase-33 gang: all ranks on the one card, in a gloo
+    group formed here (NCCL refuses two ranks on one device; gloo reduces
+    and gathers CUDA tensors), which ``runtime/bootstrap.py`` keeps; the
+    job's parts, its results as JSON."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port),
+                      # several processes share the card: return freed
+                      # blocks rather than keep fragments of them
+                      PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+
+    from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    proc = bootstrap.initialize("cuda")
+    if proc.backend != "gloo" or proc.device != torch.device("cuda", 0):
+        raise AssertionError(f"rank {rank}: {proc}")
+    res = dict(rank=rank, backend=proc.backend, device=str(proc.device))
+    parts = {"lm": (tp_lm, tp_pipe, tp_generate), "8b": (tp_8b,)}[job]
+    for part in parts:
+        t0 = time.monotonic()
+        part(res, ref_dir)
+        res[f"{part.__name__}_s"] = time.monotonic() - t0
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    bootstrap.shutdown()
+
+
+def tp_gang(job, world, ref_dir):
+    """``world`` processes of :func:`tp_worker` on the card (spawned, a
+    free port), waited for with a hard timeout and killed past it; each
+    rank's results."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[tensor] gang {job!r} of {world}: this process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"({torch.cuda.memory_reserved() / 1e9:.2f} reserved); the card "
+        f"{free / 1e9:.1f} of {total / 1e9:.1f} GB free")
+    out_dir = tempfile.mkdtemp(prefix=f"chip-smoke-tp-{job}-")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.start_processes(tp_worker,
+                             args=(world, port, job, ref_dir, out_dir),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"phase 33 gang {job!r} ran past "
+                                   f"{TP_TIMEOUT_S} s")
+        return [json.loads(open(os.path.join(out_dir, f"rank{r}.json"))
+                           .read()) for r in range(world)]
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def tp_rel(got, want):
+    """The largest relative gap of a run's losses from the reference's,
+    step by step."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} losses against {len(want)}")
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def tp_references(ref_dir):
+    """Phase 33's one-process runs, from the same seeds, at the full lr:
+    (a)'s LM (its first batch's gradients saved to ``ref_dir``, then
+    TP_STEPS steps), (d)'s pipeline (pipe 2, both stages here, gpipe),
+    (b)'s ZeRO-3 8B, and (c)'s tokens of ``scripts/generate.py``."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.parallel import dp
+    from pytorch_distributed_nn_tpu_torch.scripts import generate as script
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    ref = Trainer(tp_lm_config(), device="cuda")
+    x, y = ref.loader.batch_at(0)
+    dp._loss_and_grads(ref.state, x, y, ref.loss_fn)
+    torch.save({k: p.grad.detach().cpu()
+                for k, p in ref.model.named_parameters()},
+               os.path.join(ref_dir, "lm_grads.pt"))
+    ref.state.optimizer.zero_grad()
+    for name, cfg in (("lm", None), ("pipe", tp_pipe_config("gpipe")),
+                      ("zero", tp_8b_config())):
+        if cfg is not None:
+            ref = Trainer(cfg, device="cuda")
+        ref.train(steps=TP_STEPS)
+        out[name] = ref.losses()
+        ref.close()
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    for kind in TP_GEN_EXTRA:
+        lines, secs = run_script(script.main, tp_gen_argv(kind))
+        out[kind] = dict(tokens=lines[-1], script_s=secs)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tensor():
+    """Phase 33: the tensor axis on the one card. NCCL refuses two ranks on
+    one device, and gloo reduces and gathers CUDA tensors (a probe on the
+    H100 found every collective but point-to-point works), so the tensor
+    ranks run as real processes sharing the card in a gloo group they form
+    themselves, through the normal entry points. (a) and (d) on a 2-rank
+    gang, with (c); (b) on a 4-rank gang (fsdp 2 x tensor 2); each against
+    the same model on one process from the same weights and batches
+    (:func:`tp_references`), every loss after a real update included, and
+    (a)'s gradients leaf by leaf."""
+    t_start = time.monotonic()
+    ref_dir = tempfile.mkdtemp(prefix="chip-smoke-tp-ref-")
+    try:
+        refs = tp_references(ref_dir)
+        log(f"[tensor] one-process references: "
+            f"{json.dumps({k: refs[k] for k in ('lm', 'pipe', 'zero')})}, "
+            f"tokens { {k: refs[k]['tokens'] for k in TP_GEN_EXTRA} }")
+        ranks_a = tp_gang("lm", TP, ref_dir)
+        ranks_b = tp_gang("8b", 2 * TP, ref_dir)
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    a0, b0 = ranks_a[0], ranks_b[0]
+    lm, pipe, gen = a0["lm"], a0["pipe"], a0["generate"]
+    errs = dict(
+        lm=tp_rel(lm["losses"], refs["lm"]),
+        pipe_gpipe=tp_rel(pipe["gpipe"]["losses"], refs["pipe"]),
+        pipe_1f1b=tp_rel(pipe["1f1b"]["losses"], refs["pipe"]),
+        zero_tp=tp_rel(b0["zero_tp"]["losses"], refs["zero"]))
+    grad_errs = {r["rank"]: (r["lm"]["worst_grad"],
+                             r["lm"]["worst_grad_rel_err"]) for r in ranks_a}
+    same = all(r["lm"]["losses"] == lm["losses"] for r in ranks_a) and all(
+        r["zero_tp"]["losses"] == b0["zero_tp"]["losses"] for r in ranks_b)
+    tokens = {k: gen[k]["lines"][-1] for k in gen}
+    out = dict(card=card_line(), approach="tensor ranks as processes "
+               "sharing the card in their own gloo group",
+               world1_tokens={k: refs[k] for k in TP_GEN_EXTRA},
+               ref_losses={k: refs[k] for k in ("lm", "pipe", "zero")},
+               rel_err=errs, worst_grad_rel_err=grad_errs, ranks_agree=same,
+               lm=lm, pipe=pipe, generate=gen, zero_tp=b0["zero_tp"],
+               peak_mem_gb=dict(
+                   lm=[r["lm"]["peak_mem_gb"] for r in ranks_a],
+                   zero_tp=[r["zero_tp"]["peak_mem_gb"] for r in ranks_b]),
+               part_s={k: v for k, v in a0.items() if k.endswith("_s")}
+               | {k: v for k, v in b0.items() if k.endswith("_s")},
+               phase_s=time.monotonic() - t_start)
+    log(f"[tensor] {json.dumps(out)}")
+    bad = [k for k, v in errs.items() if not v <= TP_LOSS_TOL]
+    if bad or not same:
+        raise AssertionError(f"phase 33 losses off (limit {TP_LOSS_TOL}): "
+                             f"{ {k: errs[k] for k in bad} }, ranks agree "
+                             f"{same}")
+    if not all(e <= TP_GRAD_TOL for _, e in grad_errs.values()):
+        raise AssertionError(f"(a) gradients off (limit {TP_GRAD_TOL}): "
+                             f"{grad_errs}")
+    for kind in TP_GEN_EXTRA:
+        if tokens[kind] != refs[kind]["tokens"]:
+            raise AssertionError(
+                f"(c) {kind} --tp {TP} tokens {tokens[kind]!r} differ from "
+                f"one process's {refs[kind]['tokens']!r}")
+        if ranks_a[1]["generate"][kind]["lines"]:
+            raise AssertionError("(c) rank 1 printed")
+    i8 = gen["int8"]
+    if i8["script_w8a16"] != W8A16_A_FORWARD * TP_GEN_NEW or \
+            i8["decode_step_w8a16"] != W8A16_A_FORWARD or \
+            i8["decode_step_w8a16_by_name"] not in (None, W8A16_A_FORWARD):
+        raise AssertionError(f"(c) int8 w8a16 launches {i8}")
+    return out
+
+
 def main() -> int:
     started = time.monotonic()
     import torch
@@ -5750,6 +6338,7 @@ def main() -> int:
                "quantize.cu", "ring_attention.cu")
     build.load_libraries(*sources)  # one nvcc each, all started together
     log(f"[build] {' + '.join(sources)}: {time.monotonic() - t0:.2f} s")
+    tick("build")
     resources = {}
     for src in sources:
         secs, report = build.build_info[src]
@@ -5760,57 +6349,100 @@ def main() -> int:
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows, max_err, library_label = phase_kernel(flush)
+    tick("phase_kernel")
     flash_rows, lse_err = phase_flash(flush)
+    tick("phase_flash")
     flash64 = phase_flash64(flush)
+    tick("phase_flash64")
     flash8b = phase_flash8b(flush)
+    tick("phase_flash8b")
     ring = phase_ring(flush)
+    tick("phase_ring")
     del flush
     torch.cuda.empty_cache()
     bn = phase_bn_stats()
+    tick("phase_bn_stats")
     quant = phase_quantize()
+    tick("phase_quantize")
     auto = phase_auto()
+    tick("phase_auto")
     train_check = phase_train_check()
+    tick("phase_train_check")
     ring_check = phase_ring_check()
+    tick("phase_ring_check")
     train, flash_launches = phase_train()
+    tick("phase_train")
     ring_train = phase_ring_train()
+    tick("phase_ring_train")
     ring4 = phase_ring4(ring_train["llama3_longcontext"]["losses"])
+    tick("phase_ring4")
     dp_check = phase_dp_check()
+    tick("phase_dp_check")
     dp_train, bn_launches, q_launches = phase_dp_train()
+    tick("phase_dp_train")
     dp_preset = phase_dp_preset()
+    tick("phase_dp_preset")
     lm_d64, lm_launches = phase_lm_d64()
+    tick("phase_lm_d64")
     bert, bert_q_launches = phase_bert()
+    tick("phase_bert")
     ckpt = phase_ckpt()
+    tick("phase_ckpt")
     accum, accum_flash, accum_bn = phase_accum()
+    tick("phase_accum")
     multistep = phase_multistep()
+    tick("phase_multistep")
     offload, offload_flash = phase_offload()
+    tick("phase_offload")
     zero8b, zero8b_flash = phase_zero8b()
+    tick("phase_zero8b")
     pipe, pipe_flash = phase_pipe()
+    tick("phase_pipe")
     moe, moe_flash, moe_profiled = phase_moe()
+    tick("phase_moe")
     # phase 28's checkpoints stay under ckpt_root for phase 32's eval
     ckpt_root = tempfile.mkdtemp(prefix="chip-smoke-serve-")
     try:
         serve_ckpt, ckpt_flash, ckpt_int8 = phase_serve_ckpt(ckpt_root)
+        tick("phase_serve_ckpt")
         files, files_flash, files_profiled = phase_files(lm_d64)
+        tick("phase_files")
         pipe_moe, pipe_moe_flash, pipe_moe_profiled = phase_pipe_moe()
+        tick("phase_pipe_moe")
 
         model = build_model(seed=0)
         forward = phase_forward(model)
+        tick("phase_forward")
         serve, serve_launches = phase_serve(model)
+        tick("phase_serve")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = build_model(seed=0, layers=PL_LAYERS)
         prefix_lora, pl_launches = phase_prefix_lora(model)
+        tick("phase_prefix_lora")
         t32 = time.monotonic()
         tenants, tenant_launches = phase_tenants(model)
+        tick("phase_tenants")
         del model
         gc.collect()
         torch.cuda.empty_cache()
         fault1 = phase_fault1()
+        tick("phase_fault1")
         scripts, eval_flash, eval_by_name = phase_scripts(
-            os.path.join(ckpt_root, "llama"))
+            os.path.join(ckpt_root, "llama"),
+            serve_ckpt["llama3_8b_zero"]["save"]["eval"])
+        tick("phase_scripts")
         log(f"[tenants_scripts] phase 32: {time.monotonic() - t32:.1f} s")
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
+    tensor = phase_tensor()
+    tick("phase_tensor")
     gen_launches = scripts["convert"]["w8a16_launches"]
+    tp_gen = tensor["generate"]["int8"]
     launches = (sum(serve_launches.values()) + ckpt_int8
-                + sum(pl_launches.values()) + tenant_launches + gen_launches)
+                + sum(pl_launches.values()) + tenant_launches + gen_launches
+                + tp_gen["script_w8a16"])
 
     at8 = {r["shape"]: r for r in rows if r["m"] == 8}
     at128 = {r["shape"]: r for r in rows if r["m"] == 128}
@@ -5831,21 +6463,36 @@ def main() -> int:
                               serve_ckpt_8b=ckpt_int8,
                               prefix_lora=pl_launches,
                               tenants=tenant_launches,
-                              generate_converted=gen_launches),
+                              generate_converted=gen_launches,
+                              generate_tp2=tp_gen["script_w8a16"]),
+        at_tensor=dict(
+            decode_step=tp_gen["decode_step_w8a16"],
+            decode_step_by_name=tp_gen["decode_step_w8a16_by_name"],
+            per="phase 33 (c): scripts/generate.py --tp 2 on the int8 8B "
+                f"(two processes on the card), {TP_GEN_NEW} forwards of "
+                f"{W8A16_A_FORWARD} on rank 0, the weights whole on each "
+                "rank; "
+                "decode_step: one decode step's launches, by wrapper and "
+                "by name in its profiled trace"),
         at_tenants=dict(
             profiled_round=tenants["profiled_round"],
-            per="phase 32 on the full-width 8B: the tenant mix (a flood of "
-                "24 with a quota of 2, two light tenants of 3), 129 a "
+            per=f"phase 32 on the full-width 8B at {PL_LAYERS} of 32 "
+                "layers: the tenant mix (a flood of "
+                "24 with a quota of 2, two light tenants of 3), "
+                f"{W8A16_PL} a "
                 "forward; profiled_round: the w8a16 kernels by name in one "
                 "profiled decode round; generate_converted: "
-                "scripts/generate.py on a converted 2-layer 8B, 9 a "
+                "scripts/generate.py on a converted "
+                f"{CK_8B_LAYERS}-layer 8B, {4 * CK_8B_LAYERS + 1} a "
                 "forward"),
         at_prefix_lora=dict(
             profiled_round=prefix_lora["compute"]["profiled_round"],
             at_suffix_rows=prefix_lora["w8a16_at_suffix"],
-            per="phase 31 on the full-width 8B: the prefix-cache stream "
+            per=f"phase 31 on the full-width 8B at {PL_LAYERS} of 32 "
+                "layers: the prefix-cache stream "
                 "with the cache on and off on each KV cache (compute, "
-                "int8), the eviction run and the LoRA runs, 129 a "
+                "int8), the eviction run and the LoRA runs, "
+                f"{W8A16_PL} a "
                 "forward; profiled_round: the w8a16 kernels by name in one "
                 "profiled round of a hit's suffix prefill and a decode "
                 "step"),
@@ -5900,8 +6547,9 @@ def main() -> int:
             launches_offload=offload_flash[name],
             launches_eval=eval_flash[name],
             eval_by_name=(eval_by_name or {}).get(name),
-            eval="scripts/eval.py on phase 28's 2-layer 8B checkpoint, "
-                 f"{EVAL_BATCHES} batches at T 4096; by name: the kernels "
+            eval=f"scripts/eval.py on phase 28's {CK_8B_LAYERS}-layer 8B "
+                 f"checkpoint, {EVAL_BATCHES} batches at T 4096; by name: "
+                 "the kernels "
                  "of this name in the call's profiled trace",
             launches_files=files_flash[name],
             profiled_launches_files=files_profiled[name],
@@ -5920,6 +6568,21 @@ def main() -> int:
                      "interleaved on pipe 2 x 3 chunks with moe_every 2, "
                      "2 timed steps each; profiled: one step's device "
                      "trace",
+            at_tensor=dict(
+                launches_lm=tensor["lm"]["launches"][name],
+                by_name_lm=(tensor["lm"]["by_name"] or {}).get(name),
+                launches_pipe={s: tensor["pipe"][s]["launches"][name]
+                               for s in tensor["pipe"]},
+                launches_zero_tp=tensor["zero_tp"]["launches"][name],
+                by_name_zero_tp=(tensor["zero_tp"]["by_name"]
+                                 or {}).get(name),
+                per="phase 33 on rank 0 of the tensor ranks sharing the "
+                    "card: transformer_lm_pp at tensor 2 (6 of 12 heads "
+                    f"of 64), {TP_STEPS} steps, by name in the last; "
+                    f"pipe 2 x tensor 2, {TP_STEPS} steps a schedule; "
+                    f"llama3_8b_zero at depth {TP8B_LAYERS} under ZeRO-3 "
+                    "on fsdp 2 x tensor 2 (16/4 of 32/8 heads of 128), "
+                    f"{TP_STEPS} steps, by name in the last"),
             resume="llama3_longcontext, 2 steps + save + a resumed "
                    "Trainer's 2 steps",
             offload="llama3_longcontext_96k with remat_offload, 2 steps"))
@@ -5989,7 +6652,7 @@ def main() -> int:
                         pipe=pipe, moe=moe, serve_ckpt=serve_ckpt,
                         files=files, pipe_moe=pipe_moe,
                         prefix_lora=prefix_lora, tenants=tenants,
-                        fault1=fault1, scripts=scripts)))
+                        fault1=fault1, scripts=scripts, tensor=tensor)))
     from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
 
     bootstrap.shutdown()  # the NCCL group of the data-parallel phases

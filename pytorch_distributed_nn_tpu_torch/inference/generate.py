@@ -17,8 +17,15 @@ Counterpart of the JAX package's ``inference/generate.py``:
 
 Ragged batches (``prompt_lengths``) are realigned left and decoded with
 per-row cache positions; each row's greedy output equals a solo run of
-that row. ``mesh=`` (tensor-parallel decoding) waits for the tensor axis
-(ROADMAP.md §1 item 3.2).
+that row.
+
+``mesh=`` decodes tensor-parallel, as the JAX ``generate(mesh=)``: every
+rank of the process group calls it with the same prompt, the model is laid
+out in place by the TP rules (``parallel.tensor.shard_for_inference``: the
+float leaves cut to the rank's slices, int8 leaves whole) and the KV cache
+holds the rank's key/value heads where ``tensor`` divides them. Every rank
+gets the same logits (the head's slices gathered), so the same tokens.
+Ragged prompts with a mesh raise, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,7 +35,18 @@ import torch
 
 from pytorch_distributed_nn_tpu_torch.utils import threefry
 
-TENSOR_AXIS = "ROADMAP.md §1 item 3.2, the tensor axis"
+def process_mesh_of(mesh):
+    """``mesh`` as this rank's ``ProcessMesh``: one as it is, or a
+    ``MeshSpec`` resolved on the process group (every rank calls this)."""
+    from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+    from pytorch_distributed_nn_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        process_mesh,
+    )
+
+    if isinstance(mesh, MeshSpec):
+        return process_mesh(mesh, cc.rank(), cc.world_size())
+    return mesh
 
 
 def init_cache(model, batch_size: int, max_len: int) -> dict:
@@ -126,11 +144,11 @@ def generate(model, prompt, max_new_tokens: int, *,
     (P, P)); the same tokens.
 
     ``prompt_lengths`` (B,): row i's real prompt is the LAST
-    prompt_lengths[i] columns (left padding, pad values don't-care)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "generate(mesh=...) lays the parameters out by the tensor-"
-            f"parallel rules, which are not ported yet ({TENSOR_AXIS})")
+    prompt_lengths[i] columns (left padding, pad values don't-care).
+
+    ``mesh`` (a ``runtime.mesh.ProcessMesh``, or a ``MeshSpec`` resolved
+    on the process group): decode tensor-parallel over its ``tensor``
+    axis, the model laid out in place (module docstring)."""
     dev = model.device
     prompt = torch.tensor(np.asarray(prompt), dtype=torch.int32, device=dev)
     if prompt.dim() != 2 or prompt.shape[1] < 1:
@@ -156,9 +174,20 @@ def generate(model, prompt, max_new_tokens: int, *,
         if lens.min() < 1 or lens.max() > P:
             raise ValueError(f"prompt_lengths must be in [1, {P}], got "
                              f"[{lens.min()}, {lens.max()}]")
+        if mesh is not None:
+            raise ValueError(
+                "ragged prompts (prompt_lengths) are not supported with "
+                "mesh sharding: run the uniform path, or batch equal-length "
+                "rows")
         if prefill_chunk:
             raise ValueError("prompt_lengths and prefill_chunk are mutually "
                              "exclusive (ragged prefill is one forward)")
+    if mesh is not None:
+        from pytorch_distributed_nn_tpu_torch.parallel.tensor import (
+            shard_for_inference,
+        )
+
+        shard_for_inference(model, process_mesh_of(mesh).tensor)
     if max_new_tokens == 0:
         return prompt
     if temperature > 0.0:

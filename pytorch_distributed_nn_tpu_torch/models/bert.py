@@ -32,6 +32,8 @@ from pytorch_distributed_nn_tpu_torch.nn.layers import (
     gelu,
     init_params_,
 )
+from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import AxisGroup
 from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
 
 
@@ -53,11 +55,13 @@ class EncoderBlock(nn.Module):
         self.mlp_out = Dense(mlp_dim, d_model, **kw)
         self.drop_mlp = Dropout(dropout, salt + 1)
         self.ln2 = LayerNorm(d_model, eps=ln_eps, **kw)
+        self.tensor = AxisGroup()  # the MLP's (parallel/tensor.py)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = self.ln1(x + self.drop_attn(self.attn(x, mask=mask)))
-        y = self.drop_mlp(self.mlp_out(gelu(self.mlp_in(x))))
+        h = cc.sum_grad(x, self.tensor.group, self.tensor.size)
+        y = self.drop_mlp(self.mlp_out(gelu(self.mlp_in(h))))
         return self.ln2(x + y)
 
 

@@ -39,7 +39,8 @@ from pytorch_distributed_nn_tpu_torch.nn.dtypes import get_policy
 from pytorch_distributed_nn_tpu_torch.nn.layers import Dense, Embed
 from pytorch_distributed_nn_tpu_torch.nn.lora import layer_slice
 from pytorch_distributed_nn_tpu_torch.nn.quantized import Int8Dense, Int8Embed
-from pytorch_distributed_nn_tpu_torch.runtime.mesh import SeqGroup
+from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import AxisGroup, SeqGroup
 from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
 
 
@@ -97,13 +98,14 @@ class LlamaBlock(nn.Module):
             self.gate_proj = dense(d_model, mlp_dim)
             self.up_proj = dense(d_model, mlp_dim)
         self.down_proj = dense(mlp_dim, d_model)
+        self.tensor = AxisGroup()  # the MLP's (parallel/tensor.py)
 
     def forward(self, x, cache: Optional[dict] = None,
                 cache_positions: Optional[torch.Tensor] = None,
                 lora: Optional[tuple] = None):
         x = x + self.attn(self.attn_norm(x), cache=cache,
                           cache_positions=cache_positions, lora=lora)
-        y = self.mlp_norm(x)
+        y = cc.sum_grad(self.mlp_norm(x), self.tensor.group, self.tensor.size)
         if self.fused:
             gate_up = self.gate_up(y)
             gate, up = gate_up[..., :self.mlp_dim], gate_up[..., self.mlp_dim:]
@@ -114,9 +116,11 @@ class LlamaBlock(nn.Module):
 
 class Llama(nn.Module):
     """``forward(tokens, cache=None, cache_positions=None, last_only=False,
-    return_hidden=False, lora_bank=None, adapter_ids=None)`` returns f32
-    logits (B, T, V), or (B, 1, V) with ``last_only``; ``return_hidden`` skips the LM head and returns the
-    final-norm'd (B, T, D) trunk output (the chunked loss applies the head
+    return_hidden=False, lora_bank=None, adapter_ids=None,
+    split_logits=False)`` returns f32 logits (B, T, V), or (B, 1, V) with
+    ``last_only`` (this rank's vocab slice with ``split_logits`` under a
+    vocab-split head, ``parallel/tensor.py``); ``return_hidden`` skips the
+    LM head and returns the final-norm'd (B, T, D) trunk output (the chunked loss applies the head
     blockwise). With ``cache`` (from ``inference.generate.init_cache``) it
     decodes against the KV cache and writes the fed tokens' K/V into it in
     place; ``cache_positions`` (B,) int gives each row its own cache depth.
@@ -200,7 +204,8 @@ class Llama(nn.Module):
                 cache_positions: Optional[torch.Tensor] = None,
                 last_only: bool = False,
                 return_hidden: bool = False, lora_bank: Optional[dict] = None,
-                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                adapter_ids: Optional[torch.Tensor] = None,
+                split_logits: bool = False) -> torch.Tensor:
         if self.quantized:
             x = self.tok_embed(tokens)
         else:
@@ -234,7 +239,10 @@ class Llama(nn.Module):
         if last_only:
             x = x[:, -1:]
         x = self.final_norm(x)
-        return x if return_hidden else self.lm_head(x)
+        if return_hidden:
+            return x
+        return self.lm_head(x, gather=False) if split_logits else \
+            self.lm_head(x)
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """The token embedding in the compute dtype (the float model)."""
@@ -248,8 +256,12 @@ class Llama(nn.Module):
             return checkpoint(block, x, None, None, use_reentrant=False)
         return block(x)
 
-    def head(self, x: torch.Tensor) -> torch.Tensor:
-        """The final norm and the f32 ``lm_head``: the logits."""
+    def head(self, x: torch.Tensor,
+             split_logits: bool = False) -> torch.Tensor:
+        """The final norm and the f32 ``lm_head``: the logits (this rank's
+        vocab slice with ``split_logits``, under a split head)."""
+        if split_logits:
+            return self.lm_head(self.final_norm(x), gather=False)
         return self.lm_head(self.final_norm(x))
 
     def init_params(self, seed: int = 0) -> "Llama":

@@ -40,6 +40,8 @@ from pytorch_distributed_nn_tpu_torch.nn.layers import (
     gelu,
     init_params_,
 )
+from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import AxisGroup
 from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
 
 
@@ -69,6 +71,7 @@ class DecoderBlock(nn.Module):
             self.ffn_name = ffn[0]
             self.add_module(*ffn)
         self.drop_mlp = Dropout(dropout, salt + 1)
+        self.tensor = AxisGroup()  # the dense MLP's (parallel/tensor.py)
 
     def forward(self, x: torch.Tensor, cache: Optional[dict] = None,
                 cache_positions: Optional[torch.Tensor] = None
@@ -77,6 +80,8 @@ class DecoderBlock(nn.Module):
                                          cache_positions=cache_positions))
         y = self.ln2(x)
         if self.ffn_name is None:
+            g = self.tensor  # the column products' input: its gradient summed
+            y = cc.sum_grad(y, g.group, g.size)
             y = self.mlp_out(gelu(self.mlp_in(y)))
         else:
             y = getattr(self, self.ffn_name)(y)
@@ -85,8 +90,10 @@ class DecoderBlock(nn.Module):
 
 class TransformerLM(nn.Module):
     """``forward(tokens, positions=None, last_only=False,
-    return_hidden=False, cache=None, cache_positions=None)`` returns f32
-    logits (B, T, V), or (B, 1, V) with ``last_only``; ``return_hidden``
+    return_hidden=False, cache=None, cache_positions=None,
+    split_logits=False)`` returns f32 logits (B, T, V), or (B, 1, V) with
+    ``last_only`` (this rank's vocab slice with ``split_logits`` under a
+    vocab-split head, ``parallel/tensor.py``); ``return_hidden``
     skips the LM head and returns the ``ln_f``'d (B, T, D) trunk output
     (the chunked loss applies the head blockwise). With ``cache`` (from
     :meth:`init_cache`) it decodes against the KV cache, writing the fed
@@ -166,8 +173,8 @@ class TransformerLM(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 last_only: bool = False, return_hidden: bool = False,
                 cache: Optional[dict] = None,
-                cache_positions: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                cache_positions: Optional[torch.Tensor] = None,
+                split_logits: bool = False) -> torch.Tensor:
         T = tokens.shape[1]
         if T > self.max_len:
             raise ValueError(
@@ -199,7 +206,8 @@ class TransformerLM(nn.Module):
         if last_only:
             x = x[:, -1:]
         x = self.ln_f(x)
-        return x if return_hidden else self.lm_head(x)
+        return x if return_hidden else self.lm_head(
+            x, gather=not split_logits)
 
     def embed(self, tokens: torch.Tensor,
               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -217,9 +225,11 @@ class TransformerLM(nn.Module):
             return checkpoint(block, x, use_reentrant=False)
         return block(x)
 
-    def head(self, x: torch.Tensor) -> torch.Tensor:
-        """``ln_f`` and the f32 ``lm_head``: the logits."""
-        return self.lm_head(self.ln_f(x))
+    def head(self, x: torch.Tensor,
+             split_logits: bool = False) -> torch.Tensor:
+        """``ln_f`` and the f32 ``lm_head``: the logits (this rank's vocab
+        slice of them with ``split_logits``, under a split head)."""
+        return self.lm_head(self.ln_f(x), gather=not split_logits)
 
     def init_params(self, seed: int = 0) -> "TransformerLM":
         return init_params_(self, seed)

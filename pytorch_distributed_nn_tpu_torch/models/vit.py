@@ -28,6 +28,8 @@ from pytorch_distributed_nn_tpu_torch.nn.layers import (
     gelu,
     init_params_,
 )
+from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import AxisGroup
 from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
 
 
@@ -47,13 +49,15 @@ class EncoderBlock(nn.Module):
             rotary=False, use_bias=True, impl=attn_impl, **kw)
         self.drop_attn = Dropout(dropout, salt)
         self.ln2 = LayerNorm(d_model, eps=ln_eps, **kw)
+        self.tensor = AxisGroup()  # the MLP's (parallel/tensor.py)
         self.mlp_in = Dense(d_model, mlp_dim, **kw)
         self.mlp_out = Dense(mlp_dim, d_model, **kw)
         self.drop_mlp = Dropout(dropout, salt + 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.drop_attn(self.attn(self.ln1(x)))
-        y = self.mlp_out(gelu(self.mlp_in(self.ln2(x))))
+        h = cc.sum_grad(self.ln2(x), self.tensor.group, self.tensor.size)
+        y = self.mlp_out(gelu(self.mlp_in(h)))
         return x + self.drop_mlp(y)
 
 

@@ -20,8 +20,13 @@ repeats the cached K/V,
 :class:`MultiHeadAttention`'s sequence-parallel ``"ring"`` and
 ``"ulysses"`` (``parallel/sequence.py``) over the ``SeqGroup`` its model
 hands it, and the JAX module's ``causal``, ``rotary`` and ``use_bias``
-fields with a (B, S) padding ``mask`` (BERT, the transformer LM, ViT), and
-per-row LoRA deltas on q and v (``lora``, ``nn/lora.py``).
+fields with a (B, S) padding ``mask`` (BERT, the transformer LM, ViT),
+per-row LoRA deltas on q and v (``lora``, ``nn/lora.py``), and the
+``tensor`` axis (``parallel/tensor.py``): split projections run on the
+local H/t and Hkv/t heads (the cache too) with ``out`` row-parallel, and
+whole projections (an int8 model's) with ``cache_tensor`` keep only the
+local heads in the decode cache and gather the heads' outputs before
+``out``.
 """
 
 from __future__ import annotations
@@ -34,12 +39,13 @@ from torch import nn
 
 from pytorch_distributed_nn_tpu_torch.nn.layers import dense_product
 from pytorch_distributed_nn_tpu_torch.nn.lora import lora_delta
+from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
 from pytorch_distributed_nn_tpu_torch.nn.quantized import Int8DenseGeneral
 from pytorch_distributed_nn_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIMS,
     flash_attention,
 )
-from pytorch_distributed_nn_tpu_torch.runtime.mesh import SeqGroup
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import AxisGroup, SeqGroup
 
 _NEG = -1e30  # the JAX package's mask value, in f32
 CACHE_DTYPES = ("compute", "int8")
@@ -300,7 +306,11 @@ class _DenseGeneral(nn.Module):
     """Float ``nn.DenseGeneral`` with the flax kernel layout (in...,
     features...) and, with ``use_bias``, a bias of shape ``features``
     added in ``dtype`` after the product; computes in ``dtype``, a decode
-    step's rows in fixed blocks (``nn.layers.dense_product``)."""
+    step's rows in fixed blocks (``nn.layers.dense_product``). Over
+    ``tensor`` (``tp_mode``): ``"column"`` holds the local heads of its
+    features and slices the whole bias to them (its gradient summed over
+    the group), ``"row"`` the local heads of its input, summing the partial
+    products over the group before the whole bias."""
 
     def __init__(self, in_shape, features, *, dtype, param_dtype,
                  use_bias: bool = False, device=None) -> None:
@@ -315,6 +325,8 @@ class _DenseGeneral(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(
             self.features, dtype=param_dtype, device=device))
             if use_bias else None)
+        self.tensor = AxisGroup()
+        self.tp_mode: Optional[str] = None
 
     def forward(self, x):
         nin = len(self.in_shape)
@@ -322,7 +334,17 @@ class _DenseGeneral(nn.Module):
         k = self.kernel.to(self.dtype).reshape(-1, math.prod(self.features))
         y = dense_product(x.to(self.dtype).reshape(*lead, -1), k).reshape(
             *lead, *self.features)
-        return y if self.bias is None else y + self.bias.to(self.dtype)
+        g = self.tensor
+        if self.tp_mode == "row":
+            y = cc.sum_forward(y, g.group, g.size)
+        if self.bias is None:
+            return y
+        bias = self.bias
+        if self.tp_mode == "column":
+            n = self.features[0]
+            bias = cc.sum_grad(bias, g.group, g.size).narrow(
+                0, g.index * n, n)
+        return y + bias.to(self.dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -370,6 +392,10 @@ class MultiHeadAttention(nn.Module):
         self.rotary = rotary
         self.impl = impl
         self.seq = seq or SeqGroup()
+        # the tensor axis: split projections on local heads, or (whole
+        # projections) the decode cache on local heads (parallel/tensor.py)
+        self.tensor = AxisGroup()
+        self.cache_tensor = AxisGroup()
         self.dtype = dtype
         self.fused = quantized and fused_qkv
         if quantized:
@@ -397,7 +423,8 @@ class MultiHeadAttention(nn.Module):
         compute dtype, or int8 with ``cached_key_scale`` and
         ``cached_value_scale`` (B, S, Hkv) f32 under ``cache_dtype="int8"``;
         ``cache_index`` a 0-d int32."""
-        kv = (batch_size, max_len, self.num_kv_heads, self.head_dim)
+        kv = (batch_size, max_len,
+              self.num_kv_heads // self.cache_tensor.size, self.head_dim)
         int8 = self.cache_dtype == "int8"
 
         def zeros(shape, dtype):
@@ -431,6 +458,7 @@ class MultiHeadAttention(nn.Module):
         delta (why the prefix cache keys its blocks by adapter). A zero B
         adds exact zeros."""
         h, hkv = self.num_heads, self.num_kv_heads
+        x = cc.sum_grad(x, self.tensor.group, self.tensor.size)
         if self.fused:
             qkv = self.qkv(x)
             q, k, v = qkv[..., :h, :], qkv[..., h:h + hkv, :], \
@@ -449,6 +477,14 @@ class MultiHeadAttention(nn.Module):
         if cache_positions is not None and cache is None:
             raise ValueError("cache_positions is a decode-cache feature "
                              "(per-row cache indices); it needs a cache")
+        ct = self.cache_tensor
+        if ct.size > 1 and cache is not None:
+            # whole projections, local cache heads: this rank attends with
+            # its key/value heads and their query groups
+            hl, kl = h // ct.size, hkv // ct.size
+            q = q[:, :, ct.index * hl:(ct.index + 1) * hl]
+            k = k[:, :, ct.index * kl:(ct.index + 1) * kl]
+            v = v[:, :, ct.index * kl:(ct.index + 1) * kl]
         if self.impl in ("ring", "ulysses"):
             if cache is not None:
                 raise ValueError(f"{self.impl} attention has no decode "
@@ -508,6 +544,9 @@ class MultiHeadAttention(nn.Module):
                 q, k = q.to(self.dtype), k.to(self.dtype)
             out = dot_product_attention(q, k, v, causal=self.causal,
                                         impl=self.impl, mask=mask)
+        if ct.size > 1 and cache is not None:
+            out = cc.gather_split(out.contiguous(), ct.group, ct.size,
+                                  ct.index, 2)
         return self.out(out)
 
     def _sequence_parallel(self, q, k, v):

@@ -8,6 +8,12 @@ numerics: ``Dense``, ``Embed``, ``LayerNorm``, ``gelu`` and ``Dropout``
   (:func:`dense_product`).
 - :class:`Embed`: the ``embedding`` table in the param dtype; a lookup,
   no cast (flax's ``Embed`` without a ``dtype``).
+- Over the ``tensor`` axis (``parallel/tensor.py`` sets ``tensor`` and
+  ``tp_mode``): a ``"column"`` Dense holds its columns (and bias) of the
+  product, a ``"row"`` Dense its rows, summing the partial products over
+  the group before the whole bias; a ``"gather"`` Dense (a vocab-split
+  head) gathers its logit columns before the bias; an Embed holds its
+  rows of the table and looks up by a masked lookup and a sum.
 - :class:`LayerNorm`: statistics in f32 in flax 0.12's
   ``use_fast_variance`` form, var = max(E[x^2] - E[x]^2, 0) (not
   ``F.layer_norm``'s), then ``(x - mean) * (rsqrt(var + eps) * scale) +
@@ -30,6 +36,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import AxisGroup
 
 _MASK64 = (1 << 64) - 1
 _stream: Optional[tuple[int, int, int]] = None  # (seed, step, rank)
@@ -75,9 +84,23 @@ class Dense(nn.Module):
         self.bias = (nn.Parameter(torch.zeros((features,), dtype=param_dtype,
                                               device=device))
                      if use_bias else None)
+        # the tensor axis (parallel/tensor.py): "column", "row" or "gather"
+        self.tensor = AxisGroup()
+        self.tp_mode: Optional[str] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gather: bool = True) -> torch.Tensor:
+        """``gather`` False: a ``"gather"`` Dense returns its own columns
+        of the product (no bias), for a vocab-parallel loss."""
+        g = self.tensor
+        if self.tp_mode == "gather":
+            x = cc.sum_grad(x, g.group, g.size)
         y = dense_product(x.to(self.dtype), self.kernel.to(self.dtype))
+        if self.tp_mode == "row":
+            y = cc.sum_forward(y, g.group, g.size)
+        elif self.tp_mode == "gather":
+            if not gather:
+                return y
+            y = cc.gather_split(y, g.group, g.size, g.index, y.dim() - 1)
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
@@ -90,9 +113,18 @@ class Embed(nn.Module):
         super().__init__()
         self.embedding = nn.Parameter(torch.zeros(
             (num, features), dtype=param_dtype, device=device))
+        self.tensor = AxisGroup()  # the rows are split over it
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return F.embedding(idx, self.embedding)
+        g = self.tensor
+        if g.size == 1:
+            return F.embedding(idx, self.embedding)
+        rows = self.embedding.shape[0]
+        local = idx - g.index * rows
+        mine = (local >= 0) & (local < rows)
+        out = F.embedding(torch.where(mine, local, 0), self.embedding)
+        out = out * mine[..., None].to(out.dtype)
+        return cc.sum_forward(out, g.group, g.size)
 
 
 class LayerNorm(nn.Module):

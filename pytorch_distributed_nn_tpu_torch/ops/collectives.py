@@ -21,6 +21,13 @@ use :func:`all_gather_into_tensor` and :func:`reduce_scatter_tensor`
 that is replicated across the group but for one split step:
 :func:`gather_replicated` (the experts' outputs from every rank) and
 :func:`sum_grad` (the identity whose gradient is summed over the group).
+The tensor axis (``parallel/tensor.py``) adds Megatron's other operator,
+:func:`sum_forward` (the sum over the group, whose gradient passes
+through), and :func:`gather_split` (every rank's slice along a dim).
+
+Every batch of point-to-point messages (:func:`exchange`, the ring's
+:func:`shift_right`) gives its j-th tensor tag j, so a receive can only
+match the message of its own position in the batch, whatever the sizes.
 """
 
 from __future__ import annotations
@@ -208,11 +215,32 @@ def exchange(sends: Sequence[tuple[int, torch.Tensor]],
         return
     for _, t in sends:
         _record("send", t, group, n=2)
-    ops = [dist.P2POp(dist.isend, t.contiguous(),
-                      dist.get_global_rank(group, peer), group=group)
-           for peer, t in sends]
-    ops += [dist.P2POp(dist.irecv, t, dist.get_global_rank(group, peer),
-                       group=group) for peer, t in recvs]
+    _p2p([(p, t.contiguous()) for p, t in sends], recvs, group)
+
+
+def _p2p(sends: Sequence[tuple[int, torch.Tensor]],
+         recvs: Sequence[tuple[int, torch.Tensor]], group) -> None:
+    """``sends`` and ``recvs`` (each ``(peer index in the group, tensor)``)
+    as one ``batch_isend_irecv``, waited for. The j-th message between two
+    ranks carries tag j on both sides (sends and receives counted apart,
+    per peer), so each receive takes the message of its own place in the
+    batch and no other; NCCL, which matches by order, ignores the tags."""
+    def tagged(op, pairs):
+        count: dict[int, int] = {}
+        out = []
+        for peer, t in pairs:
+            tag = count.get(peer, 0)
+            count[peer] = tag + 1
+            out.append(dist.P2POp(op, t, dist.get_global_rank(group, peer),
+                                  group=group, tag=tag))
+        return out
+
+    if dist.get_backend(group) == "gloo" and any(
+            t.is_cuda for _, t in (*sends, *recvs)):
+        raise RuntimeError(
+            "gloo sends no CUDA tensor point to point (ranks that share a "
+            "card): hold every pipeline stage in each process")
+    ops = tagged(dist.isend, sends) + tagged(dist.irecv, recvs)
     for work in dist.batch_isend_irecv(ops):
         work.wait()
 
@@ -248,20 +276,17 @@ def _shift(xs: Sequence[torch.Tensor], group, size: int,
            step: int) -> list[torch.Tensor]:
     """Rank i of the group sends ``xs`` to rank (i + step) % size and
     receives the same shapes from (i - step) % size, all in one batch of
-    P2P ops (Gloo takes CPU tensors, NCCL CUDA ones)."""
+    P2P ops (Gloo takes CPU tensors, NCCL CUDA ones), tensor j under tag
+    j (:func:`_p2p`)."""
     _record("shift", xs, group, n=size)
     if size == 1:
         return list(xs)
     i = dist.get_rank(group)
-    dst = dist.get_global_rank(group, (i + step) % size)
-    src = dist.get_global_rank(group, (i - step) % size)
+    dst, src = (i + step) % size, (i - step) % size
     outs = [torch.empty_like(x, memory_format=torch.contiguous_format)
             for x in xs]
-    ops = [dist.P2POp(dist.isend, x.contiguous(), dst, group=group)
-           for x in xs]
-    ops += [dist.P2POp(dist.irecv, o, src, group=group) for o in outs]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
+    _p2p([(dst, x.contiguous()) for x in xs], [(src, o) for o in outs],
+         group)
     return outs
 
 
@@ -378,3 +403,57 @@ def sum_grad(x: torch.Tensor, group, size: int) -> torch.Tensor:
     if size == 1:
         return x
     return _SumGrad.apply(x, group)
+
+
+# --------------------------------------------------------------------------
+# the tensor axis: Megatron's conjugate operators and the split gather
+# --------------------------------------------------------------------------
+
+class _SumForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_forward(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """The sum over ``group`` of every rank's ``x`` (an all-reduce), whose
+    gradient passes through unchanged: Megatron's operator after a
+    row-parallel product, whose partial sums every rank then holds whole
+    and computes on alike. The conjugate of :func:`sum_grad`; the identity
+    at size 1."""
+    if size == 1:
+        return x
+    return _SumForward.apply(x, group)
+
+
+class _GatherSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size: int, index: int, dim: int):
+        ctx.index, ctx.dim, ctx.width = index, dim, x.shape[dim]
+        moved = x.movedim(dim, 0).contiguous()
+        out = torch.empty((size * moved.shape[0],) + tuple(moved.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        all_gather_into_tensor(out, moved, group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.index * ctx.width, ctx.width),
+                None, None, None, None)
+
+
+def gather_split(x: torch.Tensor, group, size: int, index: int,
+                 dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in group order (one
+    all-gather): the whole of a tensor split over the group, for a
+    computation downstream that every rank runs alike (the loss over
+    vocab-split logits). Its gradient is then the same on every rank, and
+    the backward keeps this rank's slice (``index``) and sends nothing. The
+    identity at size 1."""
+    if size == 1:
+        return x
+    return _GatherSplit.apply(x, group, size, index, dim)

@@ -9,8 +9,12 @@ parallelism (``mesh.seq > 1``) and gradient accumulation
 (``parallel.grad_accum``) under ``single``/``dp``/``zero``; ``zero``
 (stages 1 and 3, ``parallel/zero.py``, which also splits the experts over
 ``mesh.expert``) and ``pipeline`` (gpipe, 1f1b,
-interleaved; ``parallel/pipeline.py``). ``ps`` and ``zero`` with
-``mesh.seq > 1`` raise, naming the ROADMAP item that ports them.
+interleaved; ``parallel/pipeline.py``), each with the tensor axis
+(``mesh.tensor > 1``, ``parallel/tensor.py``): ``single``/``dp`` then run
+as ZeRO's step at stage 0, as the JAX ``dp`` step does. ``ps`` and
+``zero`` with ``mesh.seq > 1`` raise, naming the ROADMAP item that ports
+them; ``dp_explicit`` (the reference's hand-rolled loop over replicated
+parameters) refuses ``mesh.tensor > 1``.
 """
 
 from __future__ import annotations
@@ -153,11 +157,18 @@ def make_train_step(cfg: TrainConfig, loss_fn: Callable,
 
         return process_mesh(cfg.mesh, cc.rank(), cc.world_size())
 
-    if strategy == "zero" and cfg.parallel.zero_stage != 0:
+    tensor = (mesh or cfg.mesh).tensor
+    if tensor > 1 and strategy == "dp_explicit":
+        raise ValueError(
+            "mesh.tensor > 1 splits the layers: strategy 'dp_explicit' "
+            "reduces replicated parameters; use 'dp', 'zero' or 'pipeline'")
+    if strategy == "zero" and cfg.parallel.zero_stage != 0 or (
+            tensor > 1 and strategy in ("single", "dp", "zero")):
         from pytorch_distributed_nn_tpu_torch.parallel import zero
 
+        stage = cfg.parallel.zero_stage if strategy == "zero" else 0
         return zero.make_sharded_train_step(
-            loss_fn, mesh_of, stage=cfg.parallel.zero_stage, accum=accum,
+            loss_fn, mesh_of, stage=stage, accum=accum,
             optim_cfg=cfg.optim, total_steps=cfg.steps)
     if strategy == "pipeline":
         from pytorch_distributed_nn_tpu_torch.parallel import pipeline

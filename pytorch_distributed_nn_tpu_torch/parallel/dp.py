@@ -38,6 +38,7 @@ from pytorch_distributed_nn_tpu_torch.parallel.expert import (
     add_aux_losses,
     collect_aux_losses,
 )
+from pytorch_distributed_nn_tpu_torch.parallel.tensor import whole_leaves
 from pytorch_distributed_nn_tpu_torch.train.state import TrainState
 
 
@@ -56,8 +57,10 @@ def _loss_and_grads(state: TrainState, x: torch.Tensor, y: torch.Tensor,
     returns the detached loss. A loss_fn marked by
     ``api.make_chunked_loss`` gets the model output it asks for
     (``loss_fn.apply_kwargs``) and the live parameters by name
-    (``loss_fn.needs_params``). ``microbatch`` (under gradient
-    accumulation) folds its index into the dropout seed, as the JAX step
+    (``loss_fn.needs_params``; those it ``reads`` whole where the tensor
+    axis splits them, ``parallel.tensor.whole_leaves``). ``microbatch``
+    (under gradient accumulation) folds its index into the dropout seed,
+    as the JAX step
     folds it into the step's key. The MoE layers' load-balance terms
     (``parallel/expert.py``) are added to the loss, as the JAX ``forward``
     adds the sown ``"losses"``; a microbatch's are its own. The dropout
@@ -73,7 +76,10 @@ def _loss_and_grads(state: TrainState, x: torch.Tensor, y: torch.Tensor,
         with collect_aux_losses(state.model) as aux:
             out = forward(state, x, apply_kwargs=apply_kwargs)
             if getattr(loss_fn, "needs_params", False):
-                loss = loss_fn(out, y, dict(state.model.named_parameters()))
+                params = whole_leaves(
+                    state.model, getattr(loss_fn, "reads", ()),
+                    dict(state.model.named_parameters()))
+                loss = loss_fn(out, y, params)
             else:
                 loss = loss_fn(out, y)
         loss = add_aux_losses(loss, aux)

@@ -50,6 +50,12 @@ already on every rank:
   expert group by an identity on the dispatch's token input
   (``ops.collectives.sum_grad``): one all-reduce.
 
+Over ``tensor`` (``parallel/tensor.py``) each expert's ``wi`` keeps its
+ff columns and ``wo`` its ff rows: the experts' outputs are summed over
+``tensor`` (``ops.collectives.sum_forward``) before the gather over
+``expert``, and the tokens' gradient through the experts is summed over
+``tensor`` as well as over ``expert``.
+
 So each gradient counts once. The router's gradient (through the
 combine weights and the load-balance term) and the tokens' gradient
 through the router are whole on every rank and cross no wire; the
@@ -175,6 +181,8 @@ class MoEMLP(nn.Module):
             (num_experts, mlp_dim, d_model), dtype=param_dtype,
             device=device))
         self.expert = AxisGroup()  # the group the experts are split over
+        # the group each expert's ff is split over (parallel/tensor.py)
+        self.tensor = AxisGroup()
         # set by collect_aux_losses: (its collector, this layer's name)
         self.aux_sink: Optional[tuple[dict, str]] = None
         self.last_fraction_dropped: Optional[torch.Tensor] = None
@@ -212,12 +220,15 @@ class MoEMLP(nn.Module):
         local = self.wi.shape[0]  # E/n experts on this rank
         lo = grp.index * local
         dispatch = routing.dispatch[:, :, lo:lo + local].to(cdt)
+        tp = self.tensor
         tok = cc.sum_grad(tokens.to(cdt), grp.group, grp.size)
+        tok = cc.sum_grad(tok, tp.group, tp.size)
         # (G, g, El, C) x (G, g, d) -> (El, G C, d)
         expert_in = torch.einsum("gnec,gnd->egcd", dispatch, tok).reshape(
             local, G * C, d)
         h = gelu(torch.bmm(expert_in, self.wi.to(cdt)))
         expert_out = torch.bmm(h, self.wo.to(cdt))  # (El, G C, d)
+        expert_out = cc.sum_forward(expert_out, tp.group, tp.size)
         expert_out = cc.gather_replicated(expert_out, grp.group, grp.size,
                                           grp.index).reshape(E, G, C, d)
         out = torch.einsum("gnec,egcd->gnd", routing.combine.to(cdt),

@@ -62,6 +62,16 @@ run no unit and add nothing). Evaluation leaves the terms out. Under
 (``expert.split_expert_layers``) and run over the stage's expert group;
 the pipe group joins the same expert coordinate of every stage, and a
 checkpoint's part is ``pipe<d>-expert<e>``.
+
+Under ``mesh.tensor > 1`` (the JAX pipeline leaves ``tensor`` to the SPMD
+partitioner inside each stage) the model is cut to the rank's Megatron
+slices before the stages are pruned (``tensor.split_tensor_layers``): a
+stage's blocks run tensor-parallel over the stage's tensor group, the
+activations that cross an edge are the whole (replicated) ones, each
+handed to the same tensor coordinate of the next stage, the optimizer's
+layout sums the slices' squares over the tensor group, and a checkpoint's
+part is ``tensor<t>-pipe<d>`` (``tensor<t>-local`` where one process holds
+every stage, as on one card).
 """
 
 from __future__ import annotations
@@ -84,6 +94,12 @@ from pytorch_distributed_nn_tpu_torch.parallel.pipeline_schedule import (
     NO_OP,
     interleaved_1f1b,
     one_f_one_b,
+)
+from pytorch_distributed_nn_tpu_torch.parallel.tensor import (
+    split_tensor_layers,
+    tensor_layout,
+    tensor_meta,
+    vocab_parallel_loss,
 )
 from pytorch_distributed_nn_tpu_torch.runtime.mesh import ProcessMesh
 from pytorch_distributed_nn_tpu_torch.train.losses import accuracy, valid_mask
@@ -343,6 +359,13 @@ class PipelineStages:
         # shapes (every rank's meta names them all); this rank splits the
         # layers of its stages
         self.expert = mesh.expert
+        self.tensor = mesh.tensor
+        if self.tensor.size > 1 and getattr(model, "tensor_split",
+                                            None) is None:
+            split_tensor_layers(model, self.tensor)
+        # the whole model's tensor-split leaves (every rank's meta names
+        # them all)
+        self.tensor_leaves = getattr(model, "tensor_split", None) or {}
         self.expert_leaves = expert_split_leaves(model, self.expert.size)
         self._prune()
         split_expert_layers(model, self.expert, self.expert_leaves)
@@ -379,11 +402,16 @@ class PipelineStages:
         if self.expert_leaves:
             out["experts"] = {k: list(v) for k, v in
                               sorted(self.expert_leaves.items())}
+        if self.tensor_leaves:
+            out["tensor"] = tensor_meta(self.tensor_leaves)
         return out
 
-    def _part(self, d: int | None, e: int) -> str:
+    def _part(self, d: int | None, e: int, t: int | None = None) -> str:
         base = "local" if d is None else f"pipe{d}"
-        return f"{base}-expert{e}" if self.expert_leaves else base
+        base = f"{base}-expert{e}" if self.expert_leaves else base
+        if self.tensor_leaves:
+            return f"tensor{self.tensor.index if t is None else t}-{base}"
+        return base
 
     @property
     def _device(self) -> int | None:
@@ -398,7 +426,9 @@ class PipelineStages:
     def parts(self) -> list[str]:
         stages = [None] if self.mesh.pipe_local else range(self.S)
         experts = self.expert.size if self.expert_leaves else 1
-        return [self._part(d, e) for d in stages for e in range(experts)]
+        tensors = self.tensor.size if self.tensor_leaves else 1
+        return [self._part(d, e, t) for t in range(tensors) for d in stages
+                for e in range(experts)]
 
     @property
     def writes(self) -> bool:
@@ -418,20 +448,24 @@ class PipelineStages:
 
     def layout(self, names: list[str], shapes) -> ShardLayout | None:
         """The optimizer's, over the parameters ``names``: the global norm
-        sums over the other stages and the expert slices over the expert
-        group (None where one process holds the whole model)."""
+        sums over the other stages, the expert slices over the expert
+        group and the tensor slices over the tensor group (None where one
+        process holds the whole model)."""
         local = self.mesh.pipe_local
-        if local and not self.experts:
+        if local and not self.experts and not self.tensor_leaves:
             return None
         n = self.expert.size
+        whole = self.tensor_leaves
         return ShardLayout(
             dims=[None] * len(names),
-            shapes=[(s[0] * n, *s[1:]) if k in self.experts else tuple(s)
+            shapes=[tuple(whole[k][1]) if k in whole else
+                    (s[0] * n, *s[1:]) if k in self.experts else tuple(s)
                     for k, s in zip(names, shapes)],
             norm_group=None if local else self.mesh.pipe.group,
             norm_size=1 if local else self.S,
             experts=[k in self.experts for k in names],
-            expert_group=self.expert.group, expert_size=n)
+            expert_group=self.expert.group, expert_size=n,
+            **tensor_layout(whole, dict.fromkeys(names), self.tensor))
 
     # -- the units ---------------------------------------------------------
 
@@ -480,6 +514,10 @@ class PipelineStages:
                                          self.mesh.data.group)
         seed = state.generator.initial_seed()
         data_index = self.mesh.data_index
+        # the LM's cross-entropy on the vocab slices, under a split head
+        split = vocab_parallel_loss(loss_fn, self.model, self.tensor)
+        loss_fn = split or loss_fn
+        head_kw = {"split_logits": True} if split else {}
 
         def stream(k, m):
             return dropout_stream(fold_in(fold_in(seed, m), k), state.step,
@@ -504,7 +542,7 @@ class PipelineStages:
                         with stream(u.k, u.m):
                             y, aux = self._forward_unit(u.k, x_in)
                             if u.k == sv - 1 and not gpipe:
-                                logits = self.model.head(y)
+                                logits = self.model.head(y, **head_kw)
                                 y = loss_fn(logits, tgt_mb[u.m]) \
                                     * weights[u.m] / M
                                 loss_sum = loss_sum + y.detach()
@@ -517,7 +555,7 @@ class PipelineStages:
                         self.peak_live[d] = max(self.peak_live[d], live)
                     elif u.kind == "L":
                         loss_sum = loss_sum + self._whole_batch_loss(
-                            saved, inbox, targets, loss_fn, n_data)
+                            saved, inbox, targets, loss_fn, n_data, head_kw)
                     else:
                         x_in, out, aux = saved.pop((u.k, u.m))
                         if u.k == sv - 1 and not gpipe:
@@ -541,7 +579,7 @@ class PipelineStages:
         return loss_sum
 
     def _whole_batch_loss(self, saved, inbox, targets, loss_fn,
-                          n_data: int) -> torch.Tensor:
+                          n_data: int, head_kw: dict) -> torch.Tensor:
         """gpipe's last stage: the head and the loss over the rank's whole
         batch (a token-weighted loss over the global count), backward to
         each microbatch's output, whose cotangent it hands to its own
@@ -549,7 +587,7 @@ class PipelineStages:
         k = self.sv - 1
         hs = [saved[(k, m)][1].detach().requires_grad_()
               for m in range(self.M)]
-        logits = self.model.head(torch.cat(hs))
+        logits = self.model.head(torch.cat(hs), **head_kw)
         if getattr(loss_fn, "token_weighted", False) and n_data > 1:
             count = valid_mask(targets).sum().float().reshape(1)
             cc.all_reduce_sum(count, self.mesh.data.group)

@@ -10,9 +10,12 @@ the port imports nothing of the JAX package).
   ``moe/wo``) split along E over ``expert`` (``parallel/zero.py``
   reads it; the router stays replicated), before the fsdp rule picks
   another dim.
-- **tensor**: the name-driven Megatron rules, ported as data. The mesh
-  still refuses ``tensor`` above 1 (``runtime/mesh.py``, ROADMAP.md §1
-  item 3, the remaining sharded strategies), so no step reads them yet.
+- **tensor**: the name-driven Megatron rules (``parallel/tensor.py``
+  cuts each layer by them): q/k/v and ``attn/out`` on their heads, the
+  MLP's column and row products on ff, the embeddings and heads on their
+  vocab dim (with ``fsdp`` on the same dim under ZeRO), the stacked
+  experts on ff. The quantized leaves (``kernel_q``, ``embedding_q``,
+  ``scale``) match no rule and stay whole, as in the JAX package.
 
 :func:`spec_for` returns the JAX ``PartitionSpec``'s entries as a tuple
 (``None``, ``"fsdp"``, ``"tensor"``, ``"expert"`` or a tuple of axes, one
@@ -98,12 +101,48 @@ def spec_for(path: str, shape: tuple[int, ...], *, tensor: int = 1,
     return tuple(axes)
 
 
+def _axes_of(entry) -> tuple:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def axis_dim(spec: tuple, axis: str) -> int | None:
+    """The dim of ``spec`` (a :func:`spec_for` result) that ``axis``
+    splits, alone or with another axis (None: not split over it)."""
+    for d, entry in enumerate(spec):
+        if axis in _axes_of(entry):
+            return d
+    return None
+
+
 def fsdp_dim(path: str, shape: tuple[int, ...], fsdp: int,
-             expert: int = 1) -> int | None:
+             expert: int = 1, tensor: int = 1) -> int | None:
     """The dim of a leaf of whole shape ``shape`` that ``fsdp`` splits
-    (None: replicated), under the fsdp and expert rules (tensor 1)."""
-    spec = spec_for(path, shape, fsdp=fsdp, expert=expert)
-    return spec.index(FSDP) if FSDP in spec else None
+    (None: replicated), under the fsdp, expert and tensor rules."""
+    return axis_dim(spec_for(path, shape, fsdp=fsdp, expert=expert,
+                             tensor=tensor), FSDP)
+
+
+def local_slice(path: str, t, *, tensor: tuple[int, int] = (1, 0),
+                fsdp: tuple[int, int] = (1, 0),
+                expert: tuple[int, int] = (1, 0),
+                min_elems: int = MIN_SHARD_ELEMS):
+    """The slice of the whole leaf ``t`` (a tensor) that the rank at the
+    given ``(size, index)`` of each axis holds: the part of each dim that
+    :func:`spec_for` splits, taken over the axes in the spec's order (a
+    dim split over ``(tensor, fsdp)`` is cut by tensor first, then fsdp
+    within it: the JAX device order, tensor the slower). A view of ``t``;
+    ``t`` itself where nothing is split."""
+    coords = {TENSOR: tensor, FSDP: fsdp, EXPERT: expert}
+    spec = spec_for(path, tuple(t.shape), tensor=tensor[0], fsdp=fsdp[0],
+                    expert=expert[0], min_elems=min_elems)
+    for d, entry in enumerate(spec):
+        for axis in _axes_of(entry):
+            if axis is None:
+                continue
+            n, i = coords[axis]
+            part = shard_slice(t.shape[d], i, n)
+            t = t.narrow(d, part.start, part.stop - part.start)
+    return t
 
 
 def shard_slice(size: int, index: int, n: int) -> slice:

@@ -49,6 +49,20 @@ sums the slices' squares over the expert group (``ShardLayout``). A
 checkpoint's part is the rank's (expert, fsdp) coordinate; the ranks off
 expert 0 write only their expert slices and their moments.
 
+The tensor axis (``mesh.tensor > 1``, ``parallel/tensor.py``): the model
+is first cut to the rank's Megatron slices (``split_tensor_layers``), then
+the fsdp rule picks each slice's dim from the whole shape with ``tensor``
+taken into account, so a rank holds the JAX device's shard at its
+(tensor, fsdp) coordinates; the vocab tables split their vocab dim over
+``(tensor, fsdp)`` together. Nothing is reduced over ``tensor``: each
+slice's gradient is its own, and the gradients of the leaves the rules
+leave whole come out the same on every tensor rank. The clip's norm sums
+the slices' squares over the tensor group. At ``tensor > 1`` the ``dp``
+strategy is this step at stage 0 (nothing split over ``fsdp``), as the
+JAX ``dp`` step is ZeRO's stage 0 with the TP rules: one code path
+reduces over data x fsdp, lays the optimizer out and names a
+checkpoint's parts (``tensor<t>-`` before the fsdp and expert part).
+
 Replicated leaves are all-reduced to their mean over data x fsdp, as
 under ``dp``; a split gradient's reduce-scattered sum over ``fsdp`` is
 then summed over ``data`` and divided by data x fsdp. Gradient
@@ -85,6 +99,7 @@ issue nothing on the earlier microbatches.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Callable, Iterable
 
 import torch
@@ -100,6 +115,12 @@ from pytorch_distributed_nn_tpu_torch.parallel.expert import (
 from pytorch_distributed_nn_tpu_torch.parallel.sharding_rules import (
     fsdp_dim,
     shard_slice,
+)
+from pytorch_distributed_nn_tpu_torch.parallel.tensor import (
+    split_tensor_layers,
+    tensor_layout,
+    tensor_meta,
+    vocab_parallel_loss,
 )
 from pytorch_distributed_nn_tpu_torch.runtime.mesh import (
     AXES,
@@ -219,13 +240,16 @@ def _accumulate(state: TrainState, x, y, loss_fn: Callable, accum: int,
     return lsum / accum
 
 
-def _global_token_mean(loss_fn: Callable, y, world: int) -> Callable:
+def _global_token_mean(loss_fn: Callable, y, world: int,
+                       group=None) -> Callable:
     """``loss_fn`` with its denominator the global count of valid tokens
-    over ``world`` (clamped at 1 first): the mean across ranks of the
-    ranks' losses and gradients is then the global token mean."""
+    over the ``world`` ranks of ``group`` (clamped at 1 first): the mean
+    across them of the ranks' losses and gradients is then the global
+    token mean."""
     from pytorch_distributed_nn_tpu_torch.train.losses import valid_mask
 
-    count = cc.all_reduce_sum(valid_mask(y).sum().float().reshape(1))[0]
+    count = cc.all_reduce_sum(valid_mask(y).sum().float().reshape(1),
+                              group)[0]
     denom = count.clamp(min=1) / world
     return lambda out, labels: loss_fn(out, labels, denom=denom)
 
@@ -281,26 +305,37 @@ class ZeroShards:
         self.fsdp, self.data = mesh.fsdp, mesh.data
         self.replica = mesh.replica  # the data axis alone
         self.expert = mesh.expert
-        n, ne = self.fsdp.size, self.expert.size
-        # the expert split first: each MoE layer keeps its E/n experts
+        self.tensor = mesh.tensor
+        n, ne, nt = self.fsdp.size, self.expert.size, self.tensor.size
+        # the Megatron slices first, then each MoE layer keeps its E/n
+        # experts
+        if nt > 1 and getattr(model, "tensor_split", None) is None:
+            split_tensor_layers(model, self.tensor)
+        self.tensor_leaves = getattr(model, "tensor_split", None) or {}
         self.experts = set(expert_split_leaves(model, ne))  # their leaves
         split_expert_layers(model, self.expert, self.experts)
         self.named = {k: p for k, p in model.named_parameters()
                       if p.requires_grad}
-        # whole shapes (an expert slice's E is n times its own)
-        self.shapes = {k: ((p.shape[0] * ne,) + tuple(p.shape[1:])
+        # whole shapes (an expert slice's E is n times its own; a tensor
+        # slice's whole shape is the one split_tensor_layers recorded)
+        self.shapes = {k: (self.tensor_leaves[k][1] if k in
+                           self.tensor_leaves else
+                           (p.shape[0] * ne,) + tuple(p.shape[1:])
                            if k in self.experts else tuple(p.shape))
                        for k, p in self.named.items()}
-        self.dims = {k: fsdp_dim(k, self.shapes[k], n, expert=ne)
+        # stage 0 (the dp step under tensor > 1) splits nothing over fsdp
+        self.dims = {k: fsdp_dim(k, self.shapes[k], n if stage else 1,
+                                 expert=ne, tensor=nt)
                      for k in self.named}
         self.shards: dict[str, torch.Tensor] = {}
-        # dropout masks follow the rows: the rank at expert 0 of this
-        # rank's expert group keys them
+        # dropout masks follow the rows: the rank at expert 0 and tensor 0
+        # of this rank's groups keys them
         c = coords(mesh.process_spec, mesh.rank)
-        stride = 1
-        for a in AXES[AXES.index("expert") + 1:]:
-            stride *= getattr(mesh.process_spec, a)
-        self.dropout_rank = mesh.rank - c["expert"] * stride
+        stride = {a: math.prod(getattr(mesh.process_spec, b)
+                               for b in AXES[AXES.index(a) + 1:])
+                  for a in ("expert", "tensor")}
+        self.dropout_rank = (mesh.rank - c["expert"] * stride["expert"]
+                             - c["tensor"] * stride["tensor"])
         with torch.no_grad():
             for k, p in self.named.items():
                 d = self.dims[k]
@@ -326,7 +361,8 @@ class ZeroShards:
     @property
     def active(self) -> bool:
         """Whether anything is split or reduced (false at world 1)."""
-        return bool(self.shards) or self.data.size > 1 or bool(self.experts)
+        return (bool(self.shards) or self.data.size > 1
+                or bool(self.experts) or bool(self.tensor_leaves))
 
     # -- what the optimizer and the checkpoint see -----------------------
 
@@ -342,7 +378,9 @@ class ZeroShards:
                            group=self.fsdp.group, size=self.fsdp.size,
                            experts=[k in self.experts for k in self.named],
                            expert_group=self.expert.group,
-                           expert_size=self.expert.size)
+                           expert_size=self.expert.size,
+                           **tensor_layout(self.tensor_leaves, self.named,
+                                           self.tensor))
 
     def owned_params(self) -> dict[str, torch.Tensor]:
         """The state's parameter tensors that differ from the module's: the
@@ -360,11 +398,18 @@ class ZeroShards:
         if self.experts:
             out["experts"] = {k: list(self.shapes[k])
                               for k in sorted(self.experts)}
+        if self.tensor_leaves:
+            out["tensor"] = tensor_meta(self.tensor_leaves)
         return out
 
-    def _part(self, expert: int, fsdp: int) -> str:
-        return (f"expert{expert}-fsdp{fsdp}" if self.experts
+    def _part(self, expert: int, fsdp: int,
+              tensor: int | None = None) -> str:
+        base = (f"expert{expert}-fsdp{fsdp}" if self.experts
                 else f"fsdp{fsdp}")
+        if self.tensor_leaves:
+            t = self.tensor.index if tensor is None else tensor
+            return f"tensor{t}-{base}"
+        return base
 
     @property
     def part_name(self) -> str:
@@ -372,8 +417,10 @@ class ZeroShards:
         return self._part(self.expert.index, self.fsdp.index)
 
     def parts(self) -> list[str]:
-        return [self._part(e, f) for e in
-                range(self.expert.size if self.experts else 1)
+        return [self._part(e, f, t)
+                for t in range(self.tensor.size if self.tensor_leaves
+                               else 1)
+                for e in range(self.expert.size if self.experts else 1)
                 for f in range(self.fsdp.size)]
 
     @property
@@ -535,12 +582,13 @@ class ZeroShards:
 def make_sharded_train_step(loss_fn: Callable, mesh_of: Callable, *,
                             stage: int, accum: int = 1,
                             optim_cfg=None, total_steps: int = 1):
-    """ZeRO stages 1 and 3: ``(step, place_state)``. ``mesh_of()`` gives
+    """ZeRO stages 1 and 3 (and, under ``mesh.tensor > 1``, stage 0: the
+    ``dp`` step): ``(step, place_state)``. ``mesh_of()`` gives
     the rank's :class:`ProcessMesh` when the state is placed;
     ``place_state`` broadcasts rank 0's weights, lays the state out
     (:class:`ZeroShards`, kept as ``state.sharding``) and builds the
     optimizer over the rank's slices (``optim_cfg``, ``total_steps``)."""
-    if stage not in (1, 3):
+    if stage not in (0, 1, 3):
         raise ValueError(f"zero_stage must be 0, 1 or 3, got {stage}")
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")
@@ -553,12 +601,14 @@ def make_sharded_train_step(loss_fn: Callable, mesh_of: Callable, *,
             for m in state.model.modules():
                 if isinstance(m, TpuBatchNorm):
                     m.sync_group = mesh.data.group or dist.group.WORLD
-            dp.replicate_state(state)
+        if cc.world_size() > 1:
+            dp.replicate_state(state)  # rank 0's whole weights
         zs = ZeroShards(state.model, mesh, stage)
         state.sharding = zs
         state.optimizer = make_optimizer(
             optim_cfg, zs.optimizer_params(), total_steps=total_steps,
-            layout=zs.layout() if zs.shards or zs.experts else None)
+            layout=(zs.layout() if zs.shards or zs.experts
+                    or zs.tensor_leaves else None))
         return state
 
     replicated = make_zero_train_step(loss_fn, stage=0, accum=accum)
@@ -568,14 +618,17 @@ def make_sharded_train_step(loss_fn: Callable, mesh_of: Callable, *,
         if not zs.active:
             return replicated(state, x, y)  # world 1: the dp step
         n = zs.data.size
+        # the LM's cross-entropy on the vocab slices, under a split head
+        objective = vocab_parallel_loss(loss_fn, state.model, zs.tensor) \
+            or loss_fn
         parts = (list(zip(split_microbatches(x, accum),
                           split_microbatches(y, accum)))
                  if accum > 1 else [(x, y)])
         lsum = None
         for a, (bx, by) in enumerate(parts):
-            fn = loss_fn
+            fn = objective
             if n > 1 and token_weighted:
-                fn = _global_token_mean(loss_fn, by, n)
+                fn = _global_token_mean(loss_fn, by, n, zs.data.group)
             zs.begin(last=a == len(parts) - 1, accum=accum)
             with zs.hold(reads):
                 loss = dp._loss_and_grads(

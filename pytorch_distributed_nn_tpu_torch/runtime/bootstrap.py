@@ -9,9 +9,14 @@ The environment contract is the JAX package's, which is also ``torchrun``'s:
 ``torchrun --nproc_per_node N`` needs nothing more.
 
 The backend follows the device: NCCL on ``cuda``, gloo on the CPU. Nothing
-falls back: a failed NCCL init raises. A world of one with no rendezvous in
-the environment uses an in-process ``dist.HashStore``, so a one-process run
-opens no port.
+falls back: a failed NCCL init raises. The one exception is a gloo group
+that the caller formed itself before ``initialize`` (ranks that share a
+card, which NCCL refuses: gloo's collectives take CUDA tensors through
+host memory): on ``cuda`` it is kept, on the card the caller set. Gloo
+sends no CUDA tensor point to point, so a pipeline on shared cards holds
+every stage in each process (``runtime/mesh.pipe_is_local``). A world of
+one with no rendezvous in the environment uses an in-process
+``dist.HashStore``, so a one-process run opens no port.
 """
 
 from __future__ import annotations
@@ -52,12 +57,18 @@ def initialize(device: str | torch.device = "cuda") -> ProcessInfo:
     """Join (or create) the default process group for ``device`` and
     return this process's place in it. Idempotent: a process whose group
     already has the right backend keeps it; one with the other backend
-    raises (``shutdown`` first)."""
+    raises (``shutdown`` first), except a gloo group on ``cuda`` (see the
+    module's docstring)."""
     world = int(_env("NUM_PROCESSES", "WORLD_SIZE", default="1"))
     rank = int(_env("PROCESS_ID", "RANK", default="0"))
     local_rank = int(_env("LOCAL_RANK", default=str(rank)))
     dev = torch.device(device)
-    if dev.type == "cuda":
+    if dev.type == "cuda" and dist.is_initialized() \
+            and dist.get_backend() == "gloo":
+        # the caller's group for ranks sharing a card, on its card
+        dev = resolve_device("cuda")
+        backend = "gloo"
+    elif dev.type == "cuda":
         dev = resolve_device(torch.device("cuda", local_rank))
         torch.cuda.set_device(dev)
         backend = "nccl"

@@ -1,16 +1,17 @@
 """Logical parallelism degrees: ``MeshSpec`` of the JAX package's
 ``runtime/mesh.py``, resolved against the process group's world size.
 
-The port runs data, sequence, sharded-data, expert and pipeline
+The port runs data, sequence, sharded-data, expert, pipeline and tensor
 parallelism: one process a device, the global batch split over the
 ``data`` and ``fsdp`` axes (:func:`batch_slice`; ranks that differ only
-in their ``expert`` coordinate hold the same rows, as the JAX
-``batch_pspec`` lays them out), each row's tokens over ``seq``
+in their ``expert`` or ``tensor`` coordinate hold the same rows, as the
+JAX ``batch_pspec`` lays them out), each row's tokens over ``seq``
 (:func:`seq_slice`), the parameters over ``fsdp`` (``parallel/zero.py``),
 the experts of a mixture-of-experts layer over ``expert``
-(``parallel/expert.py``) and the layers over ``pipe``
-(``parallel/pipeline.py``). The ``tensor`` axis raises, naming
-:data:`REMAINING`.
+(``parallel/expert.py``), the layers over ``pipe``
+(``parallel/pipeline.py``) and each layer's products over ``tensor``
+(``parallel/tensor.py``). What is left of the sharded strategies raises,
+naming :data:`REMAINING`.
 
 Rank r sits at the row-major coordinates of r over ``AXES`` in the
 resolved shape (:func:`coords`), the order in which the JAX package lays
@@ -31,7 +32,6 @@ import numpy as np
 import torch.distributed as dist
 
 AXES: tuple[str, ...] = ("pipe", "data", "fsdp", "expert", "seq", "tensor")
-_MODEL_AXES = ("tensor",)
 # what is left of the sharded strategies; every port error for it names this
 REMAINING = "ROADMAP.md §1 item 3, the remaining sharded strategies"
 
@@ -88,25 +88,25 @@ class MeshSpec:
 def data_parallel(spec: MeshSpec, world_size: int) -> MeshSpec:
     """``spec`` resolved on ``world_size`` processes, one device each
     (``pipe`` stages count as processes unless the world does not divide
-    by them, :func:`pipe_is_local`); raises ``NotImplementedError`` where
-    the axis that shards a layer's products (tensor) exceeds 1."""
-    model_axes = {name: getattr(spec, name) for name in _MODEL_AXES
-                  if getattr(spec, name) > 1}
-    if model_axes:
+    by them and the other fixed axes, :func:`pipe_is_local`); raises
+    ``NotImplementedError`` for ``seq`` and ``tensor`` both above 1."""
+    if spec.seq > 1 and spec.tensor > 1:
         raise NotImplementedError(
-            f"mesh axes {model_axes} shard the layers: not ported yet "
-            f"({REMAINING}); the port runs the pipe, data, fsdp, expert "
-            "and seq degrees")
+            f"mesh.seq {spec.seq} with mesh.tensor {spec.tensor}: sequence "
+            f"parallelism inside a tensor-parallel layer is not ported "
+            f"({REMAINING})")
     if pipe_is_local(spec, world_size):
         return spec.resolve(world_size * spec.pipe)
     return spec.resolve(world_size)
 
 
 def pipe_is_local(spec: MeshSpec, world_size: int) -> bool:
-    """Whether each process holds every ``pipe`` stage (the world does not
-    divide by ``spec.pipe``: one process on one card, where NCCL refuses two
-    ranks on the same device)."""
-    return spec.pipe > 1 and world_size % spec.pipe != 0
+    """Whether each process holds every ``pipe`` stage: the world does not
+    divide by the product of the fixed axes, ``pipe`` among them (one
+    process on one card, or one process a ``tensor`` rank on one card,
+    where NCCL refuses two ranks on the same device)."""
+    fixed = math.prod(s for s in spec.shape if s != -1)
+    return spec.pipe > 1 and world_size % fixed != 0
 
 
 def coords(spec: MeshSpec, rank: int) -> dict[str, int]:
@@ -162,6 +162,9 @@ class ProcessMesh:
     # the expert axis: the ranks with this rank's rows and the other experts
     expert: AxisGroup = AxisGroup()
     pipe_local: bool = False
+    # the tensor axis: the ranks with this rank's rows and the other slices
+    # of each layer's products
+    tensor: AxisGroup = AxisGroup()
 
     @property
     def process_spec(self) -> MeshSpec:
@@ -180,7 +183,8 @@ class ProcessMesh:
 
 _GROUPS = (("seq", ("seq",)), ("data", ("data", "fsdp")),
            ("pipe", ("pipe",)), ("fsdp", ("fsdp",)),
-           ("replica", ("data",)), ("expert", ("expert",)))
+           ("replica", ("data",)), ("expert", ("expert",)),
+           ("tensor", ("tensor",)))
 
 
 def process_mesh(spec: MeshSpec, rank: int, world_size: int) -> ProcessMesh:
@@ -214,7 +218,7 @@ def process_mesh(spec: MeshSpec, rank: int, world_size: int) -> ProcessMesh:
     return ProcessMesh(spec, rank, made["seq"], data=made["data"],
                        pipe=made["pipe"], fsdp=made["fsdp"],
                        replica=made["replica"], expert=made["expert"],
-                       pipe_local=local)
+                       pipe_local=local, tensor=made["tensor"])
 
 
 def batch_slice(global_batch: int, rank: int, n: int) -> slice:

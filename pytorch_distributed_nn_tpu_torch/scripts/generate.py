@@ -21,8 +21,11 @@ weights (``--seed`` of the config, a smoke test of the decode path).
 Sampling (``--temperature`` > 0) draws with JAX's threefry from
 ``--seed``, so a seeded run gives the JAX script's tokens. Runs on
 ``cuda`` unless ``--device cpu`` is given, and raises where CUDA is
-missing. ``--tp`` > 1 (tensor-parallel decoding) raises: the tensor axis
-is not ported.
+missing. ``--tp N`` decodes tensor-parallel over a (tensor = N, data =
+the rest) mesh of the process group, as the JAX script does over its
+devices: run it under ``torchrun --nproc_per_node W`` (W a multiple of N);
+every rank loads the whole weights, ``generate(mesh=)`` lays them out, and
+rank 0 prints.
 """
 
 from __future__ import annotations
@@ -50,7 +53,9 @@ def main(argv=None) -> int:
                     help="local HF tokenizer dir or tokenizer.json; "
                          "prompt/output become text")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree (not ported: > 1 raises)")
+                    help="tensor-parallel degree: decode over a (tensor=tp, "
+                         "data=rest) mesh of the process group, params "
+                         "and KV cache split")
     ap.add_argument("--device", default="cuda")
     # remaining --a.b style flags are config overrides, as for train
     # (the model dims must match the checkpoint being decoded)
@@ -62,10 +67,7 @@ def main(argv=None) -> int:
         get_config,
         parse_overrides,
     )
-    from pytorch_distributed_nn_tpu_torch.inference.generate import (
-        TENSOR_AXIS,
-        generate,
-    )
+    from pytorch_distributed_nn_tpu_torch.inference.generate import generate
     from pytorch_distributed_nn_tpu_torch.models import get_model
     from pytorch_distributed_nn_tpu_torch.nn.quantized import (
         synthetic_int8_params,
@@ -76,13 +78,20 @@ def main(argv=None) -> int:
     )
     from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
 
-    if args.tp > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: tensor-parallel decoding lays the parameters "
-            f"out by the tensor-parallel rules, which are not ported yet "
-            f"({TENSOR_AXIS})")
     cfg = get_config(args.preset, **parse_overrides(rest))
     device = resolve_device(args.device)
+    mesh, coordinator = None, True
+    if args.tp > 1:
+        from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
+        from pytorch_distributed_nn_tpu_torch.runtime.mesh import (
+            MeshSpec,
+            process_mesh,
+        )
+
+        proc = bootstrap.initialize(args.device)
+        device, coordinator = proc.device, proc.is_coordinator
+        mesh = process_mesh(MeshSpec(tensor=args.tp, data=-1), proc.rank,
+                            proc.world_size)
 
     tokenizer = None
     eos_token = None
@@ -144,8 +153,11 @@ def main(argv=None) -> int:
                    temperature=args.temperature, top_k=args.top_k,
                    top_p=args.top_p,
                    rng=args.seed if args.temperature > 0 else None,
-                   eos_token=eos_token, prefill_chunk=args.prefill_chunk)
+                   eos_token=eos_token, mesh=mesh,
+                   prefill_chunk=args.prefill_chunk)
     ids = [int(t) for t in out.cpu().numpy()[0]]
+    if not coordinator:
+        return 0
     if tokenizer is not None:
         print(tokenizer.decode(ids, skip_special_tokens=True))
     else:

@@ -35,7 +35,9 @@ synchronously by every rank that owns a piece (the first data replica):
 ``model-<part>.pt``, ``optim-<part>.pt`` and ``train-<part>.pt`` with the
 part named by the layout (``fsdp<i>``, ``expert<e>-fsdp<i>`` under an
 expert split, ``pipe<d>``, ``pipe<d>-expert<e>`` under an expert split,
-or ``local`` where one process holds every stage), between barriers;
+or ``local`` where one process holds every stage; under a tensor split
+``tensor<t>-`` before it, every tensor rank writing its slices and the
+whole leaves alike), between barriers;
 the coordinator then writes ``meta.json``, which names the layout
 (strategy, mesh sizes, ``zero_stage``, schedule, ``pipe_chunks``, the
 split of each leaf, the expert-split leaves), and the manifest over every
@@ -387,6 +389,27 @@ def read_full_params(directory: str | Path,
         return model_of("model.pt")
     parts = [model_of(f"model-{part}.pt") for part in meta["parts"]]
     layout = meta["layout"]
+    tensor = layout.get("tensor", {})
+    if not tensor:
+        return _merge_parts(parts, layout)
+    # each tensor coordinate's pieces (the parts are tensor-major) merged
+    # into its slices, then the slices concatenated in tensor order
+    nt = layout["mesh"]["tensor"]
+    per = len(parts) // nt
+    slices = [_merge_parts(parts[t * per:(t + 1) * per], layout)
+              for t in range(nt)]
+    out = dict(slices[0])
+    for name, (dim, _) in tensor.items():
+        if name in out:
+            out[name] = torch.cat([s[name] for s in slices], dim=dim)
+    return out
+
+
+def _merge_parts(parts: list[dict], layout: dict) -> dict:
+    """One tensor coordinate's pieces (every piece where nothing is split
+    over tensor) merged into its parameters: a ZeRO-3 leaf's slices
+    concatenated along their fsdp dim, the expert slices along E, the
+    pipeline's stages joined."""
     if layout["strategy"] == "pipeline":
         # each stage's pieces in expert order: the expert slices
         # concatenated along E, the rest from the pieces that hold it

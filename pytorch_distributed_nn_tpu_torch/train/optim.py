@@ -37,7 +37,8 @@ here:
   stored cast.
 
 On sharded parameters (``ShardLayout``: ZeRO's fsdp shards, the expert
-axis's slices of the stacked experts, the pipeline's stages) the
+axis's slices of the stacked experts, the tensor axis's Megatron slices,
+the pipeline's stages) the
 elementwise optimizers run on each rank's slice as they are. The three
 reductions that span a whole parameter or the whole model take their
 partial sums across ranks: the global norm of the clip (over the shard
@@ -183,6 +184,18 @@ class ShardLayout:
     experts: list[bool] | None = None
     expert_group: Any = None
     expert_size: int = 1
+    tensor_dims: list[int | None] | None = None
+    tensor_group: Any = None
+    tensor_size: int = 1
+
+    def tensor_dim(self, i: int) -> int | None:
+        if self.tensor_size > 1 and self.tensor_dims:
+            return self.tensor_dims[i]
+        return None
+
+    def tensor_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the tensor group, in place."""
+        return cc.all_reduce_sum(t, self.tensor_group)
 
     def split(self, i: int) -> bool:
         return self.size > 1 and self.dims[i] is not None
@@ -352,10 +365,13 @@ class Optimizer:
         locally). Each replicated leaf counts once."""
         lay = self.layout
         if lay is None or (lay.size == 1 and lay.norm_size == 1
-                           and lay.expert_size == 1):
+                           and lay.expert_size == 1
+                           and lay.tensor_size == 1):
             return None
         sq = [g.float().square().sum() for g in grads]
         zero = torch.zeros((), device=grads[0].device)
+        if lay.tensor_size > 1:
+            return self._split_norm(sq, zero)
         ex = [lay.expert_split(i) for i in range(len(sq))]
         whole = [s for i, s in enumerate(sq)
                  if not lay.split(i) and not ex[i]]
@@ -376,11 +392,35 @@ class Optimizer:
             total = cc.all_reduce_sum(total.reshape(1), lay.norm_group)[0]
         return total.sqrt()
 
+    def _split_norm(self, sq: list[torch.Tensor],
+                    zero: torch.Tensor) -> torch.Tensor:
+        """The global norm from each parameter's squares ``sq`` on a layout
+        with a tensor split: the parameters grouped by the axes they are
+        split over, each group's sum taken over those axes (fsdp, expert,
+        tensor, in that order), then over the other stages. Every rank of
+        a group holds the same parameters, so it issues the same sums."""
+        lay = self.layout
+        keys = [(lay.split(i), lay.expert_split(i),
+                 lay.tensor_dim(i) is not None) for i in range(len(sq))]
+        total = zero
+        for key in sorted(set(keys)):
+            part = torch.stack([s for s, k in zip(sq, keys)
+                                if k == key]).sum().reshape(1)
+            for on, reduce in zip(key, (lay.sum_, lay.expert_sum_,
+                                        lay.tensor_sum_)):
+                if on:
+                    part = reduce(part)
+            total = total + part[0]
+        if lay.norm_size > 1:
+            total = cc.all_reduce_sum(total.reshape(1), lay.norm_group)[0]
+        return total.sqrt()
+
     def _norms(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
         """The L2 norm of each whole parameter from its slices."""
         lay = self.layout
         out = [None if lay is not None and (lay.split(i) or
-                                            lay.expert_split(i))
+                                            lay.expert_split(i) or
+                                            lay.tensor_dim(i) is not None)
                else torch.linalg.vector_norm(t)
                for i, t in enumerate(tensors)]
         sliced = [i for i, n in enumerate(out) if n is None]
@@ -396,6 +436,10 @@ class Optimizer:
         if ex:
             sq.update(zip(ex, lay.expert_sum_(torch.stack(
                 [sq[i] for i in ex]))))
+        tp = [i for i in sliced if lay.tensor_dim(i) is not None]
+        if tp:
+            sq.update(zip(tp, lay.tensor_sum_(torch.stack(
+                [sq[i] for i in tp]))))
         for i in sliced:
             out[i] = sq[i].sqrt().to(tensors[i].dtype)
         return out
@@ -405,19 +449,27 @@ class Optimizer:
         lay = self.layout
         return lay.dims[i] if lay is not None and lay.split(i) else None
 
+    def _tensor_dim(self, i: int) -> int | None:
+        """The dim of parameter i split over tensor (None: whole there)."""
+        return None if self.layout is None else self.layout.tensor_dim(i)
+
     def _mean(self, t: torch.Tensor, dim: int | None = None,
               keepdim: bool = False, split: int | None = None,
-              expert: bool = False) -> torch.Tensor:
+              expert: bool = False,
+              tsplit: int | None = None) -> torch.Tensor:
         """``t.mean(dim)`` (all dims when None), where ``t`` is this rank's
-        slice along ``split`` (None: ``t`` is whole here) and, with
-        ``expert``, along dim 0 over the expert group: the mean over the
-        whole tensor where the reduction crosses a split."""
+        slice along ``split`` (None: ``t`` is whole here), with ``expert``
+        along dim 0 over the expert group, and along ``tsplit`` over the
+        tensor group: the mean over the whole tensor where the reduction
+        crosses a split."""
         fsdp = split is not None and dim in (None, split)
         ex = expert and dim in (None, 0)
-        if not (fsdp or ex):
+        tp = tsplit is not None and dim in (None, tsplit)
+        if not (fsdp or ex or tp):
             return t.mean() if dim is None else t.mean(dim, keepdim=keepdim)
         lay = self.layout
-        n = (lay.size if fsdp else 1) * (lay.expert_size if ex else 1)
+        n = ((lay.size if fsdp else 1) * (lay.expert_size if ex else 1)
+             * (lay.tensor_size if tp else 1))
         if dim is None:
             s, count = t.sum().reshape(1), t.numel() * n
         else:
@@ -427,6 +479,8 @@ class Optimizer:
             s = lay.sum_(s)
         if ex:
             s = lay.expert_sum_(s)
+        if tp:
+            s = lay.tensor_sum_(s)
         return (s[0] if dim is None else s) / count
 
     def _zeros(self, dtype=None) -> list[torch.Tensor]:
@@ -555,26 +609,29 @@ class Optimizer:
                 u = g * v ** -0.5
             else:
                 d1, d0 = dims
-                sd = self._split_dim(i)
+                sd, td = self._split_dim(i), self._tensor_dim(i)
                 v_row = state[0].copy_(rate * state[0] + keep * self._mean(
-                    g2, d0, split=sd, expert=ex))
+                    g2, d0, split=sd, expert=ex, tsplit=td))
                 v_col = state[1].copy_(rate * state[1] + keep * self._mean(
-                    g2, d1, split=sd, expert=ex))
+                    g2, d1, split=sd, expert=ex, tsplit=td))
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
                 # where v_row (the dims but d0) is split, if anywhere
                 row_sd = None if sd in (None, d0) else sd - (sd > d0)
+                row_td = None if td in (None, d0) else td - (td > d0)
                 row_col_mean = self._mean(v_row, reduced_d1, keepdim=True,
                                           split=row_sd,
-                                          expert=ex and d0 != 0)
+                                          expert=ex and d0 != 0,
+                                          tsplit=row_td)
                 row_factor = (v_row / row_col_mean) ** -0.5
                 col_factor = v_col ** -0.5
                 u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
             # clip_by_block_rms(1.0), the lr, scale_by_param_block_rms
-            sd = self._split_dim(i)
-            u = u / torch.clamp(self._mean(u.square(), split=sd,
-                                           expert=ex).sqrt(), min=1.0)
+            sd, td = self._split_dim(i), self._tensor_dim(i)
+            u = u / torch.clamp(self._mean(u.square(), split=sd, expert=ex,
+                                           tsplit=td).sqrt(), min=1.0)
             u = u * row[_LR]
-            rms = self._mean(p.square(), split=sd, expert=ex).sqrt()
+            rms = self._mean(p.square(), split=sd, expert=ex,
+                             tsplit=td).sqrt()
             updates.append(u * torch.clamp(rms, min=1e-3))
         self._apply(self._decay(updates, own=True), -1.0, own=True)
 

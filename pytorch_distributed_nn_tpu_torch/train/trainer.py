@@ -3,11 +3,12 @@ loop (the JAX package's ``train/trainer.py``).
 
 Ported: the process group (``runtime/bootstrap.py``: one process a
 device, under ``torchrun`` or alone) and the mesh over it
-(``runtime/mesh.py``: data, sequence, ZeRO and pipeline parallelism, each
-rank loading the rows of its data coordinate and the tokens of its seq
-coordinate, every stage of a pipeline the same rows, the model built with
-the rank's seq ring), the synthetic datasets and those read from the
-user's files (``data/datasets.py``, ``data/readers.py``), initialisation from the model's own
+(``runtime/mesh.py``: data, sequence, ZeRO, pipeline, expert and tensor
+parallelism, each rank loading the rows of its data coordinate and the
+tokens of its seq coordinate, every stage of a pipeline and every tensor
+rank the same rows, the model built with the rank's seq ring and cut to
+its tensor slices when the state is placed), the synthetic datasets and
+those read from the user's files (``data/datasets.py``, ``data/readers.py``), initialisation from the model's own
 seeded init or given weights, the per-step loop with its logging cadence
 (on rank 0), the held-out evaluation, checkpoints (``train/checkpoint.py``:
 restored at construction when ``resume`` is set, saved every
@@ -42,6 +43,7 @@ from pytorch_distributed_nn_tpu_torch.nn.layers import Dropout
 from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
 from pytorch_distributed_nn_tpu_torch.parallel.api import make_train_step
 from pytorch_distributed_nn_tpu_torch.parallel.pipeline import PipelineStages
+from pytorch_distributed_nn_tpu_torch.parallel.tensor import whole_leaves
 from pytorch_distributed_nn_tpu_torch.parallel.zero import ZeroShards
 from pytorch_distributed_nn_tpu_torch.runtime import bootstrap, failure
 from pytorch_distributed_nn_tpu_torch.runtime.mesh import process_mesh
@@ -399,8 +401,9 @@ class Trainer:
             reads = ["lm_head.kernel"]
             with (sharding.hold(reads) if isinstance(sharding, ZeroShards)
                   else contextlib.nullcontext()):
-                return chunked_lm_eval(hidden, self.model.lm_head.kernel, y,
-                                       chunk=chunk)
+                kernel = whole_leaves(self.model, reads, {
+                    reads[0]: self.model.lm_head.kernel})[reads[0]]
+                return chunked_lm_eval(hidden, kernel, y, chunk=chunk)
         logits = self.model(x)
         return self.loss_fn(logits, y), accuracy(logits, y)
 

@@ -26,8 +26,9 @@ the JAX pipeline's stacked tree (``{"stages": ..., "rest": ...}``, leaves
 (S, K, ...) or, interleaved, (S, v, Kc, ...)); :func:`shard_params` and
 :func:`gather_shards` carry a whole ``state_dict`` to and from the ZeRO-3
 slices each ``fsdp`` (and ``expert``) rank holds
-(``parallel.sharding_rules``). The MoE LM's leaves need nothing of their
-own: ``blockN/moe/{router/kernel,wi,wo}`` flatten to
+(``parallel.sharding_rules``); :func:`shard_params` also cuts the slices
+of the ``tensor`` axis, with or without ZeRO-3. The MoE LM's leaves need
+nothing of their own: ``blockN/moe/{router/kernel,wi,wo}`` flatten to
 ``blockN.moe.{router.kernel,wi,wo}`` as any other. Nothing here imports
 JAX.
 """
@@ -214,31 +215,24 @@ def unstack_stage_params(tree: Mapping[str, Any], block_names: list[str],
 
 
 def shard_params(state_dict: Mapping[str, torch.Tensor], fsdp: int,
-                 index: int, expert: int = 1,
-                 expert_index: int = 0) -> dict[str, torch.Tensor]:
+                 index: int, expert: int = 1, expert_index: int = 0,
+                 tensor: int = 1,
+                 tensor_index: int = 0) -> dict[str, torch.Tensor]:
     """The slice of each leaf that the rank at ``fsdp`` coordinate
-    ``index`` (and ``expert`` coordinate ``expert_index``) holds under
-    ZeRO-3 (``sharding_rules.spec_for``: the stacked experts' E/n along E,
-    the part along the fsdp dim, or the whole leaf where it stays
-    replicated): the JAX ``state_shardings``' per-device shard."""
+    ``index`` (and ``expert`` coordinate ``expert_index``, ``tensor``
+    coordinate ``tensor_index``) holds under ZeRO-3
+    (``sharding_rules.local_slice``: the stacked experts' E/n along E, the
+    Megatron slice over ``tensor``, the part along the fsdp dim, the vocab
+    tables' ``(tensor, fsdp)`` part of their vocab dim, or the whole leaf
+    where it stays replicated): the JAX ``state_shardings``' per-device
+    shard. ``fsdp`` 1 gives the slices of a layout without ZeRO-3."""
     from pytorch_distributed_nn_tpu_torch.parallel.sharding_rules import (
-        EXPERT,
-        FSDP,
-        shard_slice,
-        spec_for,
+        local_slice,
     )
 
-    out = {}
-    for k, t in state_dict.items():
-        spec = spec_for(k, tuple(t.shape), fsdp=fsdp, expert=expert)
-        for d, axis in enumerate(spec):
-            if axis in (EXPERT, FSDP):
-                i, n = ((expert_index, expert) if axis == EXPERT
-                        else (index, fsdp))
-                part = shard_slice(t.shape[d], i, n)
-                t = t.narrow(d, part.start, part.stop - part.start)
-        out[k] = t
-    return out
+    return {k: local_slice(k, t, tensor=(tensor, tensor_index),
+                           fsdp=(fsdp, index), expert=(expert, expert_index))
+            for k, t in state_dict.items()}
 
 
 def gather_shards(shards: list[Mapping[str, torch.Tensor]],

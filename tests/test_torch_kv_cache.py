@@ -47,6 +47,7 @@ from pytorch_distributed_nn_tpu_torch.inference.generate import (
 )
 from pytorch_distributed_nn_tpu_torch.models import get_model
 from pytorch_distributed_nn_tpu_torch.nn import attention as tattn
+from pytorch_distributed_nn_tpu_torch.runtime.mesh import MeshSpec
 from pytorch_distributed_nn_tpu_torch.utils import threefry
 from pytorch_distributed_nn_tpu_torch.utils.interop import (
     llama_params_from_jax,
@@ -446,8 +447,11 @@ def test_generate_validation():
                    device="cpu")
     with pytest.raises(ValueError, match="rng"):
         generate(tm, np.zeros((1, 2), np.int32), 2, temperature=1.0)
-    with pytest.raises(NotImplementedError, match="item 3.2"):
-        generate(tm, np.zeros((1, 2), np.int32), 2, mesh=object())
+    # generate(mesh=) decodes tensor-parallel (tests/test_torch_tensor_pipe
+    # .py); ragged prompts with a mesh raise, as in the JAX package
+    with pytest.raises(ValueError, match="mesh"):
+        generate(tm, np.zeros((2, 2), np.int32), 2, prompt_lengths=[1, 2],
+                 mesh=MeshSpec(tensor=2, data=-1))
     with pytest.raises(ValueError, match="mutually exclusive"):
         generate(tm, np.zeros((1, 2), np.int32), 2, prefill_chunk=1,
                  prompt_lengths=[1])

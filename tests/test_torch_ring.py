@@ -143,13 +143,15 @@ def test_mesh_coords_and_groups_follow_the_jax_device_order(kw):
 def test_mesh_lets_seq_through_and_refuses_the_model_axes():
     assert data_parallel(MeshSpec(seq=4, data=-1), 8).sizes()["data"] == 2
     assert data_parallel(MeshSpec(pipe=2, data=-1), 8).data_degree() == 4
-    # the expert axis resolves (the batch splits over data x fsdp only);
-    # the tensor axis still raises
+    # the expert and tensor axes resolve (the batch splits over data x
+    # fsdp only); seq and tensor together still raise
     ep = data_parallel(MeshSpec(expert=-1, data=2), 8)
     assert (ep.expert, ep.data_degree()) == (4, 2)
+    tp = data_parallel(MeshSpec(data=-1, tensor=2), 8)
+    assert (tp.tensor, tp.data_degree()) == (2, 4)
     with pytest.raises(NotImplementedError,
                        match="remaining sharded strategies"):
-        data_parallel(MeshSpec(data=-1, tensor=2), 8)
+        data_parallel(MeshSpec(seq=2, data=-1, tensor=2), 8)
 
 
 def test_loader_takes_the_data_rows_and_the_seq_tokens():

@@ -12,7 +12,7 @@ Trainer on seeded HF-layout weights (``test_torch_hf_interop``'s makers).
   the JAX message; the JAX exporters' archs only.
 - generate: greedy and seeded sampled tokens equal the JAX ``generate()``
   on the same weights; a converted tiny HF Llama's equal ``hf.generate``
-  (``transformers`` present only); ``--tp 2`` raises.
+  (``transformers`` present only); ``--tp 2`` in one process raises.
 - eval: its JSON line equals the port Trainer's evaluation, for a
   replicated and a pipeline checkpoint.
 - serve ``--metrics-out``: one ``serve_request`` a finished request and
@@ -332,7 +332,10 @@ def test_generate_text_mode_with_a_local_tokenizer(llama_ckpt, tmp_path,
 
 
 def test_generate_refuses_the_tensor_axis_and_a_missing_card(llama_ckpt):
-    with pytest.raises(NotImplementedError, match="item 3.2"):
+    # --tp 2 decodes over a tensor = 2 mesh of the process group: one
+    # process cannot hold it (tests/test_torch_tensor_pipe.py runs it on 2)
+    with pytest.raises(ValueError, match="1 devices not divisible by fixed "
+                       "axes product 2"):
         generate.main(["--preset", "llama3_8b_zero", "--tp", "2",
                        "--device", "cpu", *LLAMA_OV])
     if not torch.cuda.is_available():

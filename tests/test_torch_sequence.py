@@ -99,10 +99,20 @@ def _torchrun(script, *args, nproc=4):
     assert out.returncode == 0, (out.stdout[-2000:], out.stderr[-4000:])
 
 
-def _close(got, want):
-    want = np.asarray(want)
-    np.testing.assert_allclose(np.asarray(got), want, rtol=TOL,
-                               atol=TOL * np.abs(want).max())
+def _close(got, want, what=""):
+    """``got`` within the tolerance of ``want``; a failure names ``what``
+    and, for each rank's shard along the sequence (axis 1), the largest
+    error against the limit."""
+    got, want = np.asarray(got), np.asarray(want)
+    limit = TOL * np.abs(want).max()
+    shards = zip(np.array_split(got, SEQ, axis=1),
+                 np.array_split(want, SEQ, axis=1))
+    errs = ", ".join(
+        f"seq shard {i}: max|err| {float(np.abs(g - w).max()):.3e}"
+        for i, (g, w) in enumerate(shards)) if got.ndim > 1 else ""
+    np.testing.assert_allclose(
+        got, want, rtol=TOL, atol=limit,
+        err_msg=f"{what}: limit {limit:.3e} + {TOL} relative; {errs}")
 
 
 # --------------------------------------------------------------------------
@@ -201,7 +211,7 @@ def test_four_rank_sequence_attention(gang, jax_ring, case, against):
         want = _jax_grads(lambda a, b, c: dot_product_attention(
             a, b, c, causal=True), *_inputs(hkv))
     for name, ref in zip(("out", "dq", "dk", "dv"), want):
-        _close(whole(f"{case}/{name}"), ref)
+        _close(whole(f"{case}/{name}"), ref, f"{case} {name} vs {against}")
 
 
 def _replay_ring(q, k, v, g):
@@ -257,9 +267,13 @@ def test_four_rank_exchanges(gang):
     Ulysses: three all-to-alls in, one out, and as many back."""
     _, ranks = gang
     ops = {case: list(ranks[0][f"{case}/ops"]) for case in CASES}
-    assert ops["ring_pallas-hkv2"] == ["shift"] * (2 * (SEQ - 1) + 1)
-    assert ops["ring_xla-hkv2"] == ["shift"] * (2 * (SEQ - 1))
-    assert ops["ulysses-hkv4"] == ["all_to_all"] * 8
+    every = {case: [list(r[f"{case}/ops"]) for r in ranks] for case in CASES}
+    for case, want in (("ring_pallas-hkv2", ["shift"] * (2 * (SEQ - 1) + 1)),
+                       ("ring_xla-hkv2", ["shift"] * (2 * (SEQ - 1))),
+                       ("ulysses-hkv4", ["all_to_all"] * 8)):
+        assert ops[case] == want, (
+            f"{case}: rank 0 recorded {ops[case]}, expected {want}; every "
+            f"rank recorded {every[case]}")
 
 
 def test_ulysses_refuses_heads_the_ring_does_not_divide():

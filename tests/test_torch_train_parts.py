@@ -198,19 +198,22 @@ def test_mesh_resolves_as_jax_and_refuses_more_than_one_device():
         assert (MeshSpec(**kw).resolve(n).sizes()
                 == dict(zip(("pipe", "data", "fsdp", "expert", "seq",
                              "tensor"), JMeshSpec(**kw).resolve(n).shape)))
-    # the port resolves the data-parallel, seq and pipe degrees against the
-    # process group's world size (every pipe stage in one process where
-    # the world does not divide by pipe); the axes that shard the layers
-    # within raise
+    # the port resolves the data-parallel, seq, pipe and tensor degrees
+    # against the process group's world size (every pipe stage in one
+    # process where the world does not divide by the fixed axes, pipe
+    # among them); seq inside a tensor-parallel layer raises
     assert data_parallel(MeshSpec(seq=1, data=-1), 1).world_size() == 1
     four = data_parallel(MeshSpec(data=2, fsdp=-1), 4)
     assert four.data_degree() == 4 and four.sizes()["fsdp"] == 2
     assert data_parallel(MeshSpec(seq=2, data=-1), 4).data_degree() == 2
     assert data_parallel(MeshSpec(pipe=2, data=-1), 4).data_degree() == 2
     assert data_parallel(MeshSpec(pipe=4, data=-1), 1).sizes()["pipe"] == 4
+    assert data_parallel(MeshSpec(tensor=2, data=-1), 4).data_degree() == 2
+    local = data_parallel(MeshSpec(pipe=2, tensor=2, data=-1), 2)
+    assert (local.pipe, local.tensor, local.data) == (2, 2, 1)
     with pytest.raises(NotImplementedError,
                        match="remaining sharded strategies"):
-        data_parallel(MeshSpec(tensor=2, data=-1), 4)
+        data_parallel(MeshSpec(seq=2, tensor=2, data=-1), 4)
     assert [batch_slice(12, r, 3) for r in range(3)] == [
         slice(0, 4), slice(4, 8), slice(8, 12)]
     with pytest.raises(ValueError, match="divisible"):

@@ -116,14 +116,13 @@ def test_preset_and_its_limits():
     assert (cfg.parallel.microbatches, cfg.parallel.pipeline_schedule,
             cfg.mesh.pipe) == (8, "gpipe", 4)
     # the preset's pipeline over mesh.pipe = 4 builds (every stage in this
-    # one process); the axes that split the layers within still raise
+    # one process); a tensor axis of 2 cannot span one process
     pp = {k: v for k, v in _overrides(
         "float32", dict(TINY, num_layers=4)).items() if k not in ONE_CARD}
     pp["data.batch_size"] = "8"
     t = Trainer(tconfig.get_config("transformer_lm_pp", **pp), device="cpu")
     assert t.state.sharding.S == 4 and t.mesh.pipe_local
-    with pytest.raises(NotImplementedError,
-                       match="remaining sharded strategies"):
+    with pytest.raises(ValueError, match="not divisible by fixed axes"):
         Trainer(tconfig.get_config("transformer_lm_pp", **pp,
                                    **{"mesh.tensor": "2"}), device="cpu")
     tm = get_model(tconfig.get_config("transformer_lm_pp", **_overrides(
