@@ -34,10 +34,11 @@ Phases (any failure exits non-zero and prints no result line):
               (16 forward, 8 dq and 8 dk/dv launches a step), finite losses,
               step time, tokens/s, MFU and peak memory; one more step under
               torch.profiler for the device-time breakdown.
-6. forward -- the full-width quantized Llama-3-8B (32 layers, d 4096, vocab
-              128256, seeded synthetic int8 weights): one prefill and 4
-              teacher-forced decode steps with the kernel (129 launches per
-              forward, and 129 w8a16 kernels in a profiled decode step), again with every kernel call held against the plain
+6. forward -- the quantized Llama-3-8B at full width (d 4096, vocab
+              128256) and 8 of 32 layers (SERVE_LAYERS), seeded synthetic
+              int8 weights: one prefill and 4
+              teacher-forced decode steps with the kernel (33 launches per
+              forward, and 33 w8a16 kernels in a profiled decode step), again with every kernel call held against the plain
               version on its own live activations, and again with the plain
               version swapped in; the logits must agree, and the greedy
               token must agree on every row where the plain top-2 margin is
@@ -48,8 +49,9 @@ Phases (any failure exits non-zero and prints no result line):
               tokens each): 6 greedy, 4 sampled (temperature 0.8, top_k 50,
               top_p 0.95, fixed seeds), one n-best (n 2, best_of 4) and 3
               streamed; W8A16 counts reset just before and read just after
-              (129 a forward); every greedy request's tokens must equal a
-              solo generate() on the same cache; the sampled and n-best
+              (33 a forward at 8 layers); every greedy request's
+              next-token logits and tokens must equal a solo generate()'s
+              on the same cache bit for bit; the sampled and n-best
               requests again in another batch mix must give the same
               streams (the engine's prefix cache is on, as by default:
               a sampled request again restores its prompt's rows but the
@@ -157,7 +159,7 @@ Config 4's transformer LM and config 3's BERT (phase 17 runs after phase
 
 The trainer features (run after phase 19):
 
-20. ckpt     -- llama3_longcontext (T 32768) at 2 of its 8 layers: 4
+20. ckpt     -- llama3_longcontext (T 32768) at 1 of its 8 layers: 4
               straight steps
               against 2 steps with an asynchronous save every 2 steps, a
               fresh Trainer that resumes and 2 more steps (losses and
@@ -321,7 +323,8 @@ Tenants, the greedy contract of float models and the user scripts (phase
               every served request's tokens equal it served alone, W8A16
               33 a forward (counts reset just before and read just after)
               and by name in a profiled round. (b) fault 1: a float bf16
-              Llama at the 8B's widths (1 layer) and config 4's LM, greedy
+              Llama at the 8B's widths (1 layer) and config 4's LM (6 of
+              12 layers), greedy
               rows in engines of 1, 3 and 8 slots against a solo
               generate() of each prompt: logits bit for bit and tokens
               (the decode step's dense products on fixed row blocks); the
@@ -344,19 +347,39 @@ Tenants, the greedy contract of float models and the user scripts (phase
               (NCCL refuses two ranks on one device), every run and its
               one-process reference at the full lr (no warmup), so each
               second loss follows a real update: (a) transformer_lm_pp at
-              full width and batch at mesh.tensor 2, the first batch's
-              gradients leaf by leaf and 2 steps' losses against one
-              process's, flash 24/12/12 a step by wrapper and by name, the
+              full width and batch, 6 of 12 layers, at mesh.tensor 2, the
+              first batch's gradients leaf by leaf and 2 steps' losses
+              against one process's, flash 12/6/6 a step by wrapper and by
+              name, the
               recorder's collectives, peak memory a rank; (b)
-              llama3_8b_zero at full width, 2 of 32 layers, under ZeRO-3
+              llama3_8b_zero at full width, 1 of 32 layers, under ZeRO-3
               on fsdp 2 x tensor 2 (4 processes; the vocab tables split
               over tensor and fsdp), 2 steps against the world-1 steps;
               (c) scripts/generate.py --tp 2 on the 8B (32 layers), bf16
               and int8, tokens equal to one process's, W8A16 129 a decode
               step by wrapper and by name, per-token latency and cache
-              bytes a rank; (d) transformer_lm_pp at 4 layers on
+              bytes a rank; (d) transformer_lm_pp at 2 layers on
               mesh.pipe 2 x tensor 2 (both stages in each process), gpipe
               and 1f1b against one process's pipe 2.
+34. zero_seq -- ZeRO under sequence parallelism, seq x tensor and a resume
+              onto other layouts (ROADMAP §1 items 3.3, 3.4), the ranks as
+              processes sharing the card in a gloo group as in phase 33,
+              the ring's shifts between them staged through host memory:
+              llama3_longcontext at its preset's full width (8 layers, d
+              1024, 8/4 heads of 128, T 32768, xent_chunk 2048, remat) with
+              ring attention on the ring kernel, at the full lr: (a)
+              ZeRO-3 on fsdp 2 x seq 2 (4 processes, batch 2), its first
+              batch's gradient slices and 2 steps' losses against one
+              process's, saved after step 1 (only the first seq rank of
+              each fsdp slice writes); (b) seq 2 x tensor 2 (batch 1, 4/2
+              heads a rank), 2 steps against one process's; per step and
+              rank the seconds, peak memory, all-gathers, reduce-scatters
+              and shifts with their bytes, the host-staged messages, the
+              ring kernel and the flash backward kernels by wrapper and by
+              name in a profiled step; (c) (a)'s step-1 checkpoint
+              restored (resharded on read) into ZeRO-1 on fsdp 2 without
+              seq (2 processes) and into one process, each taking step 2:
+              its loss within ZS_RESUME_TOL of (a)'s step 2.
 
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit from nvidia-smi, and the result JSON line.
@@ -2590,10 +2613,11 @@ def phase_bert():
     return result, q_launches
 
 
-# the 8B that phases 6 and 7 serve: full width and depth. At 16 layers
-# phase 7 found an int8-cache greedy request's engine tokens unequal to its
-# solo generate() (ROADMAP.md §3), so the depth stays whole there
-SERVE_LAYERS = 32
+# the 8B that phases 6 and 7 serve: full width, 8 of 32 layers (the
+# script's time limit; every greedy request's logits are a solo
+# generate()'s bit for bit on both KV caches at this depth, and at 16 in
+# tests/test_torch_cuda.py)
+SERVE_LAYERS = 8
 # the 8B of phases 31 and 32's tenants: full width, 8 of 32 layers (the
 # script's time limit); their checks hold engine runs against engine runs
 PL_LAYERS = 8
@@ -2607,6 +2631,11 @@ def w8a16_a_forward(layers):
 
 W8A16_A_FORWARD = w8a16_a_forward(SERVE_LAYERS)
 W8A16_PL = w8a16_a_forward(PL_LAYERS)
+# phase 33 (c): scripts/generate.py --tp 2 on the 8B at its whole depth
+# (at 16 layers its bf16 tokens left one process's: the tensor split sums
+# its products in another order, ROADMAP.md §3)
+TP_GEN_LAYERS = 32
+W8A16_TP_GEN = w8a16_a_forward(TP_GEN_LAYERS)
 
 
 def build_model(seed=0, layers=SERVE_LAYERS):
@@ -2947,16 +2976,77 @@ def check_nbest_shares_blocks(model, prompt):
                 blocks_unshared=sum(len(t) for t in tables))
 
 
+def tap_greedy_logits(engine, model):
+    """Record every greedy request's next-token logits as ``engine`` makes
+    them (the prefill's row, then each decode round's), (V,) f32 on the
+    host, by request id. Returns (the dict, a function that removes the
+    taps). The server's thread calls the wrapped methods."""
+    logs, taps = {}, []
+    hook = model.register_forward_hook(
+        lambda m, a, out: taps.append(out[:, -1]))
+    prefill_into, decode_round = engine._prefill_into, engine._decode_round
+
+    def greedy(req):
+        return req.decode is None or not req.decode.sampled
+
+    def tapped_prefill(rows, req):
+        n = len(taps)
+        prefill_into(rows, req)
+        if greedy(req):
+            logs[req.request_id] = [taps[n][0].float().cpu()]
+        del taps[n:]
+
+    def tapped_round():
+        owners = [s and s.req for s in engine._slots]
+        n = len(taps)
+        out = decode_round()
+        for i, req in enumerate(owners):
+            if req is not None and greedy(req):
+                logs[req.request_id].append(taps[n][i].float().cpu())
+        del taps[n:]
+        return out
+
+    engine._prefill_into, engine._decode_round = tapped_prefill, tapped_round
+
+    def remove():
+        hook.remove()
+        engine._prefill_into, engine._decode_round = prefill_into, \
+            decode_round
+    return logs, remove
+
+
+def greedy_gaps(model, reqs, logs, names):
+    """Each greedy request of ``names`` against a solo ``generate()`` of
+    its prompt: the largest |engine - solo| next-token logit over its
+    steps, the first step where they differ (None: every bit equal) and
+    whether the tokens agree."""
+    import numpy as np
+
+    out = {}
+    for name in names:
+        r = reqs[name]
+        ref, ref_toks = f1_solo_logits(model, r.prompt, SERVE_NEW)
+        got = logs[r.request_id]
+        gaps = [float((a - b.cpu()).abs().max()) for a, b in zip(got, ref)]
+        first = next((i for i, g in enumerate(gaps) if g), None)
+        out[name] = dict(gap=max(gaps), first_step=first,
+                         steps=len(gaps), solo_steps=len(ref),
+                         tokens_equal=bool(np.array_equal(r.tokens,
+                                                          ref_toks)))
+    return out
+
+
 def serve_one_cache(model, cache_dtype):
     """Phase 7 on one cache dtype: the mix through the server (the main
     path, W8A16 counted), then its sampled requests again in another batch
-    mix; returns (summary, {name: tokens}, launches)."""
+    mix; every greedy request's logits and tokens against a solo
+    ``generate()``, bit for bit; returns (summary, {name: tokens},
+    launches)."""
     import numpy as np
     import torch
 
     from pytorch_distributed_nn_tpu_torch.inference.generate import (
         cache_bytes,
-        generate,
     )
     from pytorch_distributed_nn_tpu_torch.obs.stats import percentile
     from pytorch_distributed_nn_tpu_torch.ops import int8_matmul as tmm
@@ -2969,6 +3059,7 @@ def serve_one_cache(model, cache_dtype):
     engine = ServingEngine(model, max_slots=SERVE_SLOTS, max_seq_len=256,
                            max_queue=64, max_prefills_per_round=2)
     prompts = mix_prompts(3)
+    logs, untap = tap_greedy_logits(engine, model)
     server = InferenceServer(engine).start()
     try:
         warm = np.random.default_rng(7)
@@ -3003,15 +3094,17 @@ def serve_one_cache(model, cache_dtype):
                                                   for n in greedy}}, order)
     finally:
         server.stop()
+        untap()
     peak = torch.cuda.max_memory_allocated()
     for name, r in reqs.items():
         if len(r.tokens) != SERVE_NEW or not (
                 0 <= int(r.tokens.min()) and int(r.tokens.max()) < V):
             raise AssertionError(f"{name}: {r.tokens}")
-    if launches != W8A16_A_FORWARD * (len(timed) + len(rounds)):
+    per_forward = w8a16_a_forward(model.num_layers)
+    if launches != per_forward * (len(timed) + len(rounds)):
         raise AssertionError(
             f"{cache_dtype}: {launches} launches for {len(timed)} prefills "
-            f"and {len(rounds)} decode rounds, expected {W8A16_A_FORWARD} "
+            f"and {len(rounds)} decode rounds, expected {per_forward} "
             "per forward")
     for name in again_names:
         a, b = again[name], reqs[name]
@@ -3025,12 +3118,19 @@ def serve_one_cache(model, cache_dtype):
         if not same:
             raise AssertionError(f"{cache_dtype}: {name} differs in "
                                  "another batch mix")
-    for name in (n for n, kw, _ in SERVE_MIX if kw is None):
-        r = reqs[name]
-        ref = generate(model, r.prompt[None], SERVE_NEW).cpu().numpy()
-        if not np.array_equal(r.tokens, ref[0, len(r.prompt):]):
+    gaps = greedy_gaps(model, reqs, logs,
+                       [n for n, kw, _ in SERVE_MIX if kw is None])
+    del logs
+    log(f"[serve] {cache_dtype}: greedy engine rows against solo "
+        f"generate(): {json.dumps(gaps)}")
+    for name, g in gaps.items():
+        if not g["tokens_equal"]:
             raise AssertionError(f"{cache_dtype}: {name}: engine tokens "
                                  "differ from sequential generate")
+        if g["gap"] != 0 or g["steps"] != g["solo_steps"]:
+            raise AssertionError(
+                f"{cache_dtype}: {name}: engine logits differ from "
+                f"sequential generate's: {g}")
     for name, r in reqs.items():
         if r.stream is not None and not np.array_equal(
                 np.concatenate(list(r.stream)), r.tokens):
@@ -3054,7 +3154,9 @@ def serve_one_cache(model, cache_dtype):
         kv_cache_bytes=cache_bytes(engine._cache),
         peak_mem_gb=peak / 1e9, int8_matmul_launches=launches,
         nbest_logprobs=lps, nbest_sharing=sharing,
-        same_seed_other_mix=again_names)
+        same_seed_other_mix=again_names,
+        greedy_logit_gap=max(g["gap"] for g in gaps.values()),
+        greedy_vs_generate=gaps)
     log(f"[serve] {json.dumps(summary)}")
     return summary, {n: r.tokens for n, r in reqs.items()}, launches
 
@@ -3223,9 +3325,89 @@ def sampling_card_vs_cpu():
     return out
 
 
+# phase 7's measure of the norms' row blocks: engines of these many slots,
+# each request this many new tokens
+NORM_COST_SLOTS, NORM_COST_NEW = (8, 32), 16
+
+
+class plain_norms:
+    """Inside the block the norms' statistics are one library mean over
+    all of a decode step's rows, as before the fixed row blocks
+    (``nn.layers.row_mean``): what the blocks cost, measured. The block
+    restores the function. Measurement only."""
+
+    def __enter__(self):
+        from pytorch_distributed_nn_tpu_torch.models import llama
+        from pytorch_distributed_nn_tpu_torch.nn import layers
+
+        self.saved = layers.row_mean
+        llama.row_mean = layers.row_mean = \
+            lambda x: x.mean(-1, keepdim=True)
+
+    def __exit__(self, *exc):
+        from pytorch_distributed_nn_tpu_torch.models import llama
+        from pytorch_distributed_nn_tpu_torch.nn import layers
+
+        llama.row_mean = layers.row_mean = self.saved
+        return False
+
+
+def norm_block_cost(model):
+    """What the decode step's norm row blocks cost on the host and on the
+    card: for each of :data:`NORM_COST_SLOTS`, one engine of that many
+    slots (prefix cache on, every prompt admitted in the first round)
+    decodes as many new greedy 16-token prompts, ``NORM_COST_NEW`` tokens
+    each, with the plain mean and with the blocks in turns (plain, blocks,
+    blocks, plain). Each turn: the run's wall seconds and tokens/s, and its
+    decode rounds' wall time (a round gives each request one token: the
+    per-token latency) p50 and mean. Then one decode step of that many
+    rows each way, by CUDA events and on the device
+    (:func:`f1_decode_ms`)."""
+    import numpy as np
+
+    from pytorch_distributed_nn_tpu_torch.obs.stats import percentile
+    from pytorch_distributed_nn_tpu_torch.serve import ServingEngine
+
+    rng = np.random.default_rng(5)
+    out = {}
+    for slots in NORM_COST_SLOTS:
+        engine = ServingEngine(model, max_slots=slots, max_seq_len=128,
+                               max_queue=64, max_prefills_per_round=slots)
+        engine.submit(rng.integers(0, V, size=(16,)), 2)  # warm
+        engine.run_until_idle()
+        turns = []
+        for plain in (True, False, False, True):
+            with plain_norms() if plain else contextlib.nullcontext():
+                n0 = len(engine.round_seconds)
+                reqs = [engine.submit(rng.integers(0, V, size=(16,)),
+                                      NORM_COST_NEW) for _ in range(slots)]
+                t0 = time.monotonic()
+                engine.run_until_idle()
+                wall = time.monotonic() - t0
+            rounds = engine.round_seconds[n0:]
+            if not all(r.ok and len(r.tokens) == NORM_COST_NEW
+                       for r in reqs):
+                raise AssertionError(f"norm cost at {slots} slots: "
+                                     f"{[r.state for r in reqs]}")
+            turns.append(dict(
+                norms="plain" if plain else "row_blocks", wall_s=wall,
+                tokens_per_s=slots * NORM_COST_NEW / wall,
+                rounds=len(rounds), round_p50_s=percentile(rounds, 0.5),
+                round_mean_s=sum(rounds) / len(rounds)))
+        del engine
+        with plain_norms():
+            plain_step = f1_decode_ms(model, slots, reps=10)
+        out[slots] = dict(turns=turns, step_ms=dict(
+            plain=plain_step, row_blocks=f1_decode_ms(model, slots,
+                                                      reps=10)))
+    log(f"[serve] norm row blocks' cost: {json.dumps(out)}")
+    return out
+
+
 def phase_serve(model):
     """Phase 7 on the compute and the int8 KV cache, the int8 cache against
-    the compute cache, and the sampling on the card against the CPU."""
+    the compute cache, the sampling on the card against the CPU, and what
+    the norms' row blocks cost on the int8 cache."""
     import torch
 
     sampling = sampling_card_vs_cpu()
@@ -3235,6 +3417,8 @@ def phase_serve(model):
             model, "bfloat16", cache_dtype)
         by_dtype[cache_dtype], tokens[cache_dtype], launches[cache_dtype] = \
             serve_one_cache(m, cache_dtype)
+        if cache_dtype == "int8":
+            norm_cost = norm_block_cost(m)
         del m
         gc.collect()
         torch.cuda.empty_cache()
@@ -3242,8 +3426,8 @@ def phase_serve(model):
                                      tokens["compute"], tokens["int8"])
     log(f"[serve] int8 cache against the compute cache: "
         f"{json.dumps(agreement)}")
-    return dict(by_dtype, int8_vs_compute=agreement,
-                sampling=sampling), launches
+    return dict(by_dtype, int8_vs_compute=agreement, sampling=sampling,
+                norm_blocks=norm_cost), launches
 
 
 # ---------------------------------------------------------------------------
@@ -3783,9 +3967,9 @@ def state_diff(got, want):
     return worst, bitwise
 
 
-# phase ckpt's llama3_longcontext: full width and T, cut to 2 of its 8
+# phase ckpt's llama3_longcontext: full width and T, cut to 1 of its 8
 # layers (the script's time limit; PERF.md §4)
-CKPT_LAYERS = 2
+CKPT_LAYERS = 1
 
 
 def ckpt_overrides():
@@ -5235,19 +5419,22 @@ def phase_pipe_moe():
 # ---------------------------------------------------------------------------
 F1_SLOTS = (1, 3, 8)  # engine batches: one request a slot
 F1_NEW = 8  # tokens a request
+F1_LM_LAYERS = 6  # config 4's LM, 6 of its 12 layers (the time limit)
 
 
-def f1_engine_logits(model, prompts, slots, n_new=F1_NEW, tenants=None):
+def f1_engine_logits(model, prompts, slots, n_new=F1_NEW, tenants=None,
+                     **engine_kw):
     """Greedy ``prompts`` (of ``tenants``, one name a prompt, or the
     default tenant) through one engine of ``slots`` rows (prefix cache
-    off, two admissions a round, so the rows join at different rounds and
-    decode at different cache lengths): each request's next-token logits
-    ((V,) f32, the prefill's then every decode round's row) and tokens.
-    The CPU tests and the ``cuda`` tests use it too."""
+    off unless ``engine_kw`` says otherwise, two admissions a round, so
+    the rows join at different rounds and decode at different cache
+    lengths): each request's next-token logits ((V,) f32, the prefill's
+    then every decode round's row) and tokens. The CPU tests and the
+    ``cuda`` tests use it too."""
     from pytorch_distributed_nn_tpu_torch.serve import ServingEngine
 
     eng = ServingEngine(model, max_slots=slots, max_seq_len=256,
-                        prefix_cache=False)
+                        **dict(dict(prefix_cache=False), **engine_kw))
     taps = []
     hook = model.register_forward_hook(
         lambda m, a, out: taps.append(out[:, -1].float().clone()))
@@ -5321,8 +5508,8 @@ def f1_check(model, vocab, seed):
 
 def f1_models():
     """The float models of §0 at full width: Llama at the 8B's widths cut to
-    CK_8B_LAYERS layers and config 4's transformer LM, seeded, bf16
-    compute."""
+    CK_8B_LAYERS layers and config 4's transformer LM cut to F1_LM_LAYERS,
+    seeded, bf16 compute."""
     import torch
 
     from pytorch_distributed_nn_tpu_torch.config import get_config
@@ -5332,7 +5519,8 @@ def f1_models():
         "model.extra": json.dumps({"num_layers": CK_8B_LAYERS})})
     llama = get_model(llama_cfg.model, device=torch.device("cuda"))
     llama.init_params(seed=32)
-    lm_cfg = get_config("transformer_lm_pp", **LM_OVERRIDES)
+    lm_cfg = get_config("transformer_lm_pp", **LM_OVERRIDES, **{
+        "model.extra": json.dumps({"num_layers": F1_LM_LAYERS})})
     lm = get_model(lm_cfg.model, device=torch.device("cuda"))
     lm.init_params(seed=32)
     return dict(llama=llama.eval(), lm=lm.eval())
@@ -5820,15 +6008,20 @@ TP_GRAD_TOL = 5e-2
 # phase 33 (b): llama3_8b_zero under ZeRO-3 x tensor 2 on 4 processes
 # (fsdp 2 x tensor 2) sharing the card: depth and batch (2 rows: one for
 # each of the fsdp ranks). Each rank builds the whole model before it is
-# cut (ROADMAP §1 item 3.2's leftovers), so four of them hold 2 layers
-TP8B_LAYERS, TP8B_BATCH = 2, 2
-# phase 33 (d): transformer_lm_pp's depth under pipe 2 x tensor 2 (of 12)
-TP_PIPE_LAYERS = 4
+# cut (ROADMAP §1 item 3.2's leftovers), so four of them hold few
+# layers; 1 since phase 34 (the script's time limit)
+TP8B_LAYERS, TP8B_BATCH = 1, 2
+# phase 33 (a): transformer_lm_pp's depth at tensor 2, and (d)'s under
+# pipe 2 x tensor 2 (of 12; the script's time limit)
+TP_LM_LAYERS = 6
+TP_PIPE_LAYERS = 2
 TP_GEN_PROMPT = " ".join(str(7 * i + 3) for i in range(16))
 TP_GEN_NEW = 16
 TP_TIMEOUT_S = 600
 TP_FLASH = {name: rf"{name}_kernel" for name in FLASH_KERNELS}
-TP_GEN_EXTRA = {"bf16": {}, "int8": {"quantized": True, "fused_proj": True}}
+TP_GEN_EXTRA = {"bf16": {"num_layers": TP_GEN_LAYERS},
+                "int8": {"num_layers": TP_GEN_LAYERS, "quantized": True,
+                         "fused_proj": True}}
 
 
 def tp_gen_argv(kind, tp=1):
@@ -5856,7 +6049,8 @@ def tp_lm_config(tensor=1):
     from pytorch_distributed_nn_tpu_torch.config import get_config
 
     return get_config("transformer_lm_pp", **{
-        **LM_OVERRIDES, **TP_NO_WARMUP, "mesh.tensor": str(tensor)})
+        **LM_OVERRIDES, **TP_NO_WARMUP, "mesh.tensor": str(tensor),
+        "model.extra": json.dumps({"num_layers": TP_LM_LAYERS})})
 
 
 def tp_pipe_config(sched, tensor=1):
@@ -5878,13 +6072,15 @@ def tp_collectives(records):
     return {op: dict(count=n, payload_bytes=b) for op, (n, b) in out.items()}
 
 
-def tp_grads(trainer, ref_path):
+def tp_grads(trainer, ref_path, loss_fn=None):
     """One forward and backward of the first batch as the step runs them
-    (the vocab-parallel loss, the ZeRO layout's gradient hooks): each
-    parameter's gradient, the rank's slice of a split leaf, against the
-    one-process gradient of the same weights and batch (``ref_path``,
-    whole leaves), max|err| / max|ref|. The gradients are cleared after.
-    Returns the loss and the errors by name."""
+    (the vocab-parallel loss, or ``loss_fn`` where the step's objective is
+    another: the chunked LM loss; the ZeRO layout's gradient hooks): each
+    gradient the rank holds once reduced (a split leaf's fsdp slice, a
+    tensor slice, a whole leaf) against the one-process gradient of the
+    same weights and batch (``ref_path``, whole leaves), max|err| /
+    max|ref|. The gradients are cleared after. Returns the loss and the
+    errors by name."""
     import torch
 
     from pytorch_distributed_nn_tpu_torch.parallel import dp
@@ -5897,20 +6093,21 @@ def tp_grads(trainer, ref_path):
 
     ref = torch.load(ref_path)
     zs, model = trainer.state.sharding, trainer.model
-    fn = vocab_parallel_loss(trainer.loss_fn, model, zs.tensor) \
-        or trainer.loss_fn
+    fn = loss_fn or vocab_parallel_loss(trainer.loss_fn, model,
+                                        zs.tensor) or trainer.loss_fn
     x, y = trainer.loader.batch_at(0)
     zs.begin(last=True, accum=1)
-    with zs.hold(getattr(trainer.loss_fn, "reads", ())):
+    with zs.hold(getattr(fn, "reads", ())):
         loss = dp._loss_and_grads(trainer.state, x, y, fn).item()
     zs.end()
-    t = zs.tensor
+    f, t = zs.fsdp, zs.tensor
     errs = {}
     for k, p in model.named_parameters():
-        want = ref[k]
-        if k in model.tensor_split:
-            want = local_slice(k, want, tensor=(t.size, t.index))
-        err = (p.grad.float() - want.to(p.grad.device).float()).abs().max()
+        g = zs.shards[k].grad if k in zs.shards else p.grad
+        want = local_slice(k, ref[k], tensor=(t.size, t.index),
+                           fsdp=(f.size, f.index) if k in zs.shards
+                           else (1, 0))
+        err = (g.float() - want.to(g.device).float()).abs().max()
         if k.endswith("attn.key.bias"):
             # no gradient in exact arithmetic (the softmax ignores a shift
             # common to every key): both are rounding noise, held against
@@ -5923,7 +6120,8 @@ def tp_grads(trainer, ref_path):
 
 
 def tp_lm(res, ref_dir):
-    """(a) transformer_lm_pp at full width (B 64, T 1024, 12 heads of 64,
+    """(a) transformer_lm_pp at full width cut to TP_LM_LAYERS layers (B
+    64, T 1024, 12 heads of 64,
     vocab 32000, remat) at mesh.tensor 2: the first batch's gradients
     against one process's (:func:`tp_grads`); then TP_STEPS steps through
     the Trainer, the flash counts set to 0 before them; the last step
@@ -6155,7 +6353,8 @@ def tp_worker(rank, world, port, job, ref_dir, out_dir):
     if proc.backend != "gloo" or proc.device != torch.device("cuda", 0):
         raise AssertionError(f"rank {rank}: {proc}")
     res = dict(rank=rank, backend=proc.backend, device=str(proc.device))
-    parts = {"lm": (tp_lm, tp_pipe, tp_generate), "8b": (tp_8b,)}[job]
+    parts = {"lm": (tp_lm, tp_pipe, tp_generate), "8b": (tp_8b,),
+             "zs": (zs_train,), "zs_resume": (zs_resume,)}[job]
     for part in parts:
         t0 = time.monotonic()
         part(res, ref_dir)
@@ -6310,10 +6509,253 @@ def phase_tensor():
         if ranks_a[1]["generate"][kind]["lines"]:
             raise AssertionError("(c) rank 1 printed")
     i8 = gen["int8"]
-    if i8["script_w8a16"] != W8A16_A_FORWARD * TP_GEN_NEW or \
-            i8["decode_step_w8a16"] != W8A16_A_FORWARD or \
-            i8["decode_step_w8a16_by_name"] not in (None, W8A16_A_FORWARD):
+    if i8["script_w8a16"] != W8A16_TP_GEN * TP_GEN_NEW or \
+            i8["decode_step_w8a16"] != W8A16_TP_GEN or \
+            i8["decode_step_w8a16_by_name"] not in (None, W8A16_TP_GEN):
         raise AssertionError(f"(c) int8 w8a16 launches {i8}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# rule 3: ZeRO under sequence parallelism, seq x tensor, and resuming onto
+# another layout (phase 34)
+# ---------------------------------------------------------------------------
+ZS_STEPS = 2
+ZS_MESH = {
+    # (a) ZeRO-3 on fsdp 2 x seq 2, ring attention on the ring kernel
+    "zero_seq": {"parallel.strategy": "zero", "parallel.zero_stage": "3",
+                 "mesh.fsdp": "2", "mesh.seq": "2", "mesh.data": "1"},
+    # (b) seq 2 x tensor 2 (the dp step at tensor 2), 4/2 heads a rank
+    "seq_tensor": {"parallel.strategy": "dp", "mesh.seq": "2",
+                   "mesh.tensor": "2", "mesh.data": "1"},
+    # (c) (a)'s step-1 checkpoint resumed on ZeRO-1 over fsdp 2, no seq
+    "zero1": {"parallel.strategy": "zero", "parallel.zero_stage": "1",
+              "mesh.fsdp": "2", "mesh.data": "1"},
+    # (c) and by one process (replicated)
+    "single": {"parallel.strategy": "single"},
+}
+ZS_BATCH = {"zero_seq": 2, "seq_tensor": 1, "zero1": 2, "single": 2}
+# a resumed step 2 against the straight run's step 2
+ZS_RESUME_TOL = 1e-5
+ZS_COUNT = {"ring_block": r"ring_block_kernel",
+            **{k: rf"{k}_kernel" for k in ("flash_bwd_dq", "flash_bwd_dkv")}}
+
+
+def zs_config(layout, ckpt=None):
+    """llama3_longcontext at its preset's full width (8 layers, d 1024,
+    8/4 heads of 128, T 32768, xent_chunk 2048, remat) with ring attention
+    (on one process a one-rank ring: the ring kernel over the whole
+    sequence), at the full lr, on ``layout``."""
+    from pytorch_distributed_nn_tpu_torch.config import get_config
+
+    extra = dict(get_config("llama3_longcontext").model.extra,
+                 attn_impl="ring")  # an override replaces the preset's
+    ov = {**TP_NO_WARMUP, **ZS_MESH[layout], "steps": str(ZS_STEPS),
+          "data.batch_size": str(ZS_BATCH[layout]),
+          "model.extra": json.dumps(extra)}
+    if ckpt:
+        ov["checkpoint_dir"] = ckpt
+    return get_config("llama3_longcontext", log_every="1", **ov)
+
+
+def zs_steps(res, key, t, save=False):
+    """ZS_STEPS steps of Trainer ``t`` (the last profiled, its ring and
+    flash backward kernels counted by name): each step's seconds, the
+    rank's peak GB, the collectives with their payload bytes, the ring's
+    host-staged shifts, the kernels' launches by wrapper; with ``save`` a
+    synchronous save before the last step."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_ring_counts()
+    for k in cc.host_p2p:
+        cc.host_p2p[k] = 0
+    saved = None
+    with cc.recording() as records:
+        t.train(steps=ZS_STEPS - 1)
+        if save:
+            t.save_checkpoint()
+            saved = dict(t.ckpt.last_save)
+        prof = profile_step(t, count=ZS_COUNT)
+    res[key] = dict(
+        losses=t.losses(), step_s=[r.seconds for r in t.history],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        collectives=tp_collectives(records), host_p2p=dict(cc.host_p2p),
+        launches=ring_counts(), by_name=prof and prof["counted"],
+        device_ms=prof and prof["device_ms"], save=saved)
+
+
+def zs_train(res, ref_dir):
+    """(a) then (b) on the 4-rank gang: (a) ZeRO-3 on fsdp 2 x seq 2 (its
+    first batch's gradients against one process's; 2 steps, saved after
+    the first, into ``ref_dir``'s checkpoint), (b) seq 2 x tensor 2."""
+    from pytorch_distributed_nn_tpu_torch.parallel.api import (
+        make_chunked_loss,
+    )
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    t = Trainer(zs_config("zero_seq", os.path.join(ref_dir, "ckpt")),
+                device="cuda")
+    zs = t.state.sharding
+    if not (zs.stage == 3 and zs.grad.size == 4 and zs.fsdp.size == 2
+            and t.mesh.seq.size == 2 and zs.shards):
+        raise AssertionError(f"(a) not ZeRO-3 on fsdp 2 x seq 2: "
+                             f"{t.mesh.spec}")
+    loss, errs = tp_grads(t, os.path.join(ref_dir, "grads.pt"),
+                          make_chunked_loss(t.cfg.xent_chunk))
+    worst = max(errs, key=errs.get)
+    res["grads"] = dict(loss=loss, worst=worst, worst_rel_err=errs[worst],
+                        writes=zs.writes)
+    zs_steps(res, "zero_seq", t, save=True)
+    t.close()
+    del t, zs
+    gc.collect()
+    t = Trainer(zs_config("seq_tensor"), device="cuda")
+    attn = t.model.layer0.attn
+    if (attn.num_heads, attn.num_kv_heads) != (4, 2):
+        raise AssertionError(f"(b) at {attn.num_heads}/"
+                             f"{attn.num_kv_heads} heads")
+    zs_steps(res, "seq_tensor", t)
+    t.close()
+
+
+def zs_resume(res, ref_dir):
+    """(c) on a 2-rank gang: (a)'s step-1 checkpoint restored into ZeRO-1
+    over fsdp 2, no seq (resharded on read), and its step 2."""
+    zs_resumed(res, "zero1", os.path.join(ref_dir, "ckpt"))
+
+
+def zs_resumed(res, layout, ckpt):
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    t = Trainer(zs_config(layout, ckpt), device="cuda")
+    restore = dict(t.ckpt.last_restore, build_and_restore_s=time.monotonic()
+                   - t0, data_step=t.data_step)
+    t.train(steps=1)
+    res[layout] = dict(losses=t.losses(), restore=restore,
+                       step_s=[r.seconds for r in t.history])
+    t.close()
+
+
+def zs_references(ref_dir):
+    """Phase 34's one-process runs, at the full lr: (a)'s batch of 2 (its
+    first batch's gradients saved to ``ref_dir``, then ZS_STEPS steps)
+    and (b)'s batch of 1."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.parallel import dp
+    from pytorch_distributed_nn_tpu_torch.parallel.api import (
+        make_chunked_loss,
+    )
+    from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    for layout in ("single", "seq_tensor"):
+        cfg = zs_config("single")
+        if layout == "seq_tensor":
+            cfg = cfg.override(**{"data.batch_size": "1"})
+        ref = Trainer(cfg, device="cuda")
+        if layout == "single":
+            x, y = ref.loader.batch_at(0)
+            dp._loss_and_grads(ref.state, x, y,
+                               make_chunked_loss(cfg.xent_chunk))
+            torch.save({k: p.grad.detach().cpu()
+                        for k, p in ref.model.named_parameters()},
+                       os.path.join(ref_dir, "grads.pt"))
+            ref.state.optimizer.zero_grad()
+        ref.train(steps=ZS_STEPS)
+        out["zero_seq" if layout == "single" else layout] = ref.losses()
+        ref.close()
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_zero_seq():
+    """Phase 34: ZeRO under sequence parallelism, seq x tensor and a
+    resume onto other layouts, at llama3_longcontext's full width on the
+    one card. The ranks are processes sharing the card in a gloo group (as
+    phase 33's): the ring's shifts between them go through host memory
+    (``ops.collectives`` ``host_p2p``), the ring kernel runs in every rank.
+    (a) ZeRO-3 on fsdp 2 x seq 2 (4 processes, batch 2) and (b) seq 2 x
+    tensor 2 (batch 1) against one process's runs from the same weights
+    and batches (losses within TP_LOSS_TOL; (a)'s gradient slices within
+    TP_GRAD_TOL); (c) (a)'s step-1 checkpoint restored into ZeRO-1 on
+    fsdp 2 (2 processes) and into one process: step 2's loss within
+    ZS_RESUME_TOL of (a)'s."""
+    t_start = time.monotonic()
+    ref_dir = tempfile.mkdtemp(prefix="chip-smoke-zs-")
+    try:
+        refs = zs_references(ref_dir)
+        log(f"[zero_seq] one-process references: {json.dumps(refs)}")
+        ranks = tp_gang("zs", 4, ref_dir)
+        pair = tp_gang("zs_resume", 2, ref_dir)
+        one = {}
+        zs_resumed(one, "single", os.path.join(ref_dir, "ckpt"))
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    r0 = ranks[0]
+    a, b = r0["zero_seq"], r0["seq_tensor"]
+    errs = dict(zero_seq=tp_rel(a["losses"], refs["zero_seq"]),
+                seq_tensor=tp_rel(b["losses"], refs["seq_tensor"]))
+    straight = a["losses"][1]
+    resumed = {"zero1": pair[0]["zero1"], "single": one["single"]}
+    resume_err = {k: abs(v["losses"][0] - straight) / abs(straight)
+                  for k, v in resumed.items()}
+    grads = {r["rank"]: (r["grads"]["worst"], r["grads"]["worst_rel_err"])
+             for r in ranks}
+    same = all(r[k]["losses"] == r0[k]["losses"] for r in ranks
+               for k in ("zero_seq", "seq_tensor"))
+    out = dict(card=card_line(), approach="the ranks as processes sharing "
+               "the card in their own gloo group; the ring's shifts "
+               "staged through host memory",
+               ref_losses=refs, rel_err=errs, worst_grad_rel_err=grads,
+               ranks_agree=same, resume_rel_err=resume_err,
+               resumed=resumed, writes=[r["grads"]["writes"]
+                                        for r in ranks],
+               per_rank={r["rank"]: {k: {f: r[k][f] for f in (
+                   "step_s", "peak_mem_gb", "collectives", "host_p2p",
+                   "launches", "by_name", "device_ms")}
+                   for k in ("zero_seq", "seq_tensor")} for r in ranks},
+               save=a["save"], zero_seq=a, seq_tensor=b,
+               part_s={k: v for k, v in r0.items() if k.endswith("_s")},
+               phase_s=time.monotonic() - t_start)
+    log(f"[zero_seq] {json.dumps(out)}")
+    bad = [k for k, v in errs.items() if not v <= TP_LOSS_TOL]
+    if bad or not same:
+        raise AssertionError(f"phase 34 losses off (limit {TP_LOSS_TOL}): "
+                             f"{ {k: errs[k] for k in bad} }, ranks agree "
+                             f"{same}")
+    if not all(e <= TP_GRAD_TOL for _, e in grads.values()):
+        raise AssertionError(f"(a) gradients off (limit {TP_GRAD_TOL}): "
+                             f"{grads}")
+    if [r["grads"]["writes"] for r in ranks] != [True, False, True, False]:
+        raise AssertionError("(a) a seq rank other than the first wrote")
+    for k, v in resumed.items():
+        if not (v["restore"]["resharded"] and v["restore"]["data_step"] == 1
+                and resume_err[k] <= ZS_RESUME_TOL):
+            raise AssertionError(f"(c) {k}: {v}, step 2 off by "
+                                 f"{resume_err[k]} (limit {ZS_RESUME_TOL})")
+    for r in ranks:
+        for k in ("zero_seq", "seq_tensor"):
+            got = r[k]
+            if not (got["launches"]["ring_block_update"]
+                    and got["launches"]["flash_bwd_dq"]
+                    and got["launches"]["flash_bwd_dkv"]
+                    and got["host_p2p"]["messages"]):
+                raise AssertionError(f"rank {r['rank']} {k}: {got}")
+            if got["by_name"] is not None and not got["by_name"][
+                    "ring_block"]:
+                raise AssertionError(f"rank {r['rank']} {k}: no ring "
+                                     f"kernel by name {got['by_name']}")
     return out
 
 
@@ -6415,10 +6857,11 @@ def main() -> int:
         tick("phase_forward")
         serve, serve_launches = phase_serve(model)
         tick("phase_serve")
-        del model
-        gc.collect()
-        torch.cuda.empty_cache()
-        model = build_model(seed=0, layers=PL_LAYERS)
+        if PL_LAYERS != SERVE_LAYERS:
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = build_model(seed=0, layers=PL_LAYERS)
         prefix_lora, pl_launches = phase_prefix_lora(model)
         tick("phase_prefix_lora")
         t32 = time.monotonic()
@@ -6438,6 +6881,8 @@ def main() -> int:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     tensor = phase_tensor()
     tick("phase_tensor")
+    zero_seq = phase_zero_seq()
+    tick("phase_zero_seq")
     gen_launches = scripts["convert"]["w8a16_launches"]
     tp_gen = tensor["generate"]["int8"]
     launches = (sum(serve_launches.values()) + ckpt_int8
@@ -6470,7 +6915,7 @@ def main() -> int:
             decode_step_by_name=tp_gen["decode_step_w8a16_by_name"],
             per="phase 33 (c): scripts/generate.py --tp 2 on the int8 8B "
                 f"(two processes on the card), {TP_GEN_NEW} forwards of "
-                f"{W8A16_A_FORWARD} on rank 0, the weights whole on each "
+                f"{W8A16_TP_GEN} on rank 0, the weights whole on each "
                 "rank; "
                 "decode_step: one decode step's launches, by wrapper and "
                 "by name in its profiled trace"),
@@ -6578,11 +7023,18 @@ def main() -> int:
                                  or {}).get(name),
                 per="phase 33 on rank 0 of the tensor ranks sharing the "
                     "card: transformer_lm_pp at tensor 2 (6 of 12 heads "
-                    f"of 64), {TP_STEPS} steps, by name in the last; "
+                    f"of 64, {TP_LM_LAYERS} of 12 layers), {TP_STEPS} "
+                    "steps, by name in the last; "
                     f"pipe 2 x tensor 2, {TP_STEPS} steps a schedule; "
                     f"llama3_8b_zero at depth {TP8B_LAYERS} under ZeRO-3 "
                     "on fsdp 2 x tensor 2 (16/4 of 32/8 heads of 128), "
                     f"{TP_STEPS} steps, by name in the last"),
+            launches_zero_seq={k: zero_seq[k]["launches"][name]
+                               for k in ("zero_seq", "seq_tensor")},
+            zero_seq="phase 34 on rank 0 of 4 processes sharing the card: "
+                     "llama3_longcontext under ZeRO-3 on fsdp 2 x seq 2 "
+                     "and on seq 2 x tensor 2, the ring's backward pairs, "
+                     f"{ZS_STEPS} steps each",
             resume="llama3_longcontext, 2 steps + save + a resumed "
                    "Trainer's 2 steps",
             offload="llama3_longcontext_96k with remat_offload, 2 steps"))
@@ -6638,7 +7090,16 @@ def main() -> int:
             "and rel_err (max|err|/max|ref|) of acc against the plain "
             "version over every check (Tl 8192; the main path's pairs at "
             "Tl 32768 and, on row slices, 98304)",
-        at_8192={k: v for k, v in ring["times"].items() if "8192" in k}))
+        at_8192={k: v for k, v in ring["times"].items() if "8192" in k},
+        at_zero_seq={k: dict(launches=zero_seq[k]["launches"],
+                             by_name=zero_seq[k]["by_name"])
+                     for k in ("zero_seq", "seq_tensor")},
+        zero_seq="phase 34 on rank 0 of 4 processes sharing the card: "
+                 "llama3_longcontext (T 32768, 8 layers) under ZeRO-3 on "
+                 "fsdp 2 x seq 2 (8/4 heads) and on seq 2 x tensor 2 (4/2 "
+                 f"heads), {ZS_STEPS} steps each; by_name: the ring and "
+                 "flash backward kernels in the last step's profiled "
+                 "trace"))
     log(json.dumps(dict(forward=forward, serve=serve, auto=auto,
                         train_check=train_check, train=train,
                         ring=ring, ring_check=ring_check,
@@ -6652,7 +7113,8 @@ def main() -> int:
                         pipe=pipe, moe=moe, serve_ckpt=serve_ckpt,
                         files=files, pipe_moe=pipe_moe,
                         prefix_lora=prefix_lora, tenants=tenants,
-                        fault1=fault1, scripts=scripts, tensor=tensor)))
+                        fault1=fault1, scripts=scripts, tensor=tensor,
+                        zero_seq=zero_seq)))
     from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
 
     bootstrap.shutdown()  # the NCCL group of the data-parallel phases

@@ -36,7 +36,7 @@ from pytorch_distributed_nn_tpu_torch.config import ModelConfig
 from pytorch_distributed_nn_tpu_torch.models import register
 from pytorch_distributed_nn_tpu_torch.nn.attention import MultiHeadAttention
 from pytorch_distributed_nn_tpu_torch.nn.dtypes import get_policy
-from pytorch_distributed_nn_tpu_torch.nn.layers import Dense, Embed
+from pytorch_distributed_nn_tpu_torch.nn.layers import Dense, Embed, row_mean
 from pytorch_distributed_nn_tpu_torch.nn.lora import layer_slice
 from pytorch_distributed_nn_tpu_torch.nn.quantized import Int8Dense, Int8Embed
 from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
@@ -57,8 +57,7 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.to(torch.float32)
-        normed = x32 * torch.rsqrt(
-            torch.mean(x32 * x32, dim=-1, keepdim=True) + self.eps)
+        normed = x32 * torch.rsqrt(row_mean(x32 * x32) + self.eps)
         return (normed * self.scale).to(self.dtype)
 
 

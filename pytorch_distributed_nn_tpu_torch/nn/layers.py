@@ -14,8 +14,9 @@ numerics: ``Dense``, ``Embed``, ``LayerNorm``, ``gelu`` and ``Dropout``
   the group before the whole bias; a ``"gather"`` Dense (a vocab-split
   head) gathers its logit columns before the bias; an Embed holds its
   rows of the table and looks up by a masked lookup and a sum.
-- :class:`LayerNorm`: statistics in f32 in flax 0.12's
-  ``use_fast_variance`` form, var = max(E[x^2] - E[x]^2, 0) (not
+- :class:`LayerNorm`: statistics in f32 (a decode step's in fixed row
+  blocks, :func:`row_mean`) in flax 0.12's ``use_fast_variance`` form,
+  var = max(E[x^2] - E[x]^2, 0) (not
   ``F.layer_norm``'s), then ``(x - mean) * (rsqrt(var + eps) * scale) +
   bias`` in f32, cast to the compute dtype.
 - :func:`gelu`: tanh-approximate (``flax.linen.gelu`` defaults to
@@ -67,6 +68,26 @@ def dense_product(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
         rows = F.pad(rows, (0, 0, 0, pad))
     ys = [rows[i:i + block] @ kernel for i in range(0, m + pad, block)]
     return (ys[0] if len(ys) == 1 else torch.cat(ys))[:m, None]
+
+
+def row_mean(x: torch.Tensor) -> torch.Tensor:
+    """``x.mean(-1, keepdim=True)``; a decode step's ``x`` ((B, 1, K)) in
+    blocks of :data:`DECODE_ROW_BLOCK` rows, as :func:`dense_product` runs
+    its products. A library reduction, too, picks its summation order by
+    its shape (over K split across more threads where there are fewer
+    rows), so a norm's statistics then have the same bits whatever the
+    number of rows in the step: without the blocks an int8 Llama at the
+    8B's widths and 16 layers parted from generate() at one RMSNorm of an
+    8-slot engine round (chip_smoke.py phase 7)."""
+    if x.dim() != 3 or x.shape[1] != 1:
+        return x.mean(-1, keepdim=True)
+    rows = x.reshape(x.shape[0], x.shape[2])
+    m, block = rows.shape[0], DECODE_ROW_BLOCK
+    pad = -m % block
+    if pad:
+        rows = F.pad(rows, (0, 0, 0, pad))
+    ys = [rows[i:i + block].mean(-1) for i in range(0, m + pad, block)]
+    return (ys[0] if len(ys) == 1 else torch.cat(ys))[:m, None, None]
 
 
 class Dense(nn.Module):
@@ -142,8 +163,8 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
-        mean = x32.mean(-1, keepdim=True)
-        var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean,
+        mean = row_mean(x32)
+        var = torch.clamp(row_mean(x32 * x32) - mean * mean,
                           min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.scale.float()
         return ((x32 - mean) * mul + self.bias.float()).to(self.dtype)

@@ -28,6 +28,12 @@ through), and :func:`gather_split` (every rank's slice along a dim).
 Every batch of point-to-point messages (:func:`exchange`, the ring's
 :func:`shift_right`) gives its j-th tensor tag j, so a receive can only
 match the message of its own position in the batch, whatever the sizes.
+Gloo sends no CUDA tensor point to point; where the group is gloo and its
+ranks share one card (``shared_card``, set by ``runtime/bootstrap`` when
+it keeps such a group), a batch of CUDA messages goes through host
+memory instead (:func:`_host_staged`: copied out, sent by gloo, copied
+back; counted and timed in :data:`host_p2p`). NCCL's path does not change,
+and gloo with CUDA tensors raises anywhere else.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+import time
 from typing import Iterable, Sequence
 
 import torch
@@ -237,12 +244,40 @@ def _p2p(sends: Sequence[tuple[int, torch.Tensor]],
 
     if dist.get_backend(group) == "gloo" and any(
             t.is_cuda for _, t in (*sends, *recvs)):
-        raise RuntimeError(
-            "gloo sends no CUDA tensor point to point (ranks that share a "
-            "card): hold every pipeline stage in each process")
+        if not shared_card:
+            raise RuntimeError(
+                "gloo sends no CUDA tensor point to point; only a gloo "
+                "group of ranks sharing a card stages it through host "
+                "memory")
+        return _host_staged(sends, recvs, tagged)
     ops = tagged(dist.isend, sends) + tagged(dist.irecv, recvs)
     for work in dist.batch_isend_irecv(ops):
         work.wait()
+
+
+# ranks that share one card in a gloo group (runtime/bootstrap sets it)
+shared_card = False
+# the host-staged point-to-point batches on such a group: batches,
+# messages, bytes sent and the seconds from the first copy out to the
+# last copy back (reset by the caller)
+host_p2p = dict(batches=0, messages=0, bytes=0, seconds=0.0)
+
+
+def _host_staged(sends, recvs, tagged) -> None:
+    """:func:`_p2p`'s batch where the group is gloo and the ranks share a
+    card: every CUDA message staged through host memory."""
+    t0 = time.perf_counter()
+    out = [(p, t.cpu()) for p, t in sends]
+    back = [(p, torch.empty(t.shape, dtype=t.dtype)) for p, t in recvs]
+    for work in dist.batch_isend_irecv(tagged(dist.isend, out)
+                                       + tagged(dist.irecv, back)):
+        work.wait()
+    for (_, t), (_, h) in zip(recvs, back):
+        t.copy_(h)
+    host_p2p["batches"] += 1
+    host_p2p["messages"] += len(sends)
+    host_p2p["bytes"] += sum(t.numel() * t.element_size() for _, t in out)
+    host_p2p["seconds"] += time.perf_counter() - t0
 
 
 def tree_all_reduce_mean(tensors: Iterable[torch.Tensor],

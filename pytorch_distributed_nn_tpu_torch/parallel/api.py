@@ -11,9 +11,10 @@ parallelism (``mesh.seq > 1``) and gradient accumulation
 ``mesh.expert``) and ``pipeline`` (gpipe, 1f1b,
 interleaved; ``parallel/pipeline.py``), each with the tensor axis
 (``mesh.tensor > 1``, ``parallel/tensor.py``): ``single``/``dp`` then run
-as ZeRO's step at stage 0, as the JAX ``dp`` step does. ``ps`` and
-``zero`` with ``mesh.seq > 1`` raise, naming the ROADMAP item that ports
-them; ``dp_explicit`` (the reference's hand-rolled loop over replicated
+as ZeRO's step at stage 0, as the JAX ``dp`` step does. Sequence
+parallelism runs under ``single``, ``dp`` and ``zero``, with or without
+the tensor axis. ``ps`` raises, naming the ROADMAP item that ports it;
+``dp_explicit`` (the reference's hand-rolled loop over replicated
 parameters) refuses ``mesh.tensor > 1``.
 """
 
@@ -62,13 +63,10 @@ def _check_seq(cfg: TrainConfig, seq: int) -> None:
         raise ValueError(
             "mesh.seq > 1 shards the sequence dim of (B, T) token batches; "
             f"dataset {cfg.data.dataset!r} has no sequence dim to shard")
-    if cfg.parallel.strategy == "zero":
-        raise NotImplementedError(
-            f"zero with mesh.seq > 1 is not ported yet ({REMAINING})")
-    if cfg.parallel.strategy not in ("single", "dp"):
+    if cfg.parallel.strategy not in ("single", "dp", "zero"):
         raise ValueError(
-            "mesh.seq > 1 needs the replicated step (single/dp): strategy "
-            f"{cfg.parallel.strategy!r} does not run it")
+            "mesh.seq > 1 needs the replicated or ZeRO step (single/dp/"
+            f"zero): strategy {cfg.parallel.strategy!r} does not run it")
     if cfg.data.seq_len % seq:
         raise ValueError(f"seq_len {cfg.data.seq_len} not divisible by "
                          f"mesh.seq {seq}")

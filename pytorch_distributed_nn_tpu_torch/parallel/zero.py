@@ -65,7 +65,12 @@ checkpoint's parts (``tensor<t>-`` before the fsdp and expert part).
 
 Replicated leaves are all-reduced to their mean over data x fsdp, as
 under ``dp``; a split gradient's reduce-scattered sum over ``fsdp`` is
-then summed over ``data`` and divided by data x fsdp. Gradient
+then summed over ``data`` and divided by data x fsdp. Under sequence
+parallelism (``mesh.seq > 1``, the JAX ``zero`` step on seq-sharded
+batches) the ranks of a seq ring hold the same slices and each computes
+the mean over its own tokens: every mean above is taken over data x fsdp
+x seq (``ProcessMesh.grad``), the split sums over data x seq, and only
+the first seq rank writes a checkpoint piece. Gradient
 accumulation splits the batch as the stage-0 step does
 (:func:`split_microbatches`); the gradients are summed over the
 microbatches in f32 and reduced once, from the last microbatch's
@@ -302,8 +307,10 @@ class ZeroShards:
         self.model = model
         self.stage = stage
         self.mesh = mesh
-        self.fsdp, self.data = mesh.fsdp, mesh.data
-        self.replica = mesh.replica  # the data axis alone
+        self.fsdp = mesh.fsdp
+        # the gradients' mean: over data x fsdp x seq, a split one's
+        # reduce-scattered sum over fsdp summed over data x seq
+        self.grad, self.grad_replica = mesh.grad, mesh.grad_replica
         self.expert = mesh.expert
         self.tensor = mesh.tensor
         n, ne, nt = self.fsdp.size, self.expert.size, self.tensor.size
@@ -361,7 +368,7 @@ class ZeroShards:
     @property
     def active(self) -> bool:
         """Whether anything is split or reduced (false at world 1)."""
-        return (bool(self.shards) or self.data.size > 1
+        return (bool(self.shards) or self.grad.size > 1
                 or bool(self.experts) or bool(self.tensor_leaves))
 
     # -- what the optimizer and the checkpoint see -----------------------
@@ -425,8 +432,9 @@ class ZeroShards:
 
     @property
     def writes(self) -> bool:
-        """Whether this rank writes its piece (the first data replica)."""
-        return self.replica.index == 0
+        """Whether this rank writes its piece (the first data replica, on
+        the first seq rank: the seq ranks hold the same slices)."""
+        return self.mesh.replica.index == 0 and self.mesh.seq.index == 0
 
     def keeps(self, param: str) -> bool:
         """Whether this rank's piece holds ``param``'s tensors (its value
@@ -542,16 +550,16 @@ class ZeroShards:
 
     def _reduce(self, k: str) -> None:
         p = self.named[k]
-        n = self.data.size
+        n = self.grad.size
         if k in self.shards:
             g = _scatter_sum(p.grad, self.dims[k], self.fsdp.group,
                              self.fsdp.size)
-            if self.replica.size > 1:
-                cc.all_reduce_sum(g, self.replica.group)
+            if self.grad_replica.size > 1:
+                cc.all_reduce_sum(g, self.grad_replica.group)
             self.shards[k].grad = g.div_(n)
             p.grad = None
         elif n > 1:
-            cc.all_reduce_mean(p.grad, self.data.group)
+            cc.all_reduce_mean(p.grad, self.grad.group)
         self._reduced.add(k)
 
     def end(self) -> None:
@@ -617,7 +625,7 @@ def make_sharded_train_step(loss_fn: Callable, mesh_of: Callable, *,
         zs: ZeroShards = state.sharding
         if not zs.active:
             return replicated(state, x, y)  # world 1: the dp step
-        n = zs.data.size
+        n = zs.grad.size
         # the LM's cross-entropy on the vocab slices, under a split head
         objective = vocab_parallel_loss(loss_fn, state.model, zs.tensor) \
             or loss_fn
@@ -628,7 +636,7 @@ def make_sharded_train_step(loss_fn: Callable, mesh_of: Callable, *,
         for a, (bx, by) in enumerate(parts):
             fn = objective
             if n > 1 and token_weighted:
-                fn = _global_token_mean(loss_fn, by, n, zs.data.group)
+                fn = _global_token_mean(loss_fn, by, n, zs.grad.group)
             zs.begin(last=a == len(parts) - 1, accum=accum)
             with zs.hold(reads):
                 loss = dp._loss_and_grads(
@@ -638,7 +646,7 @@ def make_sharded_train_step(loss_fn: Callable, mesh_of: Callable, *,
             lsum = loss if lsum is None else lsum + loss
         loss = lsum / accum if accum > 1 else lsum
         if n > 1:
-            loss = cc.all_reduce_mean(loss.reshape(1), zs.data.group)[0]
+            loss = cc.all_reduce_mean(loss.reshape(1), zs.grad.group)[0]
         state.apply_gradients()
         if stage == 1 and zs.shards:
             zs.gather_updated()

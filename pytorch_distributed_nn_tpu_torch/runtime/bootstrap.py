@@ -12,9 +12,11 @@ The backend follows the device: NCCL on ``cuda``, gloo on the CPU. Nothing
 falls back: a failed NCCL init raises. The one exception is a gloo group
 that the caller formed itself before ``initialize`` (ranks that share a
 card, which NCCL refuses: gloo's collectives take CUDA tensors through
-host memory): on ``cuda`` it is kept, on the card the caller set. Gloo
-sends no CUDA tensor point to point, so a pipeline on shared cards holds
-every stage in each process (``runtime/mesh.pipe_is_local``). A world of
+host memory): on ``cuda`` it is kept, on the card the caller set, and
+``ops.collectives.shared_card`` is set, so that the point-to-point CUDA
+messages that gloo does not send go through host memory (the ring's
+shifts). A pipeline on shared cards still holds every stage in each
+process (``runtime/mesh.pipe_is_local``). A world of
 one with no rendezvous in the environment uses an in-process
 ``dist.HashStore``, so a one-process run opens no port.
 """
@@ -28,6 +30,7 @@ import os
 import torch
 import torch.distributed as dist
 
+from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
 from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -68,6 +71,7 @@ def initialize(device: str | torch.device = "cuda") -> ProcessInfo:
         # the caller's group for ranks sharing a card, on its card
         dev = resolve_device("cuda")
         backend = "gloo"
+        cc.shared_card = True
     elif dev.type == "cuda":
         dev = resolve_device(torch.device("cuda", local_rank))
         torch.cuda.set_device(dev)

@@ -10,8 +10,10 @@ JAX ``batch_pspec`` lays them out), each row's tokens over ``seq``
 the experts of a mixture-of-experts layer over ``expert``
 (``parallel/expert.py``), the layers over ``pipe``
 (``parallel/pipeline.py``) and each layer's products over ``tensor``
-(``parallel/tensor.py``). What is left of the sharded strategies raises,
-naming :data:`REMAINING`.
+(``parallel/tensor.py``), in any product of them. ZeRO's parameter slices
+are the same on every seq rank: a step's gradients are averaged over
+data x fsdp x seq (``ProcessMesh.grad``). What is left of the sharded
+strategies (the parameter server) raises, naming :data:`REMAINING`.
 
 Rank r sits at the row-major coordinates of r over ``AXES`` in the
 resolved shape (:func:`coords`), the order in which the JAX package lays
@@ -88,13 +90,7 @@ class MeshSpec:
 def data_parallel(spec: MeshSpec, world_size: int) -> MeshSpec:
     """``spec`` resolved on ``world_size`` processes, one device each
     (``pipe`` stages count as processes unless the world does not divide
-    by them and the other fixed axes, :func:`pipe_is_local`); raises
-    ``NotImplementedError`` for ``seq`` and ``tensor`` both above 1."""
-    if spec.seq > 1 and spec.tensor > 1:
-        raise NotImplementedError(
-            f"mesh.seq {spec.seq} with mesh.tensor {spec.tensor}: sequence "
-            f"parallelism inside a tensor-parallel layer is not ported "
-            f"({REMAINING})")
+    by them and the other fixed axes, :func:`pipe_is_local`)."""
     if pipe_is_local(spec, world_size):
         return spec.resolve(world_size * spec.pipe)
     return spec.resolve(world_size)
@@ -165,6 +161,12 @@ class ProcessMesh:
     # the tensor axis: the ranks with this rank's rows and the other slices
     # of each layer's products
     tensor: AxisGroup = AxisGroup()
+    # the ranks a step's loss and gradients are averaged over: data x fsdp
+    # x seq (every rank with this rank's parameters' slices but other
+    # tokens), and data x seq (those with this rank's fsdp slice too); the
+    # data and replica groups where seq is 1
+    grad: AxisGroup = AxisGroup()
+    grad_replica: AxisGroup = AxisGroup()
 
     @property
     def process_spec(self) -> MeshSpec:
@@ -184,7 +186,10 @@ class ProcessMesh:
 _GROUPS = (("seq", ("seq",)), ("data", ("data", "fsdp")),
            ("pipe", ("pipe",)), ("fsdp", ("fsdp",)),
            ("replica", ("data",)), ("expert", ("expert",)),
-           ("tensor", ("tensor",)))
+           ("tensor", ("tensor",)), ("grad", ("data", "fsdp", "seq")),
+           ("grad_replica", ("data", "seq")))
+# the groups that are another one's where seq is 1
+_SEQ_ALIASES = {"grad": "data", "grad_replica": "replica"}
 
 
 def process_mesh(spec: MeshSpec, rank: int, world_size: int) -> ProcessMesh:
@@ -199,6 +204,9 @@ def process_mesh(spec: MeshSpec, rank: int, world_size: int) -> ProcessMesh:
     procs = dataclasses.replace(spec, pipe=1) if local else spec
     made: dict[str, AxisGroup] = {}
     for kind, axes in _GROUPS:
+        if kind in _SEQ_ALIASES and procs.seq == 1:
+            made[kind] = made[_SEQ_ALIASES[kind]]
+            continue
         size = math.prod(getattr(procs, a) for a in axes)
         index = 0
         c = coords(procs, rank)
@@ -218,7 +226,8 @@ def process_mesh(spec: MeshSpec, rank: int, world_size: int) -> ProcessMesh:
     return ProcessMesh(spec, rank, made["seq"], data=made["data"],
                        pipe=made["pipe"], fsdp=made["fsdp"],
                        replica=made["replica"], expert=made["expert"],
-                       pipe_local=local, tensor=made["tensor"])
+                       pipe_local=local, tensor=made["tensor"],
+                       grad=made["grad"], grad_replica=made["grad_replica"])
 
 
 def batch_slice(global_batch: int, rank: int, n: int) -> slice:

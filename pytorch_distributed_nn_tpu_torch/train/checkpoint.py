@@ -37,18 +37,31 @@ part named by the layout (``fsdp<i>``, ``expert<e>-fsdp<i>`` under an
 expert split, ``pipe<d>``, ``pipe<d>-expert<e>`` under an expert split,
 or ``local`` where one process holds every stage; under a tensor split
 ``tensor<t>-`` before it, every tensor rank writing its slices and the
-whole leaves alike), between barriers;
+whole leaves alike; under sequence parallelism only the first seq rank,
+the others holding the same slices), between barriers;
 the coordinator then writes ``meta.json``, which names the layout
-(strategy, mesh sizes, ``zero_stage``, schedule, ``pipe_chunks``, the
-split of each leaf, the expert-split leaves), and the manifest over every
-file, and renames the step into place. Under an
+(strategy, mesh sizes with ``seq``, ``zero_stage``, schedule,
+``pipe_chunks``, the split of each leaf, the expert-split leaves), and the
+manifest over every file, and renames the step into place. Under an
 expert split the ranks off expert 0 write only their expert slices and
 those slices' moments (the layout's ``keeps``), so a replicated tensor is
-written once, and read the rest back from expert 0's piece. A rank
-restores its own part, on the same layout only (:class:`LayoutError`
-otherwise: resharding on read is not ported). :func:`read_full_params`
-reads such a checkpoint in one process into the whole flax-named
-``state_dict`` that a replicated run loads.
+written once, and read the rest back from expert 0's piece.
+
+A rank restores its own part where the layout is the state's. Otherwise
+it reshards on read, as orbax restores into the template's layout: each
+tensor of the template's :meth:`~TrainState.state_dict` (parameters,
+moments, counters) is read whole from the pieces that hold it
+(:class:`_WholeState`, the files memory-mapped, so a rank's host holds one
+whole leaf at a time) and cut to the template's slice by the rules that
+laid the pieces out: the tensor split first, then the expert split along
+E, then ZeRO's fsdp split (a stage-1 parameter whole, its moments
+sliced). Any pair of replicated, ZeRO stage 0/1/3, tensor, expert and seq
+layouts at any widths restores; a pipeline restores only onto a pipeline
+of the same stages (``pipe`` and ``pipe_chunks``): the JAX Trainer stacks
+the stages' parameters, and restores them onto that stacking only
+(:class:`LayoutError` for the other pairs). :func:`read_full_params` reads
+any checkpoint in one process into the whole flax-named ``state_dict``
+that a replicated run loads.
 """
 
 from __future__ import annotations
@@ -56,9 +69,11 @@ from __future__ import annotations
 import hashlib
 import json
 import logging
+import math
 import os
 import pickle
 import queue
+import re
 import shutil
 import threading
 import time
@@ -78,8 +93,12 @@ _MANIFEST = "manifest.json"
 
 
 class LayoutError(Exception):
-    """The checkpoint's layout is not the state's (a different mesh,
-    strategy or stage): resharding on read is not ported."""
+    """The checkpoint's layout cannot be restored onto the state's: a
+    pipeline's stages onto another layout, as in the JAX Trainer."""
+
+
+_COUNTERS = ("opt.count", "generator", "step")
+_AXES = ("tensor", "expert", "fsdp")  # the order the pieces were cut in
 
 
 def _file_of(name: str, part: str | None = None) -> str:
@@ -126,6 +145,9 @@ class CheckpointManager:
         self._queued: set[int] = set()
         self._thread: threading.Thread | None = None
         self.last_save: dict = {}  # bytes and seconds of the newest write
+        # the newest restore's step, whether it resharded, and the bytes
+        # it read (its seconds where it resharded)
+        self.last_restore: dict = {}
 
     # -- save ------------------------------------------------------------
 
@@ -289,10 +311,14 @@ class CheckpointManager:
         sharding = template.sharding
         want = None if sharding is None else sharding.meta()
         if meta.get("layout") != want:
-            raise LayoutError(
-                f"{path} holds layout {meta.get('layout')}, the state is "
-                f"{want}: resharding on read is not ported (ROADMAP.md §1 "
-                "item 3, the remaining sharded strategies)")
+            _check_restorable(path, meta.get("layout"), want)
+            t0 = time.perf_counter()
+            nbytes = _reshard_into(template, _WholeState(path, meta))
+            self.last_restore = dict(step=step, resharded=True, bytes=nbytes,
+                                     seconds=time.perf_counter() - t0)
+            log.info("restored checkpoint step %d from %s onto another "
+                     "layout", step, path)
+            return template, meta
         if sharding is None:
             files = list(_FILES)
         else:  # its own piece first; what that lacks from the others
@@ -304,6 +330,10 @@ class CheckpointManager:
                                    weights_only=True).items():
                 tensors.setdefault(k, v)
         template.load_state_dict(tensors)
+        self.last_restore = dict(
+            step=step, resharded=False, seconds=None,
+            bytes=sum(t.numel() * t.element_size()
+                      for t in tensors.values()))
         log.info("restored checkpoint step %d from %s", step, path)
         return template, meta
 
@@ -374,66 +404,186 @@ def read_full_params(directory: str | Path,
                      step: int | None = None) -> dict[str, torch.Tensor]:
     """The whole parameters of a checkpoint (the newest step, or ``step``)
     as the flax-named ``state_dict`` a replicated run loads, read in one
-    process whatever its layout: a ZeRO-3 leaf's slices concatenated in
-    ``fsdp`` order along their dim, the expert slices in ``expert`` order
-    along E, the pipeline's stages merged (the counterpart of the JAX
-    ``restore_unstacked_params``)."""
+    process whatever its layout (:class:`_WholeState`): a ZeRO-3 leaf's
+    slices joined along their fsdp dim, the expert slices along E, the
+    tensor slices along their dim, the pipeline's stages merged (the
+    counterpart of the JAX ``restore_unstacked_params``)."""
     step, meta = checkpoint_meta(directory, step)
-    path = Path(directory) / str(step)
-
-    def model_of(fname):
-        return {k[len("model."):]: v for k, v in torch.load(
-            path / fname, map_location="cpu", weights_only=True).items()}
-
-    if "layout" not in meta:
-        return model_of("model.pt")
-    parts = [model_of(f"model-{part}.pt") for part in meta["parts"]]
-    layout = meta["layout"]
-    tensor = layout.get("tensor", {})
-    if not tensor:
-        return _merge_parts(parts, layout)
-    # each tensor coordinate's pieces (the parts are tensor-major) merged
-    # into its slices, then the slices concatenated in tensor order
-    nt = layout["mesh"]["tensor"]
-    per = len(parts) // nt
-    slices = [_merge_parts(parts[t * per:(t + 1) * per], layout)
-              for t in range(nt)]
-    out = dict(slices[0])
-    for name, (dim, _) in tensor.items():
-        if name in out:
-            out[name] = torch.cat([s[name] for s in slices], dim=dim)
-    return out
+    whole = _WholeState(Path(directory) / str(step), meta)
+    return {k[len("model."):]: whole.get(k).clone() for k in whole.keys
+            if k.startswith("model.")}
 
 
-def _merge_parts(parts: list[dict], layout: dict) -> dict:
-    """One tensor coordinate's pieces (every piece where nothing is split
-    over tensor) merged into its parameters: a ZeRO-3 leaf's slices
-    concatenated along their fsdp dim, the expert slices along E, the
-    pipeline's stages joined."""
-    if layout["strategy"] == "pipeline":
-        # each stage's pieces in expert order: the expert slices
-        # concatenated along E, the rest from the pieces that hold it
-        out = {}
-        for part in parts:
-            out.update(part)
-        for name in layout.get("experts", {}):
-            out[name] = torch.cat([p[name] for p in parts if name in p])
+def _check_restorable(path: Path, have: dict | None,
+                      want: dict | None) -> None:
+    """Raise :class:`LayoutError` for the layout pairs the JAX Trainer does
+    not restore either: it stacks a pipeline's stages along a leading
+    dim, so its checkpoint restores onto a pipeline of the same ``pipe``
+    and ``pipe_chunks`` only, and no other layout onto a pipeline."""
+    def stacking(layout):
+        if layout is None or layout["strategy"] != "pipeline":
+            return None
+        return layout["mesh"]["pipe"], layout["pipe_chunks"]
+
+    if stacking(have) != stacking(want):
+        def name(st):
+            return ("no pipeline" if st is None else
+                    f"a pipeline of pipe {st[0]} x {st[1]} chunks")
+        raise LayoutError(
+            f"{path} holds {name(stacking(have))}, the state is "
+            f"{name(stacking(want))}: the JAX Trainer restores a "
+            "pipeline's stacked stages only onto the same stages, and the "
+            "port refuses the same pairs (read_full_params reads any "
+            "layout whole)")
+
+
+def _splits(layout: dict | None, key: str) -> list[tuple[int, str]]:
+    """The (dim, axis) cuts, in :data:`_AXES` order, that ``layout`` makes
+    in the parameter dims of state tensor ``key``: the tensor split, the
+    expert split along E, ZeRO's fsdp split (a stage-1 parameter stays
+    whole, its moments are sliced)."""
+    name = _param_of(key)
+    if layout is None or name is None:
+        return []
+    tensor = layout.get("tensor", {}).get(name)
+    split = layout.get("split", {}).get(name)
+    cuts = []
+    if tensor is not None:
+        cuts.append((tensor[0], "tensor"))
+    if name in layout.get("experts", {}):
+        cuts.append((0, "expert"))
+    if split is not None and (key.startswith("opt.")
+                              or layout.get("zero_stage") == 3):
+        cuts.append((split[0], "fsdp"))
+    return cuts
+
+
+def _moment_cuts(key: str, cuts, whole_param_shape):
+    """``cuts`` over a parameter's dims moved onto state tensor ``key``'s:
+    an adafactor ``v_row`` lacks the parameter's largest dim, ``v_col``
+    its second-largest (a cut there is not made)."""
+    from pytorch_distributed_nn_tpu_torch.train.optim import _factored_dims
+
+    moment = key.split(".")[1] if key.startswith("opt.") else None
+    if not cuts or moment not in ("v_row", "v_col"):
+        return cuts
+    d1, d0 = _factored_dims(tuple(whole_param_shape))
+    drop = d0 if moment == "v_row" else d1
+    return [(d - (d > drop), axis) for d, axis in cuts if d != drop]
+
+
+def _cut(t: torch.Tensor, cuts, coords: dict, sizes: dict) -> torch.Tensor:
+    """The view of the whole ``t`` that the piece at ``coords`` holds."""
+    from pytorch_distributed_nn_tpu_torch.parallel.sharding_rules import (
+        shard_slice,
+    )
+
+    for dim, axis in cuts:
+        part = shard_slice(t.shape[dim], coords.get(axis, 0), sizes[axis])
+        t = t.narrow(dim, part.start, part.stop - part.start)
+    return t
+
+
+def _sizes(layout: dict | None) -> dict:
+    mesh = (layout or {}).get("mesh", {})
+    return {axis: mesh.get(axis, 1) for axis in _AXES}
+
+
+class _WholeState:
+    """The whole tensors of a checkpoint step, one at a time: every state
+    key (``model.``, ``opt.``, the counters) joined from the pieces of the
+    parts that hold it. The files are memory-mapped: a piece is read when
+    it is copied, so building one whole leaf reads that leaf alone."""
+
+    def __init__(self, path: Path, meta: dict) -> None:
+        self.layout = meta.get("layout")
+        self.sizes = _sizes(self.layout)
+        if self.layout is None:
+            parts = [(None, list(_FILES))]
+        else:
+            parts = [(part, _parts_files([part])) for part in meta["parts"]]
+        # key -> [(coords, piece)], in the parts' order
+        self.pieces: dict[str, list] = {}
+        for part, files in parts:
+            coords = {} if part is None else {
+                axis: int(i) for axis, i in
+                re.findall(r"(tensor|expert|fsdp|pipe)(\d+)", part)}
+            for fname in files:
+                for k, v in torch.load(path / fname, map_location="cpu",
+                                       weights_only=True,
+                                       mmap=True).items():
+                    self.pieces.setdefault(k, []).append((coords, v))
+        self.keys = list(self.pieces)
+
+    def param_shape(self, name: str) -> tuple[int, ...]:
+        """The whole shape of parameter ``name``."""
+        key = f"model.{name}"
+        shape = list(self.pieces[key][0][1].shape)
+        for dim, axis in _splits(self.layout, key):
+            shape[dim] *= self.sizes[axis]
+        return tuple(shape)
+
+    def get(self, key: str) -> torch.Tensor:
+        """The whole tensor of ``key`` (a view of a mapped file where one
+        piece holds it whole)."""
+        cuts = _splits(self.layout, key)
+        if cuts:
+            cuts = _moment_cuts(key, cuts,
+                                self.param_shape(_param_of(key)))
+        axes = {axis for _, axis in cuts}
+        # a piece a coordinate of the axes that cut it, at 0 on the others
+        use = {}
+        for coords, t in self.pieces[key]:
+            if all(coords.get(a, 0) == 0 for a in _AXES if a not in axes):
+                use.setdefault(tuple(coords.get(a, 0) for a in _AXES), t)
+        need = math.prod(self.sizes[a] for a in axes)
+        if len(use) != need:
+            raise ValueError(f"{key}: {len(use)} pieces of {need}")
+        first = next(iter(use.values()))
+        if not cuts:
+            return first
+        shape = list(first.shape)
+        for dim, axis in cuts:
+            shape[dim] *= self.sizes[axis]
+        out = torch.empty(shape, dtype=first.dtype)
+        for index, piece in use.items():
+            _cut(out, cuts, dict(zip(_AXES, index)), self.sizes).copy_(
+                piece)
         return out
-    nf = layout["mesh"]["fsdp"]
-    # the pieces of each expert coordinate, in fsdp order
-    by_expert = [parts[e:e + nf] for e in range(0, len(parts), nf)]
 
-    def whole_over_fsdp(pieces, name):
-        if layout["zero_stage"] == 3 and name in layout["split"]:
-            dim = layout["split"][name][0]
-            return torch.cat([p[name] for p in pieces], dim=dim)
-        return pieces[0][name]
 
-    out = {name: whole_over_fsdp(by_expert[0], name) for name in parts[0]}
-    for name in layout.get("experts", {}):
-        out[name] = torch.cat([whole_over_fsdp(pieces, name)
-                               for pieces in by_expert], dim=0)
-    return out
+@torch.no_grad()
+def _reshard_into(template: TrainState, whole: _WholeState) -> int:
+    """Copy ``whole`` into ``template`` in place, each tensor cut to the
+    template rank's slice, one leaf at a time; returns the bytes copied."""
+    sharding = template.sharding
+    layout = None if sharding is None else sharding.meta()
+    sizes = _sizes(layout)
+    coords = {axis: getattr(getattr(sharding, axis, None), "index", 0)
+              for axis in _AXES}
+    want = template.state_dict()
+    missing = sorted(set(want) - set(whole.keys))
+    if missing:
+        raise KeyError(f"the checkpoint lacks {missing[:5]}")
+    nbytes = 0
+    for key, t in want.items():
+        if key in _COUNTERS:
+            continue
+        cuts = _splits(layout, key)
+        if cuts:
+            cuts = _moment_cuts(key, cuts,
+                                whole.param_shape(_param_of(key)))
+        src = _cut(whole.get(key), cuts, coords, sizes)
+        if src.shape != t.shape or src.dtype != t.dtype:
+            raise ValueError(
+                f"{key}: {tuple(src.shape)} {src.dtype} does not fit "
+                f"{tuple(t.shape)} {t.dtype}")
+        t.copy_(src)
+        nbytes += src.numel() * src.element_size()
+    template.optimizer.count = int(whole.get("opt.count"))
+    template.generator.set_state(whole.get("generator").clone())
+    template.step = int(whole.get("step"))
+    return nbytes
 
 
 def _snapshot(state: TrainState) -> tuple[dict[str, torch.Tensor], Any]:

@@ -1089,6 +1089,31 @@ def test_float_engine_rows_are_solo_generate_logits_on_cuda(cuda, name):
                                            (a - b).abs().max().item())
 
 
+def test_int8_cache_engine_rows_are_solo_generate_logits_on_cuda(cuda):
+    """ROADMAP §3 item 5: the int8 8B at full width and 16 of 32 layers on
+    the int8 KV cache, phase 7's greedy prompts through an engine of 8
+    slots (prefix cache on, two admissions a round, 32 tokens each): every
+    request's next-token logits are a solo ``generate()``'s bit for bit.
+    Before the norms' statistics ran on fixed row blocks
+    (``nn.layers.row_mean``) a request parted from it at a decode round's
+    RMSNorm, whose library mean sums in an order set by the number of
+    rows."""
+    import chip_smoke as cs
+
+    model = cs.twin(cs.build_model(seed=0, layers=16), "bfloat16", "int8")
+    prompts = cs.mix_prompts(3)
+    greedy = [prompts[n] for n, kw, _ in cs.SERVE_MIX if kw is None]
+    served = cs.f1_engine_logits(model, greedy, 8, n_new=32,
+                                 prefix_cache=True,
+                                 max_prefills_per_round=2)
+    for i, (p, (logits, toks)) in enumerate(zip(greedy, served)):
+        ref, ref_toks = cs.f1_solo_logits(model, p, n_new=32)
+        np.testing.assert_array_equal(toks, ref_toks)
+        assert len(logits) == len(ref) == 32
+        for step, (a, b) in enumerate(zip(logits, ref)):
+            assert torch.equal(a, b), (i, step, (a - b).abs().max().item())
+
+
 def test_scripts_and_metrics_out_on_cuda(cuda, tmp_path, capsys):
     """The new entry points on the card: an HF-layout state_dict of a tiny
     float Llama (the port's own export) converted on the CPU, then

@@ -455,3 +455,26 @@ def test_generate_validation():
     with pytest.raises(ValueError, match="mutually exclusive"):
         generate(tm, np.zeros((1, 2), np.int32), 2, prefill_chunk=1,
                  prompt_lengths=[1])
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8, 9])
+def test_norm_statistics_of_a_decode_step_are_row_blocks(rows):
+    """ROADMAP §3 item 5's repair: a decode step's norm statistics
+    (``nn.layers.row_mean``: (B, 1, K) rows in fixed blocks of 8, the last
+    padded) are each row's own mean, as a prefill's plain mean gives it;
+    RMSNorm and LayerNorm on each row alone equal the rows together. (On
+    the card the blocks fix the reduction's shape; the CPU's reduction
+    already gives each row the same bits whatever the rows.)"""
+    from pytorch_distributed_nn_tpu_torch.models.llama import RMSNorm
+    from pytorch_distributed_nn_tpu_torch.nn.layers import LayerNorm, row_mean
+
+    x = torch.from_numpy(np.random.default_rng(rows).standard_normal(
+        (rows, 1, 4096)).astype(np.float32)) * 3.0
+    torch.testing.assert_close(row_mean(x), x.mean(-1, keepdim=True),
+                               rtol=1e-6, atol=0)
+    for norm in (RMSNorm(4096, dtype=torch.bfloat16),
+                 LayerNorm(4096, eps=1e-6, dtype=torch.bfloat16)):
+        together = norm(x)
+        alone = torch.cat([norm(x[i:i + 1]) for i in range(rows)])
+        assert together.shape == (rows, 1, 4096)
+        assert torch.equal(together, alone)

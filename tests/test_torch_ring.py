@@ -144,14 +144,13 @@ def test_mesh_lets_seq_through_and_refuses_the_model_axes():
     assert data_parallel(MeshSpec(seq=4, data=-1), 8).sizes()["data"] == 2
     assert data_parallel(MeshSpec(pipe=2, data=-1), 8).data_degree() == 4
     # the expert and tensor axes resolve (the batch splits over data x
-    # fsdp only); seq and tensor together still raise
+    # fsdp only), and so do seq and tensor together
     ep = data_parallel(MeshSpec(expert=-1, data=2), 8)
     assert (ep.expert, ep.data_degree()) == (4, 2)
     tp = data_parallel(MeshSpec(data=-1, tensor=2), 8)
     assert (tp.tensor, tp.data_degree()) == (2, 4)
-    with pytest.raises(NotImplementedError,
-                       match="remaining sharded strategies"):
-        data_parallel(MeshSpec(seq=2, data=-1, tensor=2), 8)
+    st = data_parallel(MeshSpec(seq=2, data=-1, tensor=2), 8)
+    assert (st.seq, st.tensor, st.data_degree()) == (2, 2, 2)
 
 
 def test_loader_takes_the_data_rows_and_the_seq_tokens():

@@ -96,6 +96,12 @@ def _torchrun(script, *args, nproc=4):
            "--nproc_per_node", str(nproc), str(script), *map(str, args)]
     out = subprocess.run(cmd, cwd=ROOT, env=_env(), capture_output=True,
                          text=True, timeout=TIMEOUT)
+    if out.returncode:
+        # whole, into the test's captured output, which pytest shows
+        # untruncated: a rank's own last words (an abort's reason) come
+        # long before the launcher's summary
+        print(out.stdout)
+        print(out.stderr)
     assert out.returncode == 0, (out.stdout[-2000:], out.stderr[-4000:])
 
 

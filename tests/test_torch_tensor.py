@@ -105,7 +105,7 @@ RUNS = {
     "moe_ep2_tp2": ("moe", {"mesh.tensor": "2", "mesh.expert": "2",
                             "mesh.data": "1"}),
 }
-CKPT_RUN = "tp2_zero3"  # also resumed, and refused by another layout
+CKPT_RUN = "tp2_zero3"  # also resumed, on its layout and on tp2_dp2
 
 
 def _overrides(family, **extra):
@@ -209,7 +209,7 @@ def test_split_model_holds_the_jax_tensor_shards(family, tensor):
 # --------------------------------------------------------------------------
 
 _WORKER = r"""
-import json, sys
+import json, shutil, sys
 import numpy as np
 import torch
 from pytorch_distributed_nn_tpu_torch.config import get_config
@@ -220,7 +220,6 @@ from pytorch_distributed_nn_tpu_torch.parallel.tensor import (
 from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
 from pytorch_distributed_nn_tpu_torch.runtime.mesh import (
     MeshSpec, process_mesh)
-from pytorch_distributed_nn_tpu_torch.train.checkpoint import LayoutError
 from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
 
 out_dir, runs, nonce = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3]
@@ -263,17 +262,22 @@ for name, run in runs.items():
     with trainer(run, checkpoint_dir=f"{ckpt}_resumed",
                  checkpoint_every="2") as b:
         b.train(steps=2)
+    if proc.rank == 0:  # step 2 alone, for the resume on another layout
+        shutil.copytree(f"{ckpt}_resumed", f"{ckpt}_other")
+    torch.distributed.barrier()
     with trainer(run, checkpoint_dir=f"{ckpt}_resumed") as c:
         resumed_from = c.data_step
         c.train()
         got = local(c.state)
     res[f"{name}/resume"] = np.array([resumed_from] + [
         int(torch.equal(straight[k], got[k])) for k in sorted(straight)])
-    try:
-        trainer(runs["tp2_dp2"], checkpoint_dir=f"{ckpt}_resumed")
-        res[f"{name}/other_layout"] = "restored"
-    except LayoutError as e:
-        res[f"{name}/other_layout"] = str(e)
+    # the step-2 checkpoint of tensor 2 x fsdp 2 (ZeRO-3) resumed on
+    # tensor 2 x data 2: resharded on read
+    with trainer(runs["tp2_dp2"], checkpoint_dir=f"{ckpt}_other") as o:
+        res[f"{name}/other_layout"] = np.array(
+            [o.data_step, int(o.ckpt.last_restore["resharded"])])
+        o.train()
+        res[f"{name}/other_losses"] = np.array(o.losses())
 
 # one forward and one backward of the tiny LM cut over a tensor = 2 x
 # data = 2 mesh, every rank on the same rows: the Megatron collectives,
@@ -478,9 +482,17 @@ def test_whole_leaves_get_the_same_gradient_on_each_tensor_rank(gang):
 
 def test_tensor_checkpoint_resumes_bit_for_bit_and_refuses_another_layout(
         gang):
+    """The resume on the same layout bit for bit; the same checkpoint
+    (tensor 2 x fsdp 2, ZeRO-3, at step 2) resumed on tensor 2 x data 2
+    reshards on read and continues the straight run, to the JAX checkpoint
+    test's tolerances (it was refused before resharding was ported)."""
     ranks, _, _ = gang
     for r in ranks:
         resume = r[f"{CKPT_RUN}/resume"]
         assert int(resume[0]) == 2 and resume[1:].all(), resume
-        assert "resharding on read is not ported" in str(
-            r[f"{CKPT_RUN}/other_layout"])
+        data_step, resharded = r[f"{CKPT_RUN}/other_layout"]
+        assert int(data_step) == 2 and int(resharded) == 1
+        straight = r[f"{CKPT_RUN}/losses"]
+        np.testing.assert_allclose(r[f"{CKPT_RUN}/other_losses"],
+                                   straight[2:], rtol=2e-5, atol=1e-5)
+        assert len(straight) > 2

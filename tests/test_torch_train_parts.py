@@ -211,9 +211,8 @@ def test_mesh_resolves_as_jax_and_refuses_more_than_one_device():
     assert data_parallel(MeshSpec(tensor=2, data=-1), 4).data_degree() == 2
     local = data_parallel(MeshSpec(pipe=2, tensor=2, data=-1), 2)
     assert (local.pipe, local.tensor, local.data) == (2, 2, 1)
-    with pytest.raises(NotImplementedError,
-                       match="remaining sharded strategies"):
-        data_parallel(MeshSpec(seq=2, tensor=2, data=-1), 4)
+    st = data_parallel(MeshSpec(seq=2, tensor=2, data=-1), 4)
+    assert (st.seq, st.tensor, st.data) == (2, 2, 1)
     assert [batch_slice(12, r, 3) for r in range(3)] == [
         slice(0, 4), slice(4, 8), slice(8, 12)]
     with pytest.raises(ValueError, match="divisible"):
@@ -223,8 +222,10 @@ def test_mesh_resolves_as_jax_and_refuses_more_than_one_device():
 @pytest.mark.parametrize("override,err,match", [
     ({"parallel.strategy": "ps"}, NotImplementedError,
      "remaining sharded strat"),
-    ({"parallel.strategy": "zero", "mesh.seq": "2"}, NotImplementedError,
-     "remaining sharded strat"),
+    # zero runs under seq > 1 now; what the port still refuses there is
+    # an attention that is not sequence-parallel (the JAX package warns)
+    ({"parallel.strategy": "zero", "mesh.seq": "2"}, ValueError,
+     "needs model.extra.attn_impl 'ring' or 'ulysses'"),
     ({"parallel.strategy": "bogus"}, ValueError, "unknown strategy"),
     ({"parallel.grad_accum": "2"}, ValueError, "not divisible"),
     ({"parallel.grad_accum": "0"}, ValueError, "accum"),
@@ -239,6 +240,8 @@ def test_make_train_step_refuses_what_is_not_ported(override, err, match):
 @pytest.mark.parametrize("override", [
     {"parallel.strategy": "zero", "parallel.zero_stage": "1"},
     {"parallel.strategy": "zero", "parallel.zero_stage": "3"},
+    {"parallel.strategy": "zero", "parallel.zero_stage": "3",
+     "mesh.seq": "2", "model.extra": '{"attn_impl": "ring"}'},
     {"parallel.strategy": "pipeline", "mesh.pipe": "2", "xent_chunk": "0"},
 ])
 def test_make_train_step_builds_zero_and_pipeline(override):
