@@ -356,11 +356,17 @@ Tenants, the greedy contract of float models and the user scripts (phase
               on fsdp 2 x tensor 2 (4 processes; the vocab tables split
               over tensor and fsdp), 2 steps against the world-1 steps;
               (c) scripts/generate.py --tp 2 on the 8B (32 layers), bf16
-              and int8, tokens equal to one process's, W8A16 129 a decode
-              step by wrapper and by name, per-token latency and cache
-              bytes a rank; (d) transformer_lm_pp at 2 layers on
-              mesh.pipe 2 x tensor 2 (both stages in each process), gpipe
-              and 1f1b against one process's pipe 2.
+              and int8: int8 tokens equal to one process's; bf16 held by
+              the one-process sequence teacher-forced through the split
+              model, in one forward and through its KV-cache decode
+              (prefill, then one token a step), every logit within
+              TP_LOGIT_TOL of one process's on the same path, and its
+              tokens wherever the one-process margin exceeds twice that
+              bound (tp_logit_check); W8A16 129 a decode step by wrapper
+              and by name, per-token latency and cache bytes a rank; (d)
+              transformer_lm_pp at 2 layers on mesh.pipe 2 x tensor 2 (both
+              stages in each process), gpipe and 1f1b against one process's
+              pipe 2.
 34. zero_seq -- ZeRO under sequence parallelism, seq x tensor and a resume
               onto other layouts (ROADMAP §1 items 3.3, 3.4), the ranks as
               processes sharing the card in a gloo group as in phase 33,
@@ -381,12 +387,41 @@ Tenants, the greedy contract of float models and the user scripts (phase
               seq (2 processes) and into one process, each taking step 2:
               its loss within ZS_RESUME_TOL of (a)'s step 2.
 
+Phases 35 and 36 run after phase 34, each alone:
+
+35. ps       -- the asynchronous parameter server (parallel/ps.py) on
+              mlp_mnist at its preset's width, the server's parameters and
+              optimizer and the workers' gradients on the card, through
+              the rendezvous store (c10d's TCPStore): (a) one worker at
+              max_staleness 0, 20 pushes, against a plain momentum-SGD loop
+              over the same batches from the same weights (PS_SYNC_TOL);
+              (b) scripts/train_ps.py --workers 2 --steps 60: its line, the
+              held-out loss below the initial parameters'; pushes a
+              second, bytes a push and a pull, each applied gradient's
+              staleness, seconds in store calls and in gradient compute.
+36. launch   -- the elastic agent (launch.py) with the heartbeat and the
+              progress watchdog over one worker (NCCL refuses two ranks on
+              one card) running the train entry point at phase 20's
+              configuration (llama3_longcontext, CKPT_LAYERS layers, T
+              32768, 3 steps, a checkpoint every step) through a runner
+              that faults it after step 2 of its first incarnation:
+              SIGTERM (exit 83, a
+              restart charged to no budget), the main thread asleep (the
+              watchdog goes silent, a hang), os._exit (a crash charged to
+              the budget); three agents side by side. Each ends rc 0,
+              resumed from its checkpoint, its losses the first 3 of phase
+              20's straight run within CKPT_TOL; the seconds from the fault
+              to its detection and from detection to the next first step,
+              the
+              steps redone, the flash launches of each incarnation.
+
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit from nvidia-smi, and the result JSON line.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import gc
 import itertools
@@ -2631,11 +2666,26 @@ def w8a16_a_forward(layers):
 
 W8A16_A_FORWARD = w8a16_a_forward(SERVE_LAYERS)
 W8A16_PL = w8a16_a_forward(PL_LAYERS)
-# phase 33 (c): scripts/generate.py --tp 2 on the 8B at its whole depth
-# (at 16 layers its bf16 tokens left one process's: the tensor split sums
-# its products in another order, ROADMAP.md §3)
+# phase 33 (c): scripts/generate.py --tp 2 on the 8B at its whole depth.
+# The tensor split sums a row-parallel product's partial results in
+# another order than the whole product, so the bf16 logits differ in their
+# last bits and a near-tie of random weights can flip a greedy token (at
+# 16 layers one did, ROADMAP.md §3 item 6): the bf16 run is held by its
+# teacher-forced logits within TP_LOGIT_TOL and by its tokens wherever the
+# one-process margin decides them (tp_logit_check). The int8 run's leaves
+# stay whole on every rank: its tokens must be equal.
 TP_GEN_LAYERS = 32
 W8A16_TP_GEN = w8a16_a_forward(TP_GEN_LAYERS)
+# max|tp - one| / max|one| over the f32 logits of the one-process sequence
+# (prompt and greedy tokens) scored by the --tp 2 model and by one
+# process on the same path (one forward; the KV-cache decode, one token a
+# step): bf16 rounding-order noise at the 8B's depth. The one-forward gap
+# read 1.05e-2 at 16 layers and 1.64e-2 at 32 on the H100; a missing or
+# doubled all-reduce moves the logits by their own size. A greedy step is
+# decisive where the one-process top-1 minus top-2 margin exceeds twice
+# this bound (of the largest logit), as phase 7 decides its int8 cache's
+# steps.
+TP_LOGIT_TOL = 3e-2
 
 
 def build_model(seed=0, layers=SERVE_LAYERS):
@@ -6024,13 +6074,14 @@ TP_GEN_EXTRA = {"bf16": {"num_layers": TP_GEN_LAYERS},
                          "fused_proj": True}}
 
 
-def tp_gen_argv(kind, tp=1):
+def tp_gen_argv(kind, tp=1, layers=TP_GEN_LAYERS):
     """``scripts/generate.py``'s arguments for phase 33 (c): Llama-3-8B at
-    full width with seeded random weights, bf16 or int8 (quantized with
-    fused projections, as phases 7 and 31 serve it)."""
+    full width and ``layers`` layers with seeded random weights, bf16 or
+    int8 (quantized with fused projections, as phases 7 and 31 serve
+    it)."""
     argv = ["--preset", "llama3_8b_zero", "--prompt", TP_GEN_PROMPT,
             "--max-new", str(TP_GEN_NEW), "--model.extra",
-            json.dumps(TP_GEN_EXTRA[kind])]
+            json.dumps(dict(TP_GEN_EXTRA[kind], num_layers=layers))]
     if kind == "bf16":
         argv += ["--model.dtype", "bfloat16"]
     return argv + (["--tp", str(tp)] if tp > 1 else [])
@@ -6244,6 +6295,18 @@ def tp_generate(res, ref_dir):
             ig.generate = original
         launches = tmm.int8_matmul.launches
         model = seen.pop("model")
+        check = None
+        if kind == "bf16":
+            # the one-process sequence scored by this split model on both
+            # paths (every rank takes part: its products are collective)
+            ref = torch.load(os.path.join(ref_dir, "tp_gen_bf16.pt"))
+            got = tp_teacher_forced(model, ref["ids"])
+            if cc.rank() == 0:
+                tp_ids = [int(t) for t in lines[-1].split()]
+                check = tp_logit_check(
+                    got, {k: v.cuda() for k, v in ref["logits"].items()},
+                    ref["ids"], tp_ids)
+            del got, ref
         mesh = mesh or process_mesh(MeshSpec(tensor=TP, data=-1),
                                     cc.rank(), cc.world_size())
         prompt = [[int(v) for v in TP_GEN_PROMPT.split()]]
@@ -6259,6 +6322,7 @@ def tp_generate(res, ref_dir):
         prefill_s, whole_s = timed(1), timed(TP_GEN_NEW)
         cache = ig.init_cache(model, 1, P + TP_GEN_NEW)
         out = dict(lines=lines, script_s=secs, script_w8a16=launches,
+                   teacher_forced=check,
                    per_token_ms=(whole_s - prefill_s) / (TP_GEN_NEW - 1)
                    * 1e3,
                    cache_bytes=ig.cache_bytes(cache),
@@ -6354,6 +6418,7 @@ def tp_worker(rank, world, port, job, ref_dir, out_dir):
         raise AssertionError(f"rank {rank}: {proc}")
     res = dict(rank=rank, backend=proc.backend, device=str(proc.device))
     parts = {"lm": (tp_lm, tp_pipe, tp_generate), "8b": (tp_8b,),
+             "gen": (tp_generate,),
              "zs": (zs_train,), "zs_resume": (zs_resume,)}[job]
     for part in parts:
         t0 = time.monotonic()
@@ -6418,7 +6483,6 @@ def tp_references(ref_dir):
     import torch
 
     from pytorch_distributed_nn_tpu_torch.parallel import dp
-    from pytorch_distributed_nn_tpu_torch.scripts import generate as script
     from pytorch_distributed_nn_tpu_torch.train.trainer import Trainer
 
     out = {}
@@ -6439,11 +6503,117 @@ def tp_references(ref_dir):
         del ref
         gc.collect()
         torch.cuda.empty_cache()
+    out.update(tp_gen_references(ref_dir))
+    return out
+
+
+def tp_gen_references(ref_dir):
+    """(c)'s one-process runs of ``scripts/generate.py``: the printed
+    tokens of each kind, and for bf16 the teacher-forced f32 logits of the
+    printed sequence (prompt and greedy tokens) on the model the script
+    built, saved with the sequence to ``ref_dir`` for the tensor ranks."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.inference import generate as ig
+    from pytorch_distributed_nn_tpu_torch.scripts import generate as script
+
+    out = {}
+    original = ig.generate
     for kind in TP_GEN_EXTRA:
-        lines, secs = run_script(script.main, tp_gen_argv(kind))
+        seen = {}
+
+        def kept(model, prompt, n, **kw):
+            seen["model"] = model
+            return original(model, prompt, n, **kw)
+
+        ig.generate = kept
+        try:
+            lines, secs = run_script(script.main, tp_gen_argv(kind))
+        finally:
+            ig.generate = original
         out[kind] = dict(tokens=lines[-1], script_s=secs)
+        if kind == "bf16":
+            ids = [int(t) for t in lines[-1].split()]
+            logits = tp_teacher_forced(seen["model"], ids)
+            torch.save({"ids": ids,
+                        "logits": {k: v.cpu() for k, v in logits.items()}},
+                       os.path.join(ref_dir, "tp_gen_bf16.pt"))
+            del logits
+        seen.clear()
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+def tp_teacher_forced(model, ids):
+    """``ids`` scored by ``model`` (a split model gathers its vocab
+    slices) on the two paths of a decode, as f32 logits: ``full``, (T, V)
+    of every position in one forward; ``cached``, (T - P, V) of each new
+    token's step through the KV cache, as generate() takes them (the
+    prompt's prefill, then one token a step)."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.inference import generate as ig
+
+    P = len(TP_GEN_PROMPT.split())
+    with torch.inference_mode():
+        tok = torch.tensor([ids], device="cuda")
+        full = model(tok)[0].float()
+        cache = ig.init_cache(model, 1, len(ids))
+        steps = [model(tok[:, :P], cache=cache, last_only=True)[0, -1]]
+        for i in range(P, len(ids) - 1):
+            steps.append(model(tok[:, i:i + 1], cache=cache,
+                               last_only=True)[0, -1])
+        return dict(full=full, cached=torch.stack(steps).float())
+
+
+def tp_logit_check(got, ref, ref_ids, tp_ids):
+    """Phase 33 (c)'s bf16 check of the --tp 2 run (``got``, its printed
+    ``tp_ids``) against one process (``ref``, ``ref_ids``), both scoring
+    ``ref_ids`` on both paths (:func:`tp_teacher_forced`): on each path the
+    largest logit gap over the largest |logit| (TP_LOGIT_TOL), and at each
+    new token's step the one-process top-1 minus top-2 margin of the
+    cached path (the one generate() took). Where it exceeds twice the
+    bound (decisive), the split model's choice on both paths, one
+    process's own, and the script's token (until the first step where the
+    two streams part) must be one process's; the first parting must come at
+    an indecisive step, after which the streams continue from other
+    prefixes and are reported, not compared. Returns the readings and
+    ``ok``."""
+    P = len(TP_GEN_PROMPT.split())
+    gaps = {}
+    for path in ("full", "cached"):
+        scale = ref[path].abs().max().item()
+        gap = (got[path] - ref[path]).abs().max().item()
+        gaps[path] = dict(rel_err=gap / scale, max_abs_gap=gap, scale=scale)
+    steps = ref["cached"]  # the logits that chose each new token
+    top2 = steps.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    bound = 2 * TP_LOGIT_TOL * gaps["cached"]["scale"]
+    decisive = [m > bound for m in margin]
+    new_ref = ref_ids[P:]
+    choices = dict(tp_full=got["full"][P - 1:-1].argmax(-1).tolist(),
+                   tp_cached=got["cached"].argmax(-1).tolist(),
+                   one_cached=steps.argmax(-1).tolist())
+    parted = next((i for i, (a, b) in enumerate(zip(tp_ids[P:], new_ref))
+                   if a != b), None)
+    tf_bad = {k: [i for i, d in enumerate(decisive)
+                  if d and c[i] != new_ref[i]]
+              for k, c in choices.items()}
+    tf_bad = {k: v for k, v in tf_bad.items() if v}
+    dm = [m for m, d in zip(margin, decisive) if d]
+    out = dict(
+        gaps=gaps, tol=TP_LOGIT_TOL, steps=len(margin),
+        decisive=sum(decisive),
+        smallest_decisive_margin=min(dm) if dm else None,
+        indecisive={i: margin[i] for i, d in enumerate(decisive) if not d},
+        first_parted=parted,
+        first_parted_margin=None if parted is None else margin[parted],
+        teacher_forced_disagree=tf_bad,
+        tokens_equal=tp_ids == ref_ids)
+    out["ok"] = bool(
+        all(g["rel_err"] <= TP_LOGIT_TOL for g in gaps.values())
+        and not tf_bad and (parted is None or not decisive[parted]))
     return out
 
 
@@ -6501,11 +6671,16 @@ def phase_tensor():
     if not all(e <= TP_GRAD_TOL for _, e in grad_errs.values()):
         raise AssertionError(f"(a) gradients off (limit {TP_GRAD_TOL}): "
                              f"{grad_errs}")
+    tf = gen["bf16"]["teacher_forced"]
+    if not tf["ok"]:
+        raise AssertionError(f"(c) bf16 --tp {TP} against one process "
+                             f"(logits limit {TP_LOGIT_TOL}, tokens where "
+                             f"the margin decides them): {tf}")
+    if tokens["int8"] != refs["int8"]["tokens"]:
+        raise AssertionError(
+            f"(c) int8 --tp {TP} tokens {tokens['int8']!r} differ from "
+            f"one process's {refs['int8']['tokens']!r}")
     for kind in TP_GEN_EXTRA:
-        if tokens[kind] != refs[kind]["tokens"]:
-            raise AssertionError(
-                f"(c) {kind} --tp {TP} tokens {tokens[kind]!r} differ from "
-                f"one process's {refs[kind]['tokens']!r}")
         if ranks_a[1]["generate"][kind]["lines"]:
             raise AssertionError("(c) rank 1 printed")
     i8 = gen["int8"]
@@ -6759,6 +6934,402 @@ def phase_zero_seq():
     return out
 
 
+# ---------------------------------------------------------------------------
+# rule 3: the asynchronous parameter server (phase 35) and the elastic
+# agent (phase 36)
+# ---------------------------------------------------------------------------
+PS_WORKERS, PS_STEPS = 2, 60  # the JAX script's defaults
+PS_SYNC_STEPS = 20
+# (a): max|ps - plain| / max|plain| over every parameter after PS_SYNC_STEPS
+# synchronous steps: the same f32 gradients on the card, momentum's trace
+# and the update in the optimizer's foreach passes against a plain loop of
+# the same operations, so a few f32 roundings at most
+PS_SYNC_TOL = 1e-5
+
+
+def ps_plain_momentum(model, loss_fn, batches, lr, momentum):
+    """The plain momentum-SGD loop (optax's trace: t = g + momentum t,
+    p -= lr t) over ``batches`` on a copy of ``model``: its parameters."""
+    import copy
+
+    import torch
+
+    m = copy.deepcopy(model).eval()
+    params = [p for _, p in m.named_parameters()]
+    trace = [torch.zeros_like(p) for p in params]
+    for x, y in batches:
+        grads = torch.autograd.grad(loss_fn(m(x), y), params)
+        with torch.no_grad():
+            for p, t, g in zip(params, trace, grads):
+                t.mul_(momentum).add_(g)
+                p.sub_(lr * t)
+    return {k: p.detach() for k, p in m.named_parameters()}
+
+
+def ps_summary(stats, seconds):
+    """A run's readings from ``run_ps_local``'s stats (each worker's, then
+    the server's)."""
+    workers, server = stats[:-1], stats[-1]
+    pushes = sum(w["pushes"] for w in workers)
+    staleness = [s for w in workers for s in w["staleness"]]
+    return dict(
+        applied=server["applied"], seconds=seconds,
+        pushes_per_s=pushes / seconds,
+        bytes_a_push=sum(w["push_bytes"] for w in workers) / pushes,
+        bytes_a_pull=sum(w["pull_bytes"] for w in workers)
+        / max(sum(w["pulls"] for w in workers), 1),
+        pulls=[w["pulls"] for w in workers],
+        staleness=staleness,
+        staleness_counts={s: staleness.count(s) for s in sorted(set(
+            staleness))},
+        store_s=[w["store_s"] for w in workers],
+        grad_s=[w["grad_s"] for w in workers],
+        server_published_bytes=server["published_bytes"])
+
+
+def phase_ps():
+    """Phase 35: the asynchronous parameter server (parallel/ps.py) on
+    mlp_mnist at its preset's width, server and workers on the card. (a)
+    one worker at max_staleness 0 (synchronous) for PS_SYNC_STEPS pushes
+    against a plain momentum-SGD loop over the same batches from the same
+    weights (PS_SYNC_TOL); (b) scripts/train_ps.py --workers 2 --steps 60
+    through its main(): its line, and a held-out loss below the initial
+    parameters'. Pushes a second, bytes a push and a pull, each applied
+    gradient's staleness, seconds in store calls and in gradient compute."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.parallel import ps
+    from pytorch_distributed_nn_tpu_torch.scripts import train_ps as script
+    from pytorch_distributed_nn_tpu_torch.train.losses import get_loss_fn
+
+    t_start = time.monotonic()
+    cfg, dataset, model, tx, grad_fn, loss_of = script.setup(
+        "mlp_mnist", "cuda", PS_SYNC_STEPS)
+    o = cfg.optim
+    if (o.name, o.schedule, o.weight_decay, o.warmup_steps) != (
+            "momentum", "constant", 0.0, 0):
+        raise AssertionError(f"mlp_mnist's optimizer is not plain momentum "
+                             f"SGD: {o}")
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    batches = [script.batch_on(dataset, i, "cuda")
+               for i in range(PS_SYNC_STEPS)]
+    stats = []
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    got, applied = ps.run_ps_local(params, tx, grad_fn, [batches],
+                                   max_staleness=0, device="cuda",
+                                   stats=stats)
+    sync = ps_summary(stats, time.monotonic() - t0)
+    want = ps_plain_momentum(model, get_loss_fn(cfg.data.dataset), batches,
+                             o.lr, o.momentum)
+    sync_err = max((got[k] - w).abs().max().item()
+                   / max(w.abs().max().item(), 1e-30)
+                   for k, w in want.items())
+    moved = max((want[k] - params[k]).abs().max().item() for k in want)
+    # (b) the script, its run_ps_local timed and its stats kept
+    runs = []
+    original = ps.run_ps_local
+
+    def kept(*a, **kw):
+        kw["stats"] = st = []
+        t1 = time.monotonic()
+        out = original(*a, **kw)
+        runs.append(ps_summary(st, time.monotonic() - t1))
+        return out
+
+    ps.run_ps_local = kept
+    try:
+        lines, script_s = run_script(script.main, [
+            "--workers", str(PS_WORKERS), "--steps", str(PS_STEPS)])
+    finally:
+        ps.run_ps_local = original
+    m = re.fullmatch(r"ps: applied (\d+) grads from (\d+) workers, "
+                     r"held-out loss (\d+\.\d+)", lines[-1])
+    _, dataset, model, *_, loss_of = script.setup("mlp_mnist", "cuda",
+                                                  PS_STEPS)
+    x, y = script.batch_on(dataset, script.HELD_OUT_STEP, "cuda")
+    initial = loss_of({k: p.detach() for k, p in model.named_parameters()},
+                      x, y)
+    out = dict(card=card_line(), sync=dict(
+        steps=PS_SYNC_STEPS, max_rel_err=sync_err, tol=PS_SYNC_TOL,
+        plain_moved=moved, **sync),
+        script=dict(line=lines[-1], script_s=script_s,
+                    initial_held_out_loss=initial,
+                    **(runs[0] if runs else {})),
+        phase_s=time.monotonic() - t_start)
+    log(f"[ps] {json.dumps(out)}")
+    if applied != PS_SYNC_STEPS or sync["staleness"] != [1] * PS_SYNC_STEPS:
+        raise AssertionError(f"(a) not synchronous: {sync}")
+    if not sync_err <= PS_SYNC_TOL or not moved > 0:
+        raise AssertionError(f"(a) the parameter server's parameters "
+                             f"{sync_err:.3e} from the plain loop's (limit "
+                             f"{PS_SYNC_TOL}; the loop moved {moved})")
+    if not m or int(m.group(1)) != PS_STEPS or \
+            int(m.group(2)) != PS_WORKERS or len(runs) != 1:
+        raise AssertionError(f"(b) train_ps printed {lines}")
+    if not float(m.group(3)) < initial:
+        raise AssertionError(f"(b) held-out loss {m.group(3)} not below the "
+                             f"initial {initial}")
+    return out
+
+
+LAUNCH_STEPS = 3  # the first 3 of phase 20's straight steps
+LAUNCH_FAULTS = ("preempt", "hang", "crash")
+# the agent's watch: a beat every 0.5 s; a worker silent for 30 s is hung
+# (it must reach its first beat inside that time, once torch is imported:
+# on the H100's host a worker took more than 12 s to, three starting at
+# once); the progress watchdog silences a worker whose steps stop for 12 s
+# (a step that saves waits for the previous step's ~1 GB write: 1.7-3.1 s
+# a step on the H100, so about 4x the slowest step seen, 3x on a host 1.2x
+# slower; at 5 s two whole runs restarted a healthy worker as hung)
+LAUNCH_HB = dict(heartbeat_timeout_s=30.0, heartbeat_interval_s=0.5,
+                 progress_timeout_s=12.0)
+LAUNCH_TIMEOUT_S = 300
+# the runner phase 36 writes beside its checkpoints: the train entry point,
+# with each incarnation's start, step times, losses and flash launches
+# recorded, and on the first incarnation the fault after step 2 (once the
+# step-1 checkpoint is on disk): SIGTERM to itself, a sleep of the main
+# thread, or os._exit. It starts the heartbeat before it imports the
+# Trainer (the call is idempotent: bootstrap's returns the same reporter)
+LAUNCH_RUNNER = r'''
+import json, os, signal, sys, time
+t_python = time.time()
+out, fault, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+inc = int(os.environ["TPUNN_RESTART"])
+log = os.open(f"{out}/inc{inc}.log", os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+os.dup2(log, 1)
+os.dup2(log, 2)
+from pytorch_distributed_nn_tpu_torch.runtime import failure
+failure.maybe_start_heartbeat()
+t_beat = time.time()
+from pytorch_distributed_nn_tpu_torch.ops import flash_attention as fa
+from pytorch_distributed_nn_tpu_torch.train import __main__ as entry
+from pytorch_distributed_nn_tpu_torch.train import checkpoint, trainer
+
+rec = {"incarnation": inc, "t_python": t_python, "t_beat": t_beat,
+       "t_start": time.time(), "step_t": []}
+path = f"{out}/inc{inc}.json"
+
+
+def dump():
+    rec["launches"] = {n: getattr(fa, n).launches
+                       for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    with open(path + ".tmp", "w") as f:
+        json.dump(rec, f)
+    os.replace(path + ".tmp", path)
+
+
+managers = []
+save = checkpoint.CheckpointManager.save
+
+
+def tracked_save(self, *a, **kw):
+    managers.append(self)
+    return save(self, *a, **kw)
+
+
+checkpoint.CheckpointManager.save = tracked_save
+progress = failure.notify_progress
+
+
+def notify_progress():
+    progress()
+    rec["step_t"].append(time.time())
+    dump()
+    if inc == 0 and fault != "none" and len(rec["step_t"]) == 2:
+        for m in managers:
+            m.wait()  # the step-1 checkpoint on disk
+        rec["fault_t"] = time.time()
+        dump()
+        if fault == "preempt":
+            os.kill(os.getpid(), signal.SIGTERM)
+        elif fault == "hang":
+            time.sleep(3600)
+        elif fault == "crash":
+            os._exit(17)
+
+
+failure.notify_progress = notify_progress
+train = trainer.Trainer.train
+
+
+def recorded(self, steps=None):
+    rec["start"] = self.data_step
+    rec["t_train"] = time.time()  # the Trainer built (and restored)
+    dump()
+    try:
+        return train(self, steps)
+    finally:
+        rec["losses"] = self.losses()
+        rec["t_end"] = time.time()
+        dump()
+
+
+trainer.Trainer.train = recorded
+sys.exit(entry.main(argv))
+'''
+
+
+def launch_run(fault, root):
+    """One agent over one worker (the train entry point through the
+    runner) at phase 20's configuration with ``fault``: the LaunchResult,
+    the agent's detection and spawn times, its restart policy's counts and
+    each incarnation's record."""
+    from pytorch_distributed_nn_tpu_torch import launch
+
+    class TimedAgent(launch.ElasticAgent):
+        """The agent, with the moment each watch ended (a detection) and
+        each gang was spawned."""
+
+        def _spawn(self, incarnation, store_port):
+            self.spawned.append(time.time())
+            super()._spawn(incarnation, store_port)
+
+        def _watch(self, detector):
+            out = super()._watch(detector)
+            self.detected.append(time.time())
+            return out
+
+        def _policy(self):
+            self.policy = super()._policy()
+            return self.policy
+
+    d = os.path.join(root, fault)
+    os.makedirs(d)
+    runner = os.path.join(root, "runner.py")
+    argv = [runner, d, fault, "--preset", "llama3_longcontext", "--steps",
+            str(LAUNCH_STEPS), "--log_every", "1", "--checkpoint_dir",
+            os.path.join(d, "ckpt"), "--checkpoint_every", "1",
+            "--model.extra", ckpt_overrides()["model.extra"]]
+    cfg = launch.LaunchConfig(
+        nprocs=1, max_restarts=0 if fault == "preempt" else 1,
+        backoff_base_s=0.5, kill_grace_s=2.0, **LAUNCH_HB,
+        env={"PYTHONPATH": HERE + os.pathsep
+             + os.environ.get("PYTHONPATH", "")})
+    agent = TimedAgent(argv, cfg)
+    agent.spawned, agent.detected = [], []
+    result = agent.run()
+    incs = []
+    for i in range(len(result.incarnations)):
+        p = os.path.join(d, f"inc{i}.json")
+        incs.append(json.load(open(p)) if os.path.exists(p) else None)
+    logs = {i: open(os.path.join(d, f"inc{i}.log")).read()[-3000:]
+            for i in range(len(result.incarnations))
+            if os.path.exists(os.path.join(d, f"inc{i}.log"))}
+    return dict(result=result, detected=agent.detected,
+                spawned=agent.spawned, incs=incs, logs=logs,
+                budget_restarts=agent.policy.budget_restarts,
+                preempt_restarts=agent.policy.preempt_restarts)
+
+
+def phase_launch(straight=None):
+    """Phase 36: the elastic agent (launch.py) on the card, over one worker
+    (NCCL refuses two ranks on one card; gangs of several ranks run on the
+    CPU over gloo in the tests) that runs the train entry point at phase
+    20's configuration (llama3_longcontext at CKPT_LAYERS layers, full
+    width, T 32768, the flash kernels; a checkpoint every step), with the
+    heartbeat and the progress watchdog on. Three runs side by side, each
+    faulted after step 2 of its first incarnation: (a) SIGTERM, a graceful
+    exit 83, a restart charged to no budget (max_restarts 0); (b) the main
+    thread asleep: the watchdog goes silent, the agent reports a hang; (c)
+    os._exit: a crash charged to the budget. Each must end rc 0 after
+    LAUNCH_STEPS steps, resumed from its checkpoint, its losses those of
+    ``straight`` (phase 20's straight run, its first LAUNCH_STEPS; run
+    here when not given) within CKPT_TOL. Per run: the
+    seconds from the fault to its detection and from detection to the next
+    incarnation's first step, the steps redone, the flash launches of each
+    incarnation."""
+    import torch
+
+    t_start = time.monotonic()
+    if straight is None:
+        t = longcontext(**ckpt_overrides())
+        t.train(steps=LAUNCH_STEPS)
+        straight = t.losses()
+        t.close()
+        del t
+        gc.collect()
+        torch.cuda.empty_cache()
+    straight = straight[:LAUNCH_STEPS]
+    L = json.loads(ckpt_overrides()["model.extra"])["num_layers"]
+    per_step = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    root = tempfile.mkdtemp(prefix="chip-smoke-launch-")
+    try:
+        with open(os.path.join(root, "runner.py"), "w") as f:
+            f.write(LAUNCH_RUNNER)
+        with concurrent.futures.ThreadPoolExecutor(len(LAUNCH_FAULTS)) as ex:
+            futures = {f: ex.submit(launch_run, f, root)
+                       for f in LAUNCH_FAULTS}
+            done, _ = concurrent.futures.wait(futures.values(),
+                                              timeout=LAUNCH_TIMEOUT_S)
+            if len(done) != len(futures):
+                raise TimeoutError(f"phase 36 ran past {LAUNCH_TIMEOUT_S} s")
+            runs = {f: fut.result() for f, fut in futures.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want_reason = {"preempt": "preempt", "hang": "hang", "crash": "crash"}
+    report, bad = {}, []
+    for fault, run in runs.items():
+        res, incs = run["result"], run["incs"]
+        r = dict(exit_code=res.exit_code,
+                 reasons=[i.reason for i in res.incarnations],
+                 codes=[i.code for i in res.incarnations],
+                 incarnation_s=[i.duration_s for i in res.incarnations],
+                 budget_restarts=run["budget_restarts"],
+                 preempt_restarts=run["preempt_restarts"])
+        report[fault] = r
+        if (res.exit_code != 0 or r["reasons"] != [want_reason[fault], "ok"]
+                or any(i is None for i in incs)):
+            bad.append(f"{fault}: {r} {run['logs']}")
+            continue
+        first, last = incs
+        r["fault_to_detection_s"] = run["detected"][0] - first["fault_t"]
+        r["detection_to_first_step_s"] = (last["step_t"][0]
+                                          - run["detected"][0])
+        r["detection_to_spawn_s"] = run["spawned"][1] - run["detected"][0]
+        # where the restart's time goes: the interpreter's start, torch's
+        # import (to the first beat), the port's imports and the Trainer
+        # (model, restore), its first step
+        r["restart_parts_s"] = dict(
+            python=last["t_python"] - run["spawned"][1],
+            to_first_beat=last["t_beat"] - last["t_python"],
+            imports_and_trainer=last["t_train"] - last["t_beat"],
+            first_step=last["step_t"][0] - last["t_train"])
+        r["resumed_at"] = last["start"]
+        r["steps_redone"] = len(first["step_t"]) - last["start"]
+        r["launches"] = [first["launches"], last["launches"]]
+        r["losses"] = [first.get("losses"), last["losses"]]
+        ran = [len(first["step_t"]), LAUNCH_STEPS - last["start"]]
+        want_l = [{k: v * n for k, v in per_step.items()} for n in ran]
+        if first.get("losses") is not None:  # a graceful exit records them
+            got = first["losses"][:last["start"]] + last["losses"]
+            want = straight
+        else:  # killed: the resumed steps against the straight run's
+            got, want = last["losses"], straight[last["start"]:]
+        r["loss_max_rel_diff"] = max(
+            abs(a - b) / abs(b) for a, b in zip(got, want)) \
+            if got and len(got) == len(want) else None
+        if r["launches"] != want_l:
+            bad.append(f"{fault}: flash launches {r['launches']}, want "
+                       f"{want_l}")
+        if r["loss_max_rel_diff"] is None or \
+                not r["loss_max_rel_diff"] <= CKPT_TOL:
+            bad.append(f"{fault}: losses {got} against the straight run's "
+                       f"{want} (limit {CKPT_TOL})")
+        if fault == "preempt" and (r["budget_restarts"], r["resumed_at"]) \
+                != (0, 2):
+            bad.append(f"preempt: {r}")
+        if fault != "preempt" and (r["budget_restarts"], r["resumed_at"]) \
+                != (1, 1):
+            bad.append(f"{fault}: {r}")
+    out = dict(card=card_line(), straight=straight, runs=report,
+               heartbeat=LAUNCH_HB, phase_s=time.monotonic() - t_start)
+    log(f"[launch] {json.dumps(out)}")
+    if bad:
+        raise AssertionError("phase 36: " + "; ".join(bad))
+    return out
+
+
 def main() -> int:
     started = time.monotonic()
     import torch
@@ -6883,6 +7454,12 @@ def main() -> int:
     tick("phase_tensor")
     zero_seq = phase_zero_seq()
     tick("phase_zero_seq")
+    ps_run = phase_ps()
+    tick("phase_ps")
+    gc.collect()
+    torch.cuda.empty_cache()  # the card's memory to phase 36's workers
+    launched = phase_launch(ckpt["straight"])
+    tick("phase_launch")
     gen_launches = scripts["convert"]["w8a16_launches"]
     tp_gen = tensor["generate"]["int8"]
     launches = (sum(serve_launches.values()) + ckpt_int8
@@ -7031,6 +7608,14 @@ def main() -> int:
                     f"{TP_STEPS} steps, by name in the last"),
             launches_zero_seq={k: zero_seq[k]["launches"][name]
                                for k in ("zero_seq", "seq_tensor")},
+            launches_launch={f: [inc[name] for inc in r["launches"]]
+                             for f, r in launched["runs"].items()},
+            launch="phase 36: the train entry point under the elastic "
+                   "agent (llama3_longcontext at "
+                   f"{CKPT_LAYERS} layer(s), T 32768), each worker process "
+                   "counting from 0: the first incarnation's launches (2 "
+                   "steps, then the fault) and the resumed one's, for each "
+                   "fault",
             zero_seq="phase 34 on rank 0 of 4 processes sharing the card: "
                      "llama3_longcontext under ZeRO-3 on fsdp 2 x seq 2 "
                      "and on seq 2 x tensor 2, the ring's backward pairs, "
@@ -7114,7 +7699,7 @@ def main() -> int:
                         files=files, pipe_moe=pipe_moe,
                         prefix_lora=prefix_lora, tenants=tenants,
                         fault1=fault1, scripts=scripts, tensor=tensor,
-                        zero_seq=zero_seq)))
+                        zero_seq=zero_seq, ps=ps_run, launch=launched)))
     from pytorch_distributed_nn_tpu_torch.runtime import bootstrap
 
     bootstrap.shutdown()  # the NCCL group of the data-parallel phases

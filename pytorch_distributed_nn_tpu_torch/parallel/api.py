@@ -13,7 +13,9 @@ interleaved; ``parallel/pipeline.py``), each with the tensor axis
 (``mesh.tensor > 1``, ``parallel/tensor.py``): ``single``/``dp`` then run
 as ZeRO's step at stage 0, as the JAX ``dp`` step does. Sequence
 parallelism runs under ``single``, ``dp`` and ``zero``, with or without
-the tensor axis. ``ps`` raises, naming the ROADMAP item that ports it;
+the tensor axis. ``ps`` raises ``ValueError`` as in the JAX package: the
+asynchronous parameter server is a process-level program
+(``parallel/ps.py``, run by ``scripts/train_ps.py``), not a step;
 ``dp_explicit`` (the reference's hand-rolled loop over replicated
 parameters) refuses ``mesh.tensor > 1``.
 """
@@ -25,7 +27,6 @@ from typing import Callable
 
 from pytorch_distributed_nn_tpu_torch.config import TrainConfig
 from pytorch_distributed_nn_tpu_torch.runtime.mesh import (
-    REMAINING,
     MeshSpec,
     ProcessMesh,
 )
@@ -98,9 +99,11 @@ def make_train_step(cfg: TrainConfig, loss_fn: Callable,
 
     strategy = cfg.parallel.strategy
     if strategy == "ps":
-        raise NotImplementedError(
-            f"strategy 'ps' (the asynchronous parameter server) is not "
-            f"ported yet ({REMAINING})")
+        raise ValueError(
+            "the async parameter-server strategy is process-level, not a "
+            "step: run pytorch_distributed_nn_tpu_torch/scripts/train_ps.py "
+            "(python -m pytorch_distributed_nn_tpu_torch.scripts.train_ps; "
+            "see parallel/ps.py)")
     if strategy not in _STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}")
     seq = (mesh or cfg.mesh).seq

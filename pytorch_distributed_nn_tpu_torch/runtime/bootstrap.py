@@ -18,7 +18,9 @@ messages that gloo does not send go through host memory (the ring's
 shifts). A pipeline on shared cards still holds every stage in each
 process (``runtime/mesh.pipe_is_local``). A world of
 one with no rendezvous in the environment uses an in-process
-``dist.HashStore``, so a one-process run opens no port.
+``dist.HashStore``, so a one-process run opens no port. Under the elastic
+agent (``launch.py``) the process starts heartbeating into the agent's
+store (``runtime/failure.maybe_start_heartbeat``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from pytorch_distributed_nn_tpu_torch.ops import collectives as cc
+from pytorch_distributed_nn_tpu_torch.runtime import failure
 from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -106,6 +109,10 @@ def initialize(device: str | torch.device = "cuda") -> ProcessInfo:
             f"process group is rank {dist.get_rank()} of "
             f"{dist.get_world_size()}, the environment says {rank} of "
             f"{world}")
+    # under the elastic agent (launch.py) this starts the liveness
+    # heartbeat; a plain launch has no store in its environment and it is
+    # a no-op
+    failure.maybe_start_heartbeat(rank=rank)
     return ProcessInfo(rank=rank, world_size=world, local_rank=local_rank,
                        backend=backend, device=dev)
 

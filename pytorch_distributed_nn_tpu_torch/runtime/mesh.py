@@ -12,8 +12,9 @@ the experts of a mixture-of-experts layer over ``expert``
 (``parallel/pipeline.py``) and each layer's products over ``tensor``
 (``parallel/tensor.py``), in any product of them. ZeRO's parameter slices
 are the same on every seq rank: a step's gradients are averaged over
-data x fsdp x seq (``ProcessMesh.grad``). What is left of the sharded
-strategies (the parameter server) raises, naming :data:`REMAINING`.
+data x fsdp x seq (``ProcessMesh.grad``). The asynchronous parameter
+server is not a mesh strategy: it runs as processes of its own
+(``parallel/ps.py``).
 
 Rank r sits at the row-major coordinates of r over ``AXES`` in the
 resolved shape (:func:`coords`), the order in which the JAX package lays
@@ -34,8 +35,6 @@ import numpy as np
 import torch.distributed as dist
 
 AXES: tuple[str, ...] = ("pipe", "data", "fsdp", "expert", "seq", "tensor")
-# what is left of the sharded strategies; every port error for it names this
-REMAINING = "ROADMAP.md §1 item 3, the remaining sharded strategies"
 
 
 @dataclasses.dataclass

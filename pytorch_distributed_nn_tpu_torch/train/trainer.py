@@ -13,10 +13,13 @@ seeded init or given weights, the per-step loop with its logging cadence
 (on rank 0), the held-out evaluation, checkpoints (``train/checkpoint.py``:
 restored at construction when ``resume`` is set, saved every
 ``checkpoint_every`` steps), the preemption notice (``runtime/failure.py``:
-SIGTERM -> a synchronous save at the step boundary -> ``SystemExit(83)``)
-and the multistep loop (``train/multistep.py``: ``multistep_k`` steps a
-dispatch, one CUDA graph on the card). Not ported (ROADMAP.md §1 item 5):
-the obs, chaos, xray and flight hooks; their config fields
+SIGTERM -> a synchronous save at the step boundary -> ``SystemExit(83)``),
+the elastic agent's progress watchdog (``failure.notify_progress`` after
+each step, dispatch and evaluation batch, ``failure.notify_done`` where a
+loop ends or an evaluation starts) and the multistep loop
+(``train/multistep.py``: ``multistep_k`` steps a dispatch, one CUDA graph
+on the card). Not ported (ROADMAP.md §1 item 5): the obs, chaos, xray and
+flight hooks; their config fields
 (``--metrics_path``, ``--prom_path``, ``--profile_dir``) are not declared,
 so asking for them fails as an unknown field.
 """
@@ -145,7 +148,7 @@ class Trainer:
                 log.info("resumed from step %d (data_step %d)",
                          meta["step"], self.data_step)
         # SIGTERM -> finish the step -> synchronous save -> exit 83; only
-        # under TPUNN_PREEMPT=1. Installed last, so a
+        # under the elastic agent or TPUNN_PREEMPT=1. Installed last, so a
         # failed constructor leaves no handler behind
         self._preemptible = failure.install_preemption_handler()
 
@@ -222,6 +225,8 @@ class Trainer:
             g = self.data_step  # 1-based global step just run
             self.state, metrics = self.step_fn(self.state, x, y)
             self.last_metrics = metrics
+            # the agent's progress watchdog (launch.py --progress-timeout)
+            failure.notify_progress()
             if (self.ckpt is not None and cfg.checkpoint_every
                     and g % cfg.checkpoint_every == 0):
                 self.ckpt.save(self.state, data_step=self.data_step)
@@ -242,6 +247,9 @@ class Trainer:
                              rec.seconds)
             if failure.preempt_requested():
                 self._graceful_preempt(g)
+        # work after the loop (checkpoint drains, eval) is unbounded: back
+        # to liveness-only heartbeats so it cannot read as a hang
+        failure.notify_done()
         return self.history
 
     def _graceful_preempt(self, step: int) -> None:
@@ -254,6 +262,7 @@ class Trainer:
         if self.ckpt is not None:
             self.ckpt.save(self.state, data_step=self.data_step, force=True)
             self.ckpt.wait()  # synchronous: the process is ending
+        failure.notify_done()
         raise SystemExit(failure.GRACEFUL_EXIT_CODE)
 
     # -- multistep ---------------------------------------------------------
@@ -353,6 +362,7 @@ class Trainer:
             self.data_step += k_eff
             g = self.data_step  # 1-based step count after this window
             self.last_metrics = metrics
+            failure.notify_progress()
             if (self.ckpt is not None and cfg.checkpoint_every
                     and g // cfg.checkpoint_every
                     > (g - k_eff) // cfg.checkpoint_every):
@@ -385,6 +395,7 @@ class Trainer:
                 t_last = now
             if failure.preempt_requested():
                 self._graceful_preempt(g)
+        failure.notify_done()
         return self.history
 
     @torch.no_grad()
@@ -421,6 +432,9 @@ class Trainer:
         n = self.cfg.eval_batches if num_batches is None else num_batches
         if n <= 0:
             raise ValueError(f"evaluate needs >= 1 batches, got {n}")
+        # disarm the progress watchdog across the evaluation's start; each
+        # batch done below arms and feeds it again
+        failure.notify_done()
         losses, accs = [], []
         self.model.eval()
         try:
@@ -443,6 +457,7 @@ class Trainer:
                     loss, acc = both[0], both[1]
                 losses.append(loss.item())
                 accs.append(acc.item())
+                failure.notify_progress()  # eval batches are progress
         finally:
             self.model.train()
         rec = EvalRecord(step=self.data_step - 1,

@@ -26,7 +26,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
               "ops.bn_stats", "ops.quantize", "ops.buckets",
               "ops.collectives", "nn.batchnorm", "models.resnet",
               "models.lenet", "models.mlp", "runtime.bootstrap",
-              "parallel.dp"):
+              "parallel.dp", "launch", "runtime.native", "runtime.failure",
+              "parallel.ps", "scripts.train_ps"):
         assert f"pytorch_distributed_nn_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -82,4 +83,10 @@ def test_cuda_without_cuda_raises(monkeypatch):
         train_main(["--preset", "llama3_longcontext"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_main(["--preset", "resnet50_dp"])
+    from pytorch_distributed_nn_tpu_torch.scripts.train_ps import (
+        main as ps_main,
+    )
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ps_main(["--steps", "2"])
     assert resolve_device("cpu") == torch.device("cpu")

@@ -220,8 +220,9 @@ def test_mesh_resolves_as_jax_and_refuses_more_than_one_device():
 
 
 @pytest.mark.parametrize("override,err,match", [
-    ({"parallel.strategy": "ps"}, NotImplementedError,
-     "remaining sharded strat"),
+    # the parameter server runs as its own processes (parallel/ps.py), as
+    # in the JAX package, whose make_train_step raises the same way
+    ({"parallel.strategy": "ps"}, ValueError, "scripts/train_ps.py"),
     # zero runs under seq > 1 now; what the port still refuses there is
     # an attention that is not sequence-parallel (the JAX package warns)
     ({"parallel.strategy": "zero", "mesh.seq": "2"}, ValueError,
